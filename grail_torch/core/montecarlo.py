@@ -1,0 +1,77 @@
+"""Monte Carlo sampling routines the path integrator reads (port of the
+matching parts of grail/core/montecarlo.py)."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .vecmath import PI
+
+_COUNT_MAX = 64   # counting search up to this table width, as the reference
+
+
+def concentric_sample_disk(u1, u2):
+    """Shirley-Chiu concentric map (pbrt ConcentricSampleDisk), branch-free."""
+    sx = 2.0 * u1 - 1.0
+    sy = 2.0 * u2 - 1.0
+    zero = (sx == 0.0) & (sy == 0.0)
+    use_x = torch.abs(sx) > torch.abs(sy)
+    r = torch.where(use_x, sx, sy)
+    theta = torch.where(
+        use_x,
+        (PI / 4.0) * (sy / torch.where(sx == 0.0, 1.0, sx)),
+        (PI / 2.0) - (PI / 4.0) * (sx / torch.where(sy == 0.0, 1.0, sy)),
+    )
+    dx = torch.where(zero, 0.0, r * torch.cos(theta))
+    dy = torch.where(zero, 0.0, r * torch.sin(theta))
+    return dx, dy
+
+
+def cosine_sample_hemisphere(u1, u2):
+    dx, dy = concentric_sample_disk(u1, u2)
+    z = torch.sqrt(torch.clamp_min(1.0 - dx * dx - dy * dy, 0.0))
+    return torch.stack([dx, dy, z], dim=-1)
+
+
+def uniform_sample_triangle(u1, u2):
+    """Barycentrics (b0, b1) (pbrt UniformSampleTriangle)."""
+    su1 = torch.sqrt(u1)
+    return 1.0 - su1, u2 * su1
+
+
+def power_heuristic(nf, f_pdf, ng, g_pdf):
+    """beta=2 power heuristic (pbrt PowerHeuristic)."""
+    f = nf * f_pdf
+    g = ng * g_pdf
+    return (f * f) / torch.clamp_min(f * f + g * g, 1e-12)
+
+
+def batched_searchsorted(cdf, u):
+    """Last interval index i with cdf[i] <= u, clipped to [0, n-2], for one
+    shared 1-D table."""
+    n = cdf.shape[-1]
+    if n <= _COUNT_MAX:
+        cnt = torch.sum((cdf[1:-1] <= u[..., None]).to(torch.int32), dim=-1)
+        return torch.clamp(cnt, 0, n - 2)
+    return _binary_search(cdf, torch.zeros_like(u, dtype=torch.int64), n, u)
+
+
+def _binary_search(flat, base, n, u):
+    lo = torch.zeros(u.shape, dtype=torch.int64, device=u.device)
+    hi = torch.full(u.shape, n - 1, dtype=torch.int64, device=u.device)
+    for _ in range(max(1, int(math.ceil(math.log2(n))) + 1)):
+        mid = (lo + hi + 1) // 2
+        go_right = flat[base + mid] <= u
+        lo = torch.where(go_right, mid, lo)
+        hi = torch.where(go_right, hi, mid - 1)
+    return torch.clamp(lo, 0, n - 2)
+
+
+def searchsorted_rows(cdf_tab, rows, u):
+    """Per-lane interval search in a table of CDF rows: cdf_tab (R, n), rows
+    (N,) row per lane, u (N,). Returns (N,) index in [0, n-2]."""
+    r, n = cdf_tab.shape
+    if n <= _COUNT_MAX and r == 1:
+        return batched_searchsorted(cdf_tab[0], u)
+    return _binary_search(cdf_tab.reshape(-1), rows.to(torch.int64) * n, n, u)

@@ -1,0 +1,69 @@
+"""Carry a finalized reference scene across to the port.
+
+`scene_from_numpy` takes the JAX package's finalized scene with every leaf
+converted to numpy (e.g. `jax.tree_util.tree_map(np.asarray, scene)`) and its
+SceneMeta, read by attribute name only, and returns the port's scene dict and
+SceneMeta on `device`. Leaves the port does not read are dropped; a scene
+that needs a route the port lacks raises. This module imports nothing of the
+reference: everything arrives as numpy arrays and plain attributes.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from ..core.rng import SamplerConfig
+from ..device import resolve_device
+from ..engine.filters import FilterConfig
+from ..shade.materials import MAT_FIELDS
+from ..shade.textures import TexSpec
+from .buffers import SceneMeta, to_torch
+
+_GEOMETRY = ("verts", "vnorm", "vuv", "tri_idx", "tri_mat", "tri_light", "tri_flags")
+_LIGHTS = ("type", "emit", "area", "av0", "av1", "av2", "aflip", "acdf")
+_CAMERA = ("type", "raster2cam", "c2w", "lens_radius", "focal_distance", "shutter")
+# reference-side features whose routes are not ported yet
+_UNPORTED_LEAVES = ("bvh", "inst", "ring", "media", "env_map")
+_UNPORTED_META = {"has_env_map": False, "n_images": 0, "media_kinds": (),
+                  "has_bump": False, "alpha_rows": (), "light_image_rows": (),
+                  "crop": (0.0, 1.0, 0.0, 1.0)}
+
+
+def _same_fields(cls, obj):
+    return cls(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)})
+
+
+def meta_from(meta) -> SceneMeta:
+    """The port's SceneMeta from any object with the reference's attributes."""
+    for name, plain in _UNPORTED_META.items():
+        value = getattr(meta, name, plain)
+        if (tuple(value) if isinstance(plain, tuple) else value) != plain:
+            raise NotImplementedError(f"scene uses {name}: not ported yet")
+    return SceneMeta(
+        tex_specs=tuple(_same_fields(TexSpec, s) for s in meta.tex_specs),
+        lobe_types=tuple(int(t) for t in meta.lobe_types),
+        light_types=tuple(int(t) for t in meta.light_types),
+        n_lights=int(meta.n_lights),
+        n_tris=int(meta.n_tris),
+        sampler=_same_fields(SamplerConfig, meta.sampler),
+        cam_kind=int(meta.cam_kind),
+        filter=_same_fields(FilterConfig, meta.filter),
+        xres=int(meta.xres),
+        yres=int(meta.yres),
+    )
+
+
+def scene_from_numpy(scene_np, meta, device=None):
+    """(port scene dict, port SceneMeta) from the reference's numpy scene."""
+    device = resolve_device(device)
+    for key in _UNPORTED_LEAVES:
+        if scene_np.get(key) is not None:
+            raise NotImplementedError(f"scene has {key!r}: not ported yet")
+    for key in ("images", "brdf_tables", "density_grids"):
+        if len(scene_np.get(key, ())) > 0:
+            raise NotImplementedError(f"scene has {key!r}: not ported yet")
+    scene = {k: scene_np[k] for k in _GEOMETRY}
+    scene["materials"] = {k: scene_np["materials"][k] for k in MAT_FIELDS}
+    scene["tex_data"] = {k: scene_np["tex_data"][k] for k in ("const", "w2t")}
+    scene["lights"] = {k: scene_np["lights"][k] for k in _LIGHTS}
+    scene["camera"] = {k: scene_np["camera"][k] for k in _CAMERA}
+    return to_torch(scene, device), meta_from(meta)

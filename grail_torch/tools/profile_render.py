@@ -1,0 +1,132 @@
+"""Where the device time of one render goes, on the card.
+
+    python3 -m grail_torch.tools.profile_render [--res 256] [--spp 16] [--depth 5]
+
+Renders the Cornell box once to warm up, once timed, then once under
+torch.profiler, and prints JSON lines: the render's wall time (unprofiled and
+profiled), the summed kernel time and the device's busy share (kernel time
+over the unprofiled wall time), the number of kernel launches; for each stage
+of the path its kernel time, the device timeline it spans and the host time
+spent issuing it (all inclusive of what runs inside; sample_li lies inside
+direct lighting and bsdf_eval partly inside bsdf_sample, so stages nest);
+and the kernels and operators that take the most device time. Needs a CUDA
+device.
+"""
+from __future__ import annotations
+
+import argparse
+import functools
+import json
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile, record_function
+
+from ..core import rng
+from ..engine import camera, film, integrator, render as rnd
+from ..kernels import intersect
+from ..scene.presets import cornell_box
+from ..shade import bsdf, geometry, lights, materials
+
+# stage name -> (module, function names) wrapped in a profiler range
+_STAGES = {
+    "rng": (rng, ("sample_1d", "sample_2d")),
+    "camera": (camera, ("generate_rays",)),
+    "intersect": (intersect, ("intersect", "intersect_p")),
+    "shading_geometry": (geometry, ("shading_geometry",)),
+    "textures_lobes": (materials, ("gather_lobes",)),
+    "bsdf_sample": (bsdf, ("bsdf_sample",)),
+    "bsdf_eval": (bsdf, ("bsdf_f", "bsdf_pdf")),    # also inside bsdf_sample
+    "sample_li": (lights, ("sample_li",)),
+    "direct_lighting": (integrator, ("estimate_direct",)),
+    "compaction": (integrator, ("_compaction_take",)),
+    "film": (film, ("add_samples_grid", "develop")),
+}
+
+
+def _ranged(stage, fn):
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        with record_function("stage:" + stage):
+            return fn(*args, **kwargs)
+    return wrapper
+
+
+def _instrument():
+    """Wrap each stage's functions in a named profiler range; returns the
+    originals so the caller can restore them."""
+    saved = []
+    for stage, (module, names) in _STAGES.items():
+        for name in names:
+            fn = getattr(module, name)
+            saved.append((module, name, fn))
+            setattr(module, name, _ranged(stage, fn))
+    return saved
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--res", type=int, default=256)
+    ap.add_argument("--spp", type=int, default=16)
+    ap.add_argument("--depth", type=int, default=5)
+    ap.add_argument("--top", type=int, default=25)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_render: no CUDA device")
+    dev = torch.device("cuda", 0)
+    scene, meta, _ = cornell_box(args.res, args.res, args.spp, device=dev)
+    cfg = integrator.IntegratorConfig(kind="path", max_depth=args.depth)
+    rnd.render(scene, meta, cfg, spp=args.spp, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rnd.render(scene, meta, cfg, spp=args.spp, device=dev)
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
+
+    saved = _instrument()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rnd.render(scene, meta, cfg, spp=args.spp, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+    events = prof.key_averages()
+    # the stage ranges appear twice: as host ranges (CPU) and as the device
+    # timeline span they cover (CUDA user annotations, idle gaps included)
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("stage:")]
+    kernel_us = sum(e.self_device_time_total for e in kernels)
+    print(json.dumps({
+        "render": {"res": args.res, "spp": args.spp, "max_depth": args.depth,
+                   "wall_ms": wall_plain * 1e3, "wall_ms_profiled": wall * 1e3,
+                   "kernel_ms": kernel_us / 1e3,
+                   "device_busy_share": kernel_us / 1e3 / (wall_plain * 1e3),
+                   "kernel_launches": sum(e.count for e in kernels),
+                   "gpu": torch.cuda.get_device_name(0)}}))
+    stages = {}
+    for e in events:
+        if e.key.startswith("stage:"):
+            st = stages.setdefault(e.key[len("stage:"):], {"calls": e.count})
+            if e.device_type == DeviceType.CUDA:
+                st["device_span_ms"] = e.self_device_time_total / 1e3
+            else:
+                st["kernel_ms"] = e.device_time_total / 1e3
+                st["host_ms_profiled"] = e.cpu_time_total / 1e3
+    print(json.dumps({"stages": stages}))
+    for kind, rows in (("kernel", kernels),
+                       ("operator", [e for e in events
+                                     if e.device_type == DeviceType.CPU
+                                     and e.key.startswith("aten::")])):
+        rows = sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)
+        for e in rows[:args.top]:
+            print(json.dumps({kind: e.key[:120], "count": e.count,
+                              "self_device_ms": e.self_device_time_total / 1e3}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,80 @@
+"""The port's Cornell box against the reference's, carried across by
+scene_from_numpy: integer leaves exactly equal, float leaves to rtol 1e-6
+(both packages build on the host in numpy, so they should hold the same
+bits), and the same SceneMeta."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+
+from grail.scene.presets import cornell_box as jax_cornell
+from grail_torch.scene.bridge import scene_from_numpy
+from grail_torch.scene.buffers import SceneBuilder
+from grail_torch.scene.presets import cornell_box
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module")
+def both():
+    js, jm, _ = jax_cornell(16, 16, 4)
+    scene_np = jax.tree_util.tree_map(np.asarray, js)
+    ts, tm, _ = cornell_box(16, 16, 4, device="cpu")
+    return scene_np, jm, ts, tm
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, prefix + k + "/")
+        else:
+            yield prefix + k, v
+
+
+def test_scene_leaves_match(both):
+    scene_np, jm, ts, _ = both
+    bridged, _ = scene_from_numpy(scene_np, jm, device="cpu")
+    ported = dict(_leaves(ts))
+    carried = dict(_leaves(bridged))
+    assert ported.keys() == carried.keys()
+    assert "lights/acdf" in ported and "camera/c2w/m0" in ported
+    for name, got in ported.items():
+        ref = carried[name].numpy()
+        got = got.numpy()
+        assert got.shape == ref.shape, name
+        if np.issubdtype(ref.dtype, np.floating):
+            assert got.dtype == np.float32, name
+            np.testing.assert_allclose(got, ref, rtol=1e-6, atol=0, err_msg=name)
+        else:
+            np.testing.assert_array_equal(got, ref, err_msg=name)
+
+
+def test_scene_meta_matches(both):
+    _, jm, _, tm = both
+    for field in dataclasses.fields(tm):
+        got = getattr(tm, field.name)
+        ref = getattr(jm, field.name)
+        if dataclasses.is_dataclass(got):
+            assert dataclasses.asdict(got) == dataclasses.asdict(ref), field.name
+        elif field.name == "tex_specs":
+            assert [dataclasses.asdict(s) for s in got] == \
+                [dataclasses.asdict(s) for s in ref]
+        else:
+            assert got == ref, field.name
+
+
+def test_unported_scenes_raise(both):
+    scene_np, jm, _, _ = both
+    with pytest.raises(NotImplementedError, match="bvh"):
+        scene_from_numpy(dict(scene_np, bvh={"stream": np.zeros(4)}), jm, device="cpu")
+    with pytest.raises(NotImplementedError, match="has_bump"):
+        scene_from_numpy(scene_np, dataclasses.replace(jm, has_bump=True),
+                         device="cpu")
+    b = SceneBuilder()
+    verts = np.random.RandomState(0).rand(65 * 3, 3)
+    b.add_mesh(verts, np.arange(65 * 3).reshape(65, 3), b.matte())
+    with pytest.raises(NotImplementedError, match="BVH"):
+        b.finalize(device="cpu")
