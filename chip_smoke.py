@@ -3,16 +3,30 @@
 
     python3 chip_smoke.py
 
-Phases, each printed as one JSON object per line; any failure ends the run
-with a non-zero exit code:
+Phases, each printed as one JSON object per line with its seconds; any
+failure ends the run with a non-zero exit code:
   1. environment: the card's name and power limit (nvidia-smi), versions;
-  2. build: every CUDA kernel of the port, compiled from the sources here;
-  3. parity: each kernel against its plain PyTorch version on the card at the
+  2. build: every CUDA kernel of the port, compiled from the sources here
+     (one nvcc per source, all started together), with ptxas's registers
+     and spills per kernel instance;
+  Cornell box (36 triangles, brute-force intersector):
+  3. parity: the kernel against its plain PyTorch version on the card at the
      main path's shapes (1,048,576 rays);
   4. main path: a render on the card against the same render on the CPU;
-  5. bench: the bench render of the Cornell box (256x256, 16 spp, path
-     integrator, max depth 5) through the kernels, with their launch counts,
-     and the kernels' times beside their plain versions and bounds.
+  5. bench: the bench render (256x256, 16 spp, path integrator, max depth 5)
+     through the kernel, with its launch count, and the kernel's time beside
+     its plain version and bound;
+  mesh100k (the 100k-triangle terrain at grid=224, BVH stream traversal):
+  6. parity: each of the four traversal kernels against its plain version at
+     1,048,576 rays: the bench camera wave (skip, closest hit), a binned
+     incoherent secondary wave (ordered, closest and any hit) and shadow rays
+     with random lengths and 1/8 dead lanes (skip, any hit);
+  7. main path: a 64x64, 4 spp, depth 3 render on the card against the CPU,
+     through the binned (ordered-kernel) route;
+  8. bench: the bench render (256x256, 16 spp, depth 5) through the kernels,
+     with launches per render of each kernel;
+  9. kernel_time: each traversal kernel's ms per launch beside its plain
+     version and its bound.
 Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 Needs a CUDA device and nvcc; imports nothing of JAX.
 """
@@ -28,19 +42,32 @@ import torch
 from grail_torch.engine.integrator import IntegratorConfig
 from grail_torch.engine.render import camera_rays, megawave_lanes, render
 from grail_torch.kernels import brute_intersect as bi
+from grail_torch.kernels import bvh_stream as bs
 from grail_torch.kernels import build
-from grail_torch.kernels.intersect import pack_tris
-from grail_torch.scene.presets import cornell_box
+from grail_torch.kernels.binning import (N_RAY_BUCKETS, bin_rays_key, bucket_rank,
+                                         sort_by_rank)
+from grail_torch.kernels.intersect import BIG_T, SORT_MIN, pack_tris
+from grail_torch.scene.presets import cornell_box, mesh_scene
 
 N_RAYS = 1 << 20
+MESH_GRID = 224
 # H100 SXM published peaks (dense, at the 700 W limit): FP32 outside the
 # tensor cores and HBM3 bandwidth
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 OPS_PER_PAIR = 55          # Möller-Trumbore + hit test per ray-triangle pair
+# slab test per box record (bvh_stream.cu): 6 subtracts, 6 multiplies, one
+# min and one max per axis (6), 4 min/max across axes, 1 multiply and
+# 3 compares
+OPS_PER_BOX = 26
+RAY_BYTES = 12 + 12 + 4 + 4 + 16   # o, d, tmin, tmax in; t, prim, b1, b2 out
 PRIM_AGREE_MIN = 0.999
+OCC_AGREE_MIN = 0.9999
 RTOL, ATOL = 1e-5, 1e-6
 RELMAE_MAX = 1e-3
+STREAM_SOURCE = "grail_torch/kernels/csrc/bvh_stream.cu"
+STREAM_REPLACES = {"ordered": "grail/kernels/bvh_stream.py:269",
+                   "skip": "grail/kernels/bvh_stream.py:414"}
 
 
 def emit(obj):
@@ -61,9 +88,9 @@ def relative_mae(a, b):
     return float(np.mean(np.abs(a - b)) / (np.mean(np.abs(b)) + 1e-6))
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, warmup=2):
     """Mean device time of fn() over reps launches (CUDA events, warmed up)."""
-    for _ in range(2):
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -104,11 +131,12 @@ def ray_cases(scene, meta, dev):
     }
 
 
-def compare(kern, plain):
+def compare(kern, plain, any_hit=False):
     """Mismatch count of prim, and the max |difference| of t, b1, b2 where
-    prim agrees; raises beyond the stated tolerance."""
+    prim agrees; raises beyond the stated tolerance (and, for any hit, if
+    the occlusion masks agree on fewer than OCC_AGREE_MIN of the rays)."""
     t_k, p_k, b1_k, b2_k = kern
-    t_p, p_p, b1_p, b2_p = plain
+    t_p, p_p, b1_p, b2_p = plain[:4]
     same = p_k == p_p
     n_bad = int((~same).sum())
     errs = {}
@@ -120,30 +148,15 @@ def compare(kern, plain):
     bitwise = (n_bad == 0 and all(torch.equal(x, y) for x, y in zip(kern, plain)))
     check(1.0 - n_bad / p_k.numel() >= PRIM_AGREE_MIN,
           f"prim disagrees on {n_bad} of {p_k.numel()} rays")
+    if any_hit:
+        occ_agree = float(((p_k >= 0) == (p_p >= 0)).float().mean())
+        check(occ_agree >= OCC_AGREE_MIN, f"occlusion agrees on {occ_agree:.6f}")
     return n_bad, errs, bitwise
 
 
-def main():
-    check(torch.cuda.is_available(), "no CUDA device")
-    dev = torch.device("cuda", 0)
-
-    # 1. environment
-    gpu = run(["nvidia-smi", "--query-gpu=name,power.limit",
-               "--format=csv,noheader"]).splitlines()[0]
-    emit({"phase": "environment", "gpu": gpu, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "nvcc": run([build.nvcc_path(), "--version"])
-          .splitlines()[-1], "python": sys.version.split()[0]})
-
-    # 2. build every kernel from the sources in this checkout
+def cornell_phases(dev, gpu):
+    """Phases 3-5; returns the brute_intersect entry of the kernels line."""
     t0 = time.perf_counter()
-    built = build.build()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "kernels": {name: {"seconds": sec,
-                             "ptxas": [ln.strip() for ln in log.splitlines()
-                                       if "Used" in ln or "spill" in ln]}
-                      for name, (sec, log) in built.items()}})
-
-    # 3. each kernel against its plain version on the card
     scene, meta, _ = cornell_box(256, 256, 16, device=dev)
     tris9 = pack_tris(scene)
     cases = ray_cases(scene, meta, dev)
@@ -156,26 +169,30 @@ def main():
                 torch.cuda.synchronize()
                 n_bad, errs, bitwise = compare(kern, plain)
                 max_err = max([max_err] + list(errs.values()))
-                emit({"phase": "parity", "kernel": "brute_intersect", "case": case,
-                      "any_hit": any_hit, "rays": args[0].shape[0],
+                emit({"phase": "parity", "scene": "cornell", "kernel": "brute_intersect",
+                      "case": case, "any_hit": any_hit, "rays": args[0].shape[0],
                       "hits": int((kern[1] >= 0).sum()), "prim_mismatch": n_bad,
                       "max_abs_diff": errs, "bitwise_equal": bitwise})
+    emit({"phase": "parity", "scene": "cornell", "seconds": time.perf_counter() - t0})
 
-    # 4. the main path on the card against the same render on the CPU
-    #    (the entry() configuration: 64x64, 4 spp, max depth 3)
+    # the main path on the card against the same render on the CPU
+    # (the entry() configuration: 64x64, 4 spp, max depth 3)
+    t0 = time.perf_counter()
     cfg_e = IntegratorConfig(kind="path", max_depth=3)
     imgs = {}
     for where in (dev, torch.device("cpu")):
         sc, mt, _ = cornell_box(64, 64, 4, device=where)
         imgs[where.type] = render(sc, mt, cfg_e, spp=4, device=where)[0].cpu().numpy()
     err = relative_mae(imgs["cuda"], imgs["cpu"])
-    emit({"phase": "main_path_vs_cpu", "res": 64, "spp": 4, "max_depth": 3,
-          "relative_mae": err, "bitwise_equal": bool(np.array_equal(
-              imgs["cuda"], imgs["cpu"]))})
+    emit({"phase": "main_path_vs_cpu", "scene": "cornell", "res": 64, "spp": 4,
+          "max_depth": 3, "relative_mae": err,
+          "bitwise_equal": bool(np.array_equal(imgs["cuda"], imgs["cpu"])),
+          "seconds": time.perf_counter() - t0})
     check(np.isfinite(imgs["cuda"]).all() and err < RELMAE_MAX,
           f"GPU render differs from the CPU render (relative MAE {err})")
 
-    # 5. the bench render through the kernel: one warm-up, three timed
+    # the bench render through the kernel: one warm-up, three timed
+    t0 = time.perf_counter()
     cfg = IntegratorConfig(kind="path", max_depth=5)
     spp = meta.sampler.spp
     render(scene, meta, cfg, spp=spp, device=dev)
@@ -185,10 +202,10 @@ def main():
     for _ in range(3):
         bi.LAUNCHES = 0
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t1 = time.perf_counter()
         img, _ = render(scene, meta, cfg, spp=spp, device=dev)
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+        times.append(time.perf_counter() - t1)
         launches.append(bi.LAUNCHES)
     img = img.cpu().numpy()
     expected = 2 * (cfg.max_depth + 1)       # one closest hit + one shadow ray a bounce
@@ -198,7 +215,8 @@ def main():
           "brute_intersect_launches_per_render": launches,
           "expected_launches": expected, "image_mean": float(img.mean()),
           "isfinite": bool(np.isfinite(img).all()),
-          "peak_memory_bytes": torch.cuda.max_memory_allocated(dev)})
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+          "seconds": time.perf_counter() - t0})
     check(all(n == expected for n in launches),
           f"brute_intersect launched {launches} times per render, want {expected}")
     check(np.isfinite(img).all() and img.shape == (256, 256, 3) and img.mean() > 0.0,
@@ -221,15 +239,225 @@ def main():
           "rays": n, "triangles": n_tris, "ms": ms, "plain_ms": plain_ms,
           "any_hit_shadow_ms": any_ms, "bytes": bytes_moved, "operations": ops,
           "bytes_ms": t_bytes, "operations_ms": t_ops, "gpu": gpu})
+    return {"name": "brute_intersect", "route": "cuda",
+            "source": "grail_torch/kernels/csrc/brute_intersect.cu",
+            "replaces": "grail/kernels/pallas_intersect.py:31",
+            "launches": launches[0], "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "library_ms": None}
 
-    emit({"kernels": [{
-        "name": "brute_intersect", "route": "cuda",
-        "source": "grail_torch/kernels/csrc/brute_intersect.cu",
-        "replaces": "grail/kernels/pallas_intersect.py:31",
-        "launches": launches[0], "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes > t_ops else "operations",
-        "library_ms": None}]})
+
+def mesh_ray_cases(scene, meta, dev):
+    """{kernel: (case, o, d, tmin, tmax)} at N_RAYS rays, each made as the
+    intersect dispatch hands rays to that kernel: the bench camera wave
+    (skip, closest); a secondary wave from the camera wave's hit points in
+    random directions toward the camera's side, binned and sorted with its
+    dead lanes (the misses) inert and last (ordered, closest and any hit);
+    shadow rays from the hit points with random lengths and 1/8 dead lanes
+    (skip, any hit)."""
+    pix, samp, _ = megawave_lanes(meta, 0, meta.sampler.spp, dev)
+    rays = camera_rays(scene, meta, pix, samp)[0]
+    o, d = rays["o"].contiguous(), rays["d"].contiguous()
+    check(o.shape[0] == N_RAYS, "bench megawave is 1M rays")
+    zeros = torch.zeros(N_RAYS, device=dev)
+    big = torch.full((N_RAYS,), 1.0e7, device=dev)
+    t, prim, _, _ = bs.stream_traverse(scene["bvh"]["stream"], o, d, zeros, big)
+    hit = prim >= 0
+    p = o + (t * (1.0 - 1e-4))[:, None] * d
+    p = torch.where(hit[:, None], p, o)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w = torch.randn(N_RAYS, 3, device=dev, generator=gen)
+    w = w / torch.linalg.vector_norm(w, dim=1, keepdim=True)
+    w = torch.where(((w * d).sum(1) > 0)[:, None], -w, w)
+    dead = ~hit
+    tmin2 = torch.where(dead, BIG_T, 0.0)
+    tmax2 = torch.where(dead, -BIG_T, 1.0e7)
+    vmin, vmax = scene["verts"].amin(0), scene["verts"].amax(0)
+    key = torch.where(dead, N_RAY_BUCKETS, bin_rays_key(p, w, vmin, vmax))
+    secondary = sort_by_rank(bucket_rank(key, N_RAY_BUCKETS + 1), p, w, tmin2, tmax2)
+    shadow_t = torch.rand(N_RAYS, device=dev, generator=gen) * 3.0
+    dead = torch.zeros(N_RAYS, dtype=torch.bool, device=dev)
+    dead[: N_RAYS // 8] = True
+    shadow = (p.contiguous(), w.flip(0).contiguous(), torch.where(dead, BIG_T, 0.0),
+              torch.where(dead, -BIG_T, shadow_t))
+    return {"skip_closest": ("camera_wave", o, d, zeros, big),
+            "ordered_closest": ("sorted_secondary", *secondary),
+            "ordered_any_hit": ("sorted_secondary", *secondary),
+            "skip_any_hit": ("shadow", *shadow)}
+
+
+def _kind(name):
+    return name.split("_", 1)[0], name.endswith("any_hit")
+
+
+def mesh_phases(dev, gpu):
+    """Phases 6-9; returns the four bvh_stream entries of the kernels line."""
+    t0 = time.perf_counter()
+    scene, meta, _ = mesh_scene(256, 256, 16, grid=MESH_GRID, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    table, depth = scene["bvh"]["stream"], scene["bvh"]["depth"]
+    emit({"phase": "mesh_scene", "grid": MESH_GRID, "triangles": meta.n_tris,
+          "records": table.shape[0] * bs.RECS_PER_ROW, "table_bytes": table.numel() * 4,
+          "tree_depth": depth, "host_build_seconds": build_s})
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cases = mesh_ray_cases(scene, meta, dev)
+    results = {}
+    for name in bs.KERNELS:
+        kind, any_hit = _kind(name)
+        case, *args = cases[name]
+        with torch.no_grad():
+            kern = bs.stream_traverse(table, *args, any_hit=any_hit, kind=kind,
+                                      depth=depth)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            plain = bs.stream_traverse_plain(table, *args, any_hit=any_hit, kind=kind)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t1
+        n_bad, errs, bitwise = compare(kern, plain, any_hit)
+        live = int((args[3] > args[2]).sum())
+        visits = (int(plain[4].sum()), int(plain[5].sum()))
+        results[name] = {"case": case, "args": args, "errs": errs, "live": live,
+                         "visits": visits, "plain_s": plain_s}
+        emit({"phase": "parity", "scene": "mesh100k", "kernel": f"bvh_stream_{name}",
+              "case": case, "rays": N_RAYS, "live_rays": live,
+              "hits": int((kern[1] >= 0).sum()), "prim_mismatch": n_bad,
+              "occlusion_mismatch": int(((kern[1] >= 0) != (plain[1] >= 0)).sum()),
+              "max_abs_diff": errs, "bitwise_equal": bitwise,
+              "box_visits": visits[0], "tri_visits": visits[1],
+              "max_visits_per_ray": int((plain[4] + plain[5]).max()),
+              "plain_seconds": plain_s})
+    emit({"phase": "parity", "scene": "mesh100k", "seconds": time.perf_counter() - t0})
+
+    # the main path on the card against the same render on the CPU, at
+    # 16,384 lanes: above the dispatch's binning threshold (SORT_MIN) at
+    # every bounce, also after the pre-RR split halves the wave, so the
+    # comparison runs the binned, ordered route as the bench render does
+    t0 = time.perf_counter()
+    cfg_e = IntegratorConfig(kind="path", max_depth=3)
+    res_e, spp_e = 64, 4
+    imgs = {}
+    for where in (dev, torch.device("cpu")):
+        sc, mt, _ = mesh_scene(res_e, res_e, spp_e, grid=MESH_GRID, device=where)
+        for name in bs.KERNELS:
+            bs.LAUNCHES[name] = 0
+        imgs[where.type] = render(sc, mt, cfg_e, spp=spp_e,
+                                  device=where)[0].cpu().numpy()
+        if where.type == "cuda":
+            gpu_launches = dict(bs.LAUNCHES)
+    err = relative_mae(imgs["cuda"], imgs["cpu"])
+    emit({"phase": "main_path_vs_cpu", "scene": "mesh100k", "res": res_e,
+          "spp": spp_e, "max_depth": 3, "lanes": res_e * res_e * spp_e,
+          "sort_min": SORT_MIN, "gpu_launches": gpu_launches, "relative_mae": err,
+          "bitwise_equal": bool(np.array_equal(imgs["cuda"], imgs["cpu"])),
+          "seconds": time.perf_counter() - t0})
+    check(res_e * res_e * spp_e // 2 >= SORT_MIN, "comparison wave below SORT_MIN")
+    check(gpu_launches["ordered_closest"] == cfg_e.max_depth
+          and gpu_launches["skip_closest"] == 1
+          and gpu_launches["skip_any_hit"] == cfg_e.max_depth + 1,
+          f"GPU mesh render took {gpu_launches}, not the binned route")
+    check(np.isfinite(imgs["cuda"]).all() and err < RELMAE_MAX,
+          f"GPU mesh render differs from the CPU render (relative MAE {err})")
+
+    # the bench render through the kernels: one warm-up, three timed
+    t0 = time.perf_counter()
+    cfg = IntegratorConfig(kind="path", max_depth=5)
+    spp = meta.sampler.spp
+    render(scene, meta, cfg, spp=spp, device=dev)
+    torch.cuda.synchronize()
+    times, launches = [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(3):
+        for name in bs.KERNELS:
+            bs.LAUNCHES[name] = 0
+        bi.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        img, _ = render(scene, meta, cfg, spp=spp, device=dev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        launches.append(dict(bs.LAUNCHES, brute_intersect=bi.LAUNCHES))
+    img = img.cpu().numpy()
+    # one megawave of 1M rays: the camera wave's closest hit (skip), the
+    # binned closest hits of bounces 1-5 (ordered), one shadow wave a bounce
+    expected = {"skip_closest": 1, "skip_any_hit": cfg.max_depth + 1,
+                "ordered_closest": cfg.max_depth, "ordered_any_hit": 0,
+                "brute_intersect": 0}
+    emit({"phase": "bench", "scene": "mesh100k", "res": 256, "spp": spp,
+          "max_depth": cfg.max_depth, "grid": MESH_GRID, "render_seconds": times,
+          "camera_rays_per_sec": meta.xres * meta.yres * spp / statistics.median(times),
+          "launches_per_render": launches, "expected_launches": expected,
+          "host_build_seconds": build_s, "image_mean": float(img.mean()),
+          "isfinite": bool(np.isfinite(img).all()),
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+          "seconds": time.perf_counter() - t0})
+    check(all(n == expected for n in launches),
+          f"traversal kernels launched {launches} per render, want {expected}")
+    check(np.isfinite(img).all() and img.shape == (256, 256, 3) and img.mean() > 0.0,
+          "bench image is not finite and positive")
+
+    # each kernel's time, its plain version's and its bound at 1M rays
+    t0 = time.perf_counter()
+    entries = []
+    for name in bs.KERNELS:
+        kind, any_hit = _kind(name)
+        r = results[name]
+        args = r["args"]
+        with torch.no_grad():
+            ms = cuda_ms(lambda: bs.stream_traverse(table, *args, any_hit=any_hit,
+                                                    kind=kind, depth=depth), 20)
+            plain_ms = cuda_ms(lambda: bs.stream_traverse_plain(
+                table, *args, any_hit=any_hit, kind=kind), 1, warmup=0)
+        n_box, n_tri = r["visits"]
+        ops = OPS_PER_BOX * n_box + OPS_PER_PAIR * n_tri
+        bytes_moved = N_RAYS * RAY_BYTES + table.numel() * 4
+        t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_FP32_OPS * 1e3
+        emit({"phase": "kernel_time", "kernel": f"bvh_stream_{name}", "case": r["case"],
+              "rays": N_RAYS, "live_rays": r["live"], "ms": ms, "plain_ms": plain_ms,
+              "box_visits": n_box, "tri_visits": n_tri,
+              "record_bytes_read": (n_box + n_tri) * bs.FIELDS * 4,
+              "bytes": bytes_moved, "operations": ops, "bytes_ms": t_bytes,
+              "operations_ms": t_ops, "gpu": gpu})
+        entries.append({
+            "name": f"bvh_stream_{name}", "route": "cuda", "source": STREAM_SOURCE,
+            "replaces": STREAM_REPLACES[kind], "launches": launches[0][name],
+            "max_abs_err": max(r["errs"].values()), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "library_ms": None})
+    emit({"phase": "kernel_time", "scene": "mesh100k", "seconds": time.perf_counter() - t0})
+    return entries
+
+
+def main():
+    check(torch.cuda.is_available(), "no CUDA device")
+    dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
+
+    # 1. environment
+    gpu = run(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    emit({"phase": "environment", "gpu": gpu, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "nvcc": run([build.nvcc_path(), "--version"])
+          .splitlines()[-1], "python": sys.version.split()[0]})
+
+    # 2. build every kernel from the sources in this checkout
+    t0 = time.perf_counter()
+    built = build.build()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "kernels": {name: {"seconds": sec,
+                             "ptxas": [ln.strip() for ln in log.splitlines()
+                                       if "entry function" in ln or "Used" in ln
+                                       or "spill" in ln]}
+                      for name, (sec, log) in built.items()}})
+
+    kernels = [cornell_phases(dev, gpu)] + mesh_phases(dev, gpu)
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    print(gpu, flush=True)
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -75,3 +75,70 @@ def searchsorted_rows(cdf_tab, rows, u):
     if n <= _COUNT_MAX and r == 1:
         return batched_searchsorted(cdf_tab[0], u)
     return _binary_search(cdf_tab.reshape(-1), rows.to(torch.int64) * n, n, u)
+
+
+def gather_rows(tab, rows, idx):
+    """tab (R, n), rows (N,), idx (N,) -> tab[rows, idx] via a flat gather."""
+    return tab.reshape(-1)[rows.to(torch.int64) * tab.shape[-1] + idx.to(torch.int64)]
+
+
+def build_distribution_1d(func):
+    """func (..., n) >= 0 -> dict with func, cdf (..., n+1) and func_int (...)
+    (pbrt Distribution1D's constructor, batched over leading dims). An
+    all-zero row gets the uniform cdf."""
+    func = torch.as_tensor(func, dtype=torch.float32)
+    n = func.shape[-1]
+    c = torch.cumsum(func, dim=-1) / n
+    func_int = c[..., -1]
+    cdf = torch.cat([torch.zeros(func.shape[:-1] + (1,), dtype=torch.float32,
+                                 device=func.device), c], dim=-1)
+    uniform = torch.linspace(0.0, 1.0, n + 1, dtype=torch.float32, device=func.device)
+    safe = func_int[..., None] > 0.0
+    cdf = torch.where(safe, cdf / torch.where(safe, func_int[..., None], 1.0), uniform)
+    return {"func": func, "cdf": cdf, "func_int": func_int}
+
+
+def sample_distribution_1d_continuous(dist, u):
+    """u (N,) -> (x in [0,1), pdf, offset) for a 1-D distribution
+    (pbrt Distribution1D::SampleContinuous)."""
+    cdf, func, func_int = dist["cdf"], dist["func"], dist["func_int"]
+    n = func.shape[-1]
+    off = batched_searchsorted(cdf, u)
+    c0 = cdf[off]
+    c1 = cdf[off + 1]
+    du = (u - c0) / torch.clamp_min(c1 - c0, 1e-12)
+    x = (off.to(torch.float32) + du) / n
+    pdf = func[off] / torch.clamp_min(func_int, 1e-12)
+    return x, pdf, off
+
+
+def build_distribution_2d(func):
+    """func (nv, nu) -> marginal over v + conditional over u (pbrt
+    Distribution2D)."""
+    cond = build_distribution_1d(func)
+    return {"cond": cond, "marg": build_distribution_1d(cond["func_int"])}
+
+
+def sample_distribution_2d(dist, u1, u2):
+    """(u1, u2) -> (u, v) in [0,1)^2 and pdf (pbrt Distribution2D::
+    SampleContinuous); conditional rows are read through flat gathers."""
+    v, pdf_v, iv = sample_distribution_1d_continuous(dist["marg"], u2)
+    cond = dist["cond"]
+    nu = cond["func"].shape[-1]
+    off = searchsorted_rows(cond["cdf"], iv, u1)
+    c0 = gather_rows(cond["cdf"], iv, off)
+    c1 = gather_rows(cond["cdf"], iv, off + 1)
+    du = (u1 - c0) / torch.clamp_min(c1 - c0, 1e-12)
+    u = (off.to(torch.float32) + du) / nu
+    f_int = cond["func_int"][iv]
+    pdf_u = gather_rows(cond["func"], iv, off) / torch.clamp_min(f_int, 1e-12)
+    return u, v, pdf_u * pdf_v
+
+
+def distribution_2d_pdf(dist, u, v):
+    """pdf at continuous (u, v) (pbrt Distribution2D::Pdf)."""
+    func = dist["cond"]["func"]
+    nv, nu = func.shape
+    iu = torch.clamp((u * nu).to(torch.int64), 0, nu - 1)
+    iv = torch.clamp((v * nv).to(torch.int64), 0, nv - 1)
+    return gather_rows(func, iv, iu) / torch.clamp_min(dist["marg"]["func_int"], 1e-12)

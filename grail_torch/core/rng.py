@@ -151,8 +151,12 @@ class SamplerConfig:
     seed: int = 0
 
 
-def sample_1d(cfg: SamplerConfig, pixel_id, samp_idx, dim):
-    """One uniform in [0,1) for (pixel, sample index, dimension)."""
+def sample_1d(cfg: SamplerConfig, pixel_id, samp_idx, dim, traced=False):
+    """One uniform in [0,1) for (pixel, sample index, dimension).
+
+    traced: the reference computes this dimension as a traced value (inside
+    lax.fori_loop, or by array arithmetic), where HALTON cannot pick the
+    dimension's prime and takes base 2. A per-lane tensor dim does the same."""
     pixel_id = _u32(pixel_id)
     samp_idx = _u32(samp_idx)
     dim_u = _u32(dim)
@@ -169,9 +173,10 @@ def sample_1d(cfg: SamplerConfig, pixel_id, samp_idx, dim):
         scramble = hash3(pixel_id ^ seed, dim_u, 0xA511E9B3)
         return van_der_corput(samp_idx, scramble)
     if cfg.kind == HALTON:
-        # as the reference: a static dim picks its prime; a dim that arrives
-        # as an array (has a shape) falls back to base 2
-        base = _PRIMES[int(dim) % len(_PRIMES)] if not hasattr(dim, "shape") else 2
+        # as the reference: a static dim picks its prime; a traced or
+        # per-lane dim falls back to base 2
+        traced = traced or isinstance(dim, torch.Tensor)
+        base = 2 if traced else _PRIMES[int(dim) % len(_PRIMES)]
         v = radical_inverse(_as_i32(samp_idx), base)
         rot = u32_to_float(hash_combine(pixel_id ^ seed, dim_u))
         v = v + rot
@@ -203,7 +208,7 @@ def sample_2d(cfg: SamplerConfig, pixel_id, samp_idx, dim):
         return (torch.clamp_max((px + jx) / sx, ONE_MINUS_EPS),
                 torch.clamp_max((py + jy) / sy, ONE_MINUS_EPS))
     # the reference derives these dims as arrays, so HALTON sees base 2 here
-    d0 = torch.as_tensor((dim_u * 2 + 1000003) & _M32)
-    d1 = torch.as_tensor((dim_u * 2 + 1000033) & _M32)
-    return (sample_1d(cfg, pixel_id, samp_idx, d0),
-            sample_1d(cfg, pixel_id, samp_idx, d1))
+    d0 = (dim_u * 2 + 1000003) & _M32
+    d1 = (dim_u * 2 + 1000033) & _M32
+    return (sample_1d(cfg, pixel_id, samp_idx, d0, traced=True),
+            sample_1d(cfg, pixel_id, samp_idx, d1, traced=True))

@@ -8,7 +8,9 @@ from __future__ import annotations
 import torch
 
 INV_PI = 0.31830988618379067154
+INV_TWOPI = 0.15915494309189533577
 PI = 3.14159265358979323846
+TWO_PI = 6.28318530717958647692
 
 
 def dot(a, b):
@@ -48,6 +50,20 @@ def coordinate_system(v1):
     v2 = torch.stack([1.0 + sign * x * x * a, sign * b, -sign * x], dim=-1)
     v3 = torch.stack([b, sign + y * y * a, -y], dim=-1)
     return v2, v3
+
+
+def spherical_direction(sintheta, costheta, phi):
+    return torch.stack([sintheta * torch.cos(phi), sintheta * torch.sin(phi),
+                        costheta], dim=-1)
+
+
+def spherical_theta(v):
+    return torch.arccos(torch.clamp(v[..., 2], -1.0, 1.0))
+
+
+def spherical_phi(v):
+    p = torch.atan2(v[..., 1], v[..., 0])
+    return torch.where(p < 0.0, p + TWO_PI, p)
 
 
 def lerp(t, a, b):

@@ -2,17 +2,18 @@
 for kind="path" with the uniform one-light strategy).
 
 Each bounce is one stage over the whole ray batch with an `active` mask:
-intersect -> shade (texture eval + lobe gather) -> direct lighting (light
-branch; the continuation ray doubles as the MIS-BSDF strategy, "path-vertex
-reuse") -> sample the continuation -> Russian roulette. Bounce 0 is peeled,
-and after Russian roulette the survivors are repacked into a narrower wave
-(multi-split compaction), exactly as the reference does. The bounce loop is a
-Python loop; the reference's `lax.cond` on the survivor count is a Python
+intersect -> environment escape -> shade (texture eval + lobe gather) ->
+direct lighting (light branch; the continuation ray doubles as the MIS-BSDF
+strategy, "path-vertex reuse") -> sample the continuation -> Russian
+roulette. Bounce 0 is peeled, as in the reference: only it reads the camera
+differentials (texture filtering) and its camera wave skips ray binning.
+Survivors are repacked into narrower waves at static split points
+(multi-split compaction), exactly as the reference does. The bounce loop is
+a Python loop; the reference's `lax.cond` on the survivor count is a Python
 `if` on the count read back from the device.
 
 Not ported yet: the other integrator kinds, light_strategy "power"/"all",
-alpha cutouts, bump mapping, media, material-sorted shading and the
-environment-light terms.
+alpha cutouts, bump mapping, media and material-sorted shading.
 """
 from __future__ import annotations
 
@@ -68,9 +69,18 @@ def _bdim(bounce, off):
     return _BOUNCE_BASE + bounce * _BOUNCE_STRIDE + off
 
 
-def scene_intersect(scene, meta, o, d, tmax):
-    """Scene::Intersect (no alpha cutouts in the ported scenes)."""
-    return isect.intersect(scene, o, d, tmax, device=o.device)
+def _sample_1d(meta, pix, samp, bounce, off):
+    """A bounce slot's 1D draw. The reference peels bounce 0 with a concrete
+    index and runs later bounces inside lax.fori_loop, where the dimension is
+    traced and the HALTON sampler takes base 2 for it (rng.sample_1d)."""
+    return rngmod.sample_1d(meta.sampler, pix, samp, _bdim(bounce, off),
+                            traced=bounce > 0)
+
+
+def scene_intersect(scene, meta, o, d, tmax, sort=None):
+    """Scene::Intersect (no alpha cutouts in the ported scenes). sort: the
+    ray-binning hint (False for camera waves, already in tile order)."""
+    return isect.intersect(scene, o, d, tmax, device=o.device, sort=sort)
 
 
 def scene_intersect_p(scene, meta, o, d, tmax):
@@ -78,10 +88,14 @@ def scene_intersect_p(scene, meta, o, d, tmax):
     return isect.intersect_p(scene, o, d, tmax, device=o.device)
 
 
-def _shade_context(scene, meta, hit, o, d):
-    """Post-hit work: shading geometry, textures, lobes, local wo."""
+def _shade_context(scene, meta, hit, o, d, camdiff=None):
+    """Post-hit work: shading geometry (with uv screen derivatives from the
+    camera differential rays when given), textures, lobes, local wo."""
     sg = geom.shading_geometry(scene, hit, o, d)
-    tex_values = eval_textures(meta.tex_specs, scene["tex_data"], sg)
+    if camdiff is not None:
+        sg["duvdx"], sg["duvdy"] = geom.uv_differentials(sg, *camdiff)
+    tex_values = eval_textures(meta.tex_specs, scene["tex_data"], sg,
+                               scene.get("images", ()), scene.get("mipmaps", ()))
     lobes = mtl.gather_lobes(scene, sg, tex_values)
     wo_local = geom.world_to_local(sg, -d)
     return sg, lobes, wo_local
@@ -121,25 +135,37 @@ def estimate_direct(scene, meta, sg, lobes, wo_local, light_idx, light_pmf,
 def _pick_light(meta, pix, samp, bounce):
     """UniformSampleOneLight light choice."""
     n_lights = meta.n_lights
-    u = rngmod.sample_1d(meta.sampler, pix, samp, _bdim(bounce, _D_LIGHT_SEL))
+    u = _sample_1d(meta, pix, samp, bounce, _D_LIGHT_SEL)
     idx = torch.clamp_max((u * n_lights).to(torch.int32), n_lights - 1)
     pmf = torch.full(u.shape, 1.0 / n_lights, dtype=torch.float32, device=u.device)
     return idx, pmf
 
 
-def _make_bounce_body(scene, meta, cfg, pix, samp):
+def _make_bounce_body(scene, meta, cfg, pix, samp, camdiff=None):
     """The per-bounce stage over the lanes of `pix`/`samp` (the compacted
-    tail instantiates it again at a narrower width)."""
+    tail instantiates it again at a narrower width). camdiff: the camera
+    differential rays, passed to the peeled bounce 0 only."""
 
     def bounce_body(bounce, state):
         o, d, L, throughput, active, spec_bounce, pdf_prev = state
-        hit = scene_intersect(scene, meta, o, d, torch.where(active, BIG, 0.0))
+        # the camera wave arrives in tile order: no ray binning for it
+        hit = scene_intersect(scene, meta, o, d, torch.where(active, BIG, 0.0),
+                              sort=False if bounce == 0 else None)
         miss = hit["prim"] < 0
-        # escaped rays: no environment light in the ported scenes, so they
-        # carry no radiance
+        # escaped rays take the environment's radiance: camera and specular
+        # rays unweighted, other continuations MIS-weighted against the
+        # light strategy's env pdf (path-vertex reuse)
+        if lt.INFINITE in meta.light_types:
+            env_row = scene["env_row"].expand(o.shape[0])
+            w_env = torch.where(spec_bounce, 1.0, mc.power_heuristic(
+                1.0, pdf_prev, 1.0, lt.env_pdf(scene, env_row, d)))
+            L = L + torch.where((active & miss)[..., None],
+                                throughput * w_env[..., None]
+                                * lt.escaped_radiance(scene, d, meta.light_types),
+                                0.0)
         active = active & ~miss
 
-        sg, lobes, wo_local = _shade_context(scene, meta, hit, o, d)
+        sg, lobes, wo_local = _shade_context(scene, meta, hit, o, d, camdiff)
 
         # emitted at hit: camera/specular vertices unweighted, other vertices
         # MIS-weighted by the light strategy's per-point pdf at this hit
@@ -159,14 +185,14 @@ def _make_bounce_body(scene, meta, cfg, pix, samp):
             Ld = estimate_direct(
                 scene, meta, sg, lobes, wo_local, lidx, pmf,
                 rngmod.sample_2d(meta.sampler, pix, samp, _bdim(bounce, _D_LIGHT_POS)),
-                rngmod.sample_1d(meta.sampler, pix, samp, _bdim(bounce, _D_LIGHT_TRI)),
+                _sample_1d(meta, pix, samp, bounce, _D_LIGHT_TRI),
                 active)
             L = L + torch.where(active[..., None], throughput * Ld, 0.0)
 
         # continuation: sample the BSDF (dead work on the final bounce, as in
         # the reference, whose loop exits before the next intersect)
         u_dir = rngmod.sample_2d(meta.sampler, pix, samp, _bdim(bounce, _D_BSDF_DIR))
-        u_comp = rngmod.sample_1d(meta.sampler, pix, samp, _bdim(bounce, _D_BSDF_COMP))
+        u_comp = _sample_1d(meta, pix, samp, bounce, _D_BSDF_COMP)
         bs = bx.bsdf_sample(lobes, wo_local, u_dir[0], u_dir[1], u_comp,
                             meta.lobe_types, include_specular=True)
         wi_w = geom.local_to_world(sg, bs["wi"])
@@ -187,7 +213,7 @@ def _make_bounce_body(scene, meta, cfg, pix, samp):
             q = torch.clamp_max(luminance(throughput), 0.5)
         else:
             q = torch.ones_like(pdf_prev)
-        u_rr = rngmod.sample_1d(meta.sampler, pix, samp, _bdim(bounce, _D_RR))
+        u_rr = _sample_1d(meta, pix, samp, bounce, _D_RR)
         active = active & (u_rr < q)
         throughput = throughput / torch.clamp_min(q, 1e-6)[..., None]
 
@@ -226,18 +252,25 @@ def li(scene, meta, cfg: IntegratorConfig, rays, pix, samp):
     spec_bounce = active                       # bounce-0 emission counts
     pdf_prev = torch.ones(n, dtype=torch.float32, device=o.device)
     state = (o, d, L, throughput, active, spec_bounce, pdf_prev)
-    state = _make_bounce_body(scene, meta, cfg, pix, samp)(0, state)
+    state = _make_bounce_body(scene, meta, cfg, pix, samp,
+                              rays.get("camdiff"))(0, state)
 
     # multi-split compaction: the tail repacks survivors at static split
     # points, each with an overflow guard (a wave whose live count exceeds a
-    # split's capacity skips it). The pre-RR split of the reference only
-    # runs for BVH scenes, so the ported scenes get the post-RR split.
+    # split's capacity skips it). The pre-RR split at bounce 2 runs for
+    # scenes with a BVH (the reference's stream-route scenes: open scenes
+    # whose wavefront goes dark early), the post-RR split for every scene.
     k = min(cfg.rr_depth + 1, max_depth + 1)
     splits = []
-    if cfg.compact and n >= cfg.compact_min and k < max_depth + 1:
-        cap = (int(n * cfg.compact_frac) // 1024) * 1024
-        if cap >= 1024:
-            splits.append((k, cap))
+    if cfg.compact and n >= cfg.compact_min:
+        if k > 2 and max_depth + 1 > 2 and scene.get("bvh") is not None:
+            early = (int(n * min(0.5, 4.0 * cfg.compact_frac)) // 1024) * 1024
+            if early >= 1024:
+                splits.append((2, early))
+        if k < max_depth + 1:
+            cap = (int(n * cfg.compact_frac) // 1024) * 1024
+            if cap >= 1024:
+                splits.append((k, cap))
 
     def tail(st, pix_t, samp_t, width, from_b, splits):
         bodyw = _make_bounce_body(scene, meta, cfg, pix_t, samp_t)

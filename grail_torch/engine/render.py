@@ -38,6 +38,14 @@ def camera_rays(scene, meta, pix, samp):
     ut = rngmod.sample_1d(meta.sampler, pix, samp, SLOT_TIME)
     rays = cam.generate_rays(scene["camera"], px, py, ufx, ufy, ul1, ul2, ut,
                              meta.cam_kind)
+    if meta.n_images > 0:
+        # camera differential rays (Camera::GenerateRayDifferential: the same
+        # sample one pixel over in x and in y) for texture filtering
+        rx = cam.generate_rays(scene["camera"], px + 1, py, ufx, ufy, ul1, ul2,
+                               ut, meta.cam_kind)
+        ry = cam.generate_rays(scene["camera"], px, py + 1, ufx, ufy, ul1, ul2,
+                               ut, meta.cam_kind)
+        rays["camdiff"] = (rx["o"], rx["d"], ry["o"], ry["d"])
     return rays, px, py, ufx, ufy
 
 

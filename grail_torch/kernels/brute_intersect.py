@@ -77,17 +77,9 @@ def brute_intersect_plain(tris9, o, d, tmin, tmax, any_hit=False):
 
 def _check(tris9, o, d, tmin, tmax):
     n = o.shape[0]
-    want = {"tris9": (tris9, (tris9.shape[0], 9)), "o": (o, (n, 3)),
-            "d": (d, (n, 3)), "tmin": (tmin, (n,)), "tmax": (tmax, (n,))}
-    for name, (x, shape) in want.items():
-        if x.device != o.device:
-            raise ValueError(f"{name} is on {x.device}, rays on {o.device}")
-        if x.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {x.dtype}")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(x.shape)}, want {shape}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    build.check_operands({"tris9": (tris9, (tris9.shape[0], 9)), "o": (o, (n, 3)),
+                          "d": (d, (n, 3)), "tmin": (tmin, (n,)),
+                          "tmax": (tmax, (n,))}, o.device)
     if tris9.shape[0] > MAX_TRIS:
         raise ValueError(f"{tris9.shape[0]} triangles exceed the kernel's "
                          f"shared-memory table ({MAX_TRIS})")

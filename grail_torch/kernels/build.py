@@ -1,4 +1,4 @@
-"""Build the port's CUDA kernels: `nvcc` compiles each source in csrc/ into a
+"""Build and bind the port's CUDA kernels: `nvcc` compiles each source in csrc/ into a
 shared library with a plain C interface, loaded with ctypes.
 
 Libraries go to grail_torch/_build/, named by a hash of the source and the
@@ -14,10 +14,12 @@ import shutil
 import subprocess
 import time
 
+import torch
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
-SOURCES = ("brute_intersect",)
+SOURCES = ("brute_intersect", "bvh_stream")
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "--fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -75,6 +77,21 @@ def build(names=SOURCES):
                 proc.wait()
             if os.path.exists(tmp):
                 os.remove(tmp)
+
+
+def check_operands(want, device):
+    """Raise unless each tensor of want {name: (tensor, shape)} lies on
+    `device`, is float32 and contiguous, and has its shape: what a kernel
+    with a plain C interface takes on trust."""
+    for name, (x, shape) in want.items():
+        if x.device != device:
+            raise ValueError(f"{name} is on {x.device}, rays on {device}")
+        if x.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {x.dtype}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, want {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
 
 
 def load(name):

@@ -1,8 +1,11 @@
-"""Ray-scene intersection (port of grail/kernels/intersect.py, brute route).
+"""Ray-scene intersection (port of grail/kernels/intersect.py): the brute
+route for scenes without a BVH and the single-table stream route for scenes
+with one.
 
 Hit record (dict of (N,) tensors): t, prim (int32, -1 = miss), b1, b2.
-Scenes with a BVH or instances take routes that are not ported yet: the
-dispatch raises for them rather than picking something else.
+Scenes with instances, a scene-sharded ring or clustered stream tables take
+routes that are not ported yet: the dispatch raises for them rather than
+picking something else.
 """
 from __future__ import annotations
 
@@ -10,9 +13,12 @@ import torch
 
 from ..core.vecmath import cross, dot
 from ..device import check_on, resolve_device
+from .binning import N_RAY_BUCKETS, bin_rays_key, bucket_rank, sort_by_rank, unsort
 from .brute_intersect import brute_intersect
+from .bvh_stream import stream_traverse
 
 BIG_T = 3.0e37
+SORT_MIN = 8192     # waves of at least this many rays are binned first
 
 
 def moller_trumbore(o, d, v0, e1, e2, tmin, tmax):
@@ -71,28 +77,76 @@ def intersect_p_brute(scene, o, d, tmax, tmin=None):
     return torch.any(hit, dim=1)
 
 
-def _brute_args(scene, o, d, tmax, tmin, device):
+def _check_routes(scene, o, device):
     check_on(o, resolve_device(device), "the rays")
-    for key in ("bvh", "inst", "ring"):
+    for key in ("inst", "ring"):
         if scene.get(key) is not None:
             raise NotImplementedError(
                 f"scene has a {key!r} table: that intersection route is not "
-                "ported yet (brute force only)")
+                "ported yet")
+    bvh = scene.get("bvh")
+    if bvh is not None and "stream" not in bvh:
+        raise NotImplementedError("only the single-table stream route of a "
+                                  "BVH scene is ported (no clustered tables)")
+    return bvh
+
+
+def _stream_bvh(scene, o, d, tmax, tmin, any_hit=False, sort=None):
+    """Stream traversal with ray binning (the reference's _stream_bvh
+    without clustered tables). Waves of SORT_MIN rays or more are
+    counting-sorted into coherence buckets first and their results gathered
+    back; sort=False marks a tile-ordered camera wave. Closest hit takes the
+    skip kernel on unsorted waves and the ordered kernel on sorted ones; any
+    hit always takes the skip kernel. Dead lanes (tmax <= tmin, the
+    integrator's mask) are made inert and sorted last."""
+    bvh = scene["bvh"]
+    if sort is None:
+        sort = o.shape[0] >= SORT_MIN
+    closest_kind = "skip" if sort is False else "ordered"
+    if tmin is None:
+        tmin = torch.zeros_like(tmax)
+    dead = tmax <= tmin
+    tmin = torch.where(dead, BIG_T, tmin)
+    tmax = torch.where(dead, -BIG_T, tmax)
+    if sort:
+        key = bin_rays_key(o, d, torch.amin(scene["verts"], dim=0),
+                           torch.amax(scene["verts"], dim=0))
+        key = torch.where(dead, N_RAY_BUCKETS, key)          # dead lanes last
+        rank = bucket_rank(key, N_RAY_BUCKETS + 1)
+        o, d, tmin, tmax = sort_by_rank(rank, o, d, tmin, tmax)
+    args = (bvh["stream"], o.contiguous(), d.contiguous(), tmin.contiguous(),
+            tmax.contiguous())
+    if any_hit:
+        occ = stream_traverse(*args, any_hit=True, kind="skip")[1] >= 0
+        return unsort(rank, occ)[0] if sort else occ
+    t, prim, b1, b2 = stream_traverse(*args, kind=closest_kind,
+                                      depth=bvh["depth"])
+    if sort:
+        t, prim, b1, b2 = unsort(rank, t, prim, b1, b2)
+    return {"t": torch.where(prim >= 0, t, BIG_T), "prim": prim, "b1": b1, "b2": b2}
+
+
+def _brute_args(scene, o, d, tmax, tmin):
     if tmin is None:
         tmin = torch.zeros_like(tmax)
     return (pack_tris(scene), o.contiguous(), d.contiguous(), tmin.contiguous(),
             tmax.contiguous())
 
 
-def intersect(scene, o, d, tmax, tmin=None, device=None):
-    """Closest hit (Scene::Intersect analog). The kernel returns t = tmax on a
-    miss; the dispatch then sets t = BIG_T."""
-    t, prim, b1, b2 = brute_intersect(*_brute_args(scene, o, d, tmax, tmin, device))
+def intersect(scene, o, d, tmax, tmin=None, device=None, sort=None):
+    """Closest hit (Scene::Intersect analog). A miss has t = BIG_T.
+    sort: ray-binning hint for the stream route (False for camera waves,
+    which arrive in tile order)."""
+    if _check_routes(scene, o, device) is not None:
+        return _stream_bvh(scene, o, d, tmax, tmin, sort=sort)
+    t, prim, b1, b2 = brute_intersect(*_brute_args(scene, o, d, tmax, tmin))
     return {"t": torch.where(prim >= 0, t, BIG_T), "prim": prim, "b1": b1, "b2": b2}
 
 
 def intersect_p(scene, o, d, tmax, tmin=None, device=None):
     """Occlusion test (Scene::IntersectP analog): occluded (N,) bool."""
-    _, prim, _, _ = brute_intersect(*_brute_args(scene, o, d, tmax, tmin, device),
+    if _check_routes(scene, o, device) is not None:
+        return _stream_bvh(scene, o, d, tmax, tmin, any_hit=True)
+    _, prim, _, _ = brute_intersect(*_brute_args(scene, o, d, tmax, tmin),
                                     any_hit=True)
     return prim >= 0

@@ -3,8 +3,10 @@
 `scene_from_numpy` takes the JAX package's finalized scene with every leaf
 converted to numpy (e.g. `jax.tree_util.tree_map(np.asarray, scene)`) and its
 SceneMeta, read by attribute name only, and returns the port's scene dict and
-SceneMeta on `device`. Leaves the port does not read are dropped; a scene
-that needs a route the port lacks raises. This module imports nothing of the
+SceneMeta on `device`: geometry, materials, textures with their images and
+MIP pyramids, lights with the environment map and its distribution, the
+camera and the BVH's stream table. Leaves the port does not read are
+dropped; a scene that needs a route the port lacks raises. This module imports nothing of the
 reference: everything arrives as numpy arrays and plain attributes.
 """
 from __future__ import annotations
@@ -14,18 +16,21 @@ import dataclasses
 from ..core.rng import SamplerConfig
 from ..device import resolve_device
 from ..engine.filters import FilterConfig
+from ..kernels.bvh_stream import tree_depth
+from ..shade.lights import INFINITE
 from ..shade.materials import MAT_FIELDS
 from ..shade.textures import TexSpec
 from .buffers import SceneMeta, to_torch
 
 _GEOMETRY = ("verts", "vnorm", "vuv", "tri_idx", "tri_mat", "tri_light", "tri_flags")
-_LIGHTS = ("type", "emit", "area", "av0", "av1", "av2", "aflip", "acdf")
+_LIGHTS = ("type", "emit", "l2w", "w2l", "area", "av0", "av1", "av2", "aflip",
+           "acdf")
 _CAMERA = ("type", "raster2cam", "c2w", "lens_radius", "focal_distance", "shutter")
+_PYRAMID = ("flat", "h", "w", "off")
 # reference-side features whose routes are not ported yet
-_UNPORTED_LEAVES = ("bvh", "inst", "ring", "media", "env_map")
-_UNPORTED_META = {"has_env_map": False, "n_images": 0, "media_kinds": (),
-                  "has_bump": False, "alpha_rows": (), "light_image_rows": (),
-                  "crop": (0.0, 1.0, 0.0, 1.0)}
+_UNPORTED_LEAVES = ("inst", "ring", "media")
+_UNPORTED_META = {"media_kinds": (), "has_bump": False, "alpha_rows": (),
+                  "light_image_rows": (), "crop": (0.0, 1.0, 0.0, 1.0)}
 
 
 def _same_fields(cls, obj):
@@ -49,6 +54,8 @@ def meta_from(meta) -> SceneMeta:
         filter=_same_fields(FilterConfig, meta.filter),
         xres=int(meta.xres),
         yres=int(meta.yres),
+        has_env_map=bool(meta.has_env_map),
+        n_images=int(meta.n_images),
     )
 
 
@@ -58,12 +65,31 @@ def scene_from_numpy(scene_np, meta, device=None):
     for key in _UNPORTED_LEAVES:
         if scene_np.get(key) is not None:
             raise NotImplementedError(f"scene has {key!r}: not ported yet")
-    for key in ("images", "brdf_tables", "density_grids"):
+    for key in ("brdf_tables", "density_grids"):
         if len(scene_np.get(key, ())) > 0:
             raise NotImplementedError(f"scene has {key!r}: not ported yet")
     scene = {k: scene_np[k] for k in _GEOMETRY}
     scene["materials"] = {k: scene_np["materials"][k] for k in MAT_FIELDS}
     scene["tex_data"] = {k: scene_np["tex_data"][k] for k in ("const", "w2t")}
+    if len(scene_np.get("images", ())) > 0:
+        scene["images"] = tuple(scene_np["images"])
+        scene["mipmaps"] = tuple(
+            dict({k: m[k] for k in _PYRAMID}, n_levels=int(m["n_levels"]))
+            for m in scene_np["mipmaps"])
     scene["lights"] = {k: scene_np["lights"][k] for k in _LIGHTS}
+    if INFINITE in meta.light_types:
+        scene["env_row"] = scene_np["env_row"]
+        scene["env_dist"] = scene_np["env_dist"]
+        if scene_np.get("env_map") is not None:
+            scene["env_map"] = scene_np["env_map"]
     scene["camera"] = {k: scene_np["camera"][k] for k in _CAMERA}
-    return to_torch(scene, device), meta_from(meta)
+    bvh = scene_np.get("bvh")
+    if bvh is not None:
+        if "stream" not in bvh:
+            raise NotImplementedError("scene has clustered stream tables: not "
+                                      "ported yet (single table only)")
+        scene["bvh"] = {"stream": bvh["stream"]}
+    scene = to_torch(scene, device)
+    if bvh is not None:
+        scene["bvh"]["depth"] = tree_depth(bvh)
+    return scene, meta_from(meta)

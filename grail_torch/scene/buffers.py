@@ -1,13 +1,15 @@
 """SceneBuilder -> (scene dict, SceneMeta) (port of grail/scene/buffers.py for
-triangle-mesh scenes with area lights).
+triangle-mesh scenes with area and environment lights).
 
 The scene compiles to structure-of-arrays tensors: one world-space triangle
-soup, a material lobe table, a texture table, a light table with per-light
-area CDFs and pre-gathered light-triangle vertices, and the camera pack.
-Host-side work is numpy, as in the reference, so both packages hold the same
-bits. The BVH (above 64 triangles), instances, media, images and mipmaps,
-environment lights and the power-weighted light distribution are not ported
-yet; a scene that would need them raises.
+soup, a material lobe table, a texture table with its images and MIP
+pyramids, a light table with per-light area CDFs, pre-gathered
+light-triangle vertices and light transforms, the environment map and its
+Distribution2D, the camera pack and, above 64 triangles, the BVH's stream
+record table. Host-side work is numpy, as in the reference, so both packages
+hold the same bits. Instances, media, the other light types and the
+power-weighted light distribution are not ported yet; a scene that would
+need them raises.
 """
 from __future__ import annotations
 
@@ -17,14 +19,18 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..core import montecarlo as mc
 from ..core import transform as tr
 from ..core.rng import SamplerConfig
 from ..device import resolve_device
 from ..engine.filters import FilterConfig
+from ..kernels.bvh_stream import build_stream_table, tree_depth
+from ..native import build_bvh_native
 from ..shade import bsdf as bx
 from ..shade import geometry as geom
 from ..shade import lights as lt
 from ..shade.materials import CONV_ID, MAT_FIELDS
+from ..shade.mipmap import build_pyramid, pack_pyramid
 from ..shade.textures import TexSpec
 
 BRUTE_MAX_TRIS = 64   # the reference builds a BVH above this many triangles
@@ -43,13 +49,35 @@ class SceneMeta:
     filter: FilterConfig
     xres: int
     yres: int
+    has_env_map: bool = False
+    n_images: int = 0
 
 
 def to_torch(tree, device):
-    """numpy leaves (arrays and scalars) of nested dicts -> tensors on device."""
+    """numpy leaves (arrays and numpy scalars) of nested dicts and tuples ->
+    tensors on device; Python ints and None stay as they are."""
     if isinstance(tree, dict):
         return {k: to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(to_torch(v, device) for v in tree)
+    if tree is None or type(tree) is int:
+        return tree
     return torch.tensor(np.asarray(tree), device=device)
+
+
+def env_distribution(env_map):
+    """The infinite light's importance map, luminance·sinθ (infinite.cpp),
+    as a Distribution2D of numpy arrays; a constant light gets a flat map."""
+    if env_map is not None:
+        lum = (0.212671 * env_map[..., 0] + 0.715160 * env_map[..., 1]
+               + 0.072169 * env_map[..., 2])
+    else:
+        lum = np.ones((64, 128), np.float32)
+    h = lum.shape[0]
+    sint = np.sin((np.arange(h) + 0.5) / h * np.pi)
+    dist = mc.build_distribution_2d(
+        torch.tensor((lum * sint[:, None] + 1e-9).astype(np.float32)))
+    return {part: {k: v.numpy() for k, v in d.items()} for part, d in dist.items()}
 
 
 class SceneBuilder:
@@ -65,8 +93,11 @@ class SceneBuilder:
         self.tex_specs = []
         self.tex_const = []
         self.tex_w2t = []
+        self.images = []
         self.mat_rows = []       # list of list-of-lobe dicts
         self.lights = []         # list of dicts
+        self.env_map = None      # (H,W,3) lat-long map of the infinite light
+        self.env_row = -1
         self.camera = None
         self.sampler = SamplerConfig()
         self.filter = FilterConfig()
@@ -87,6 +118,10 @@ class SceneBuilder:
         if v.size == 1:
             v = np.repeat(v, 3)
         return self.add_texture(TexSpec(kind="const"), v)
+
+    def add_image(self, img):
+        self.images.append(np.asarray(img, np.float32))
+        return len(self.images) - 1
 
     # ------------------------------------------------------------------ materials
     def add_material(self, lobes):
@@ -150,6 +185,17 @@ class SceneBuilder:
         self.tri_flags.append(np.full(ntri, flags, np.int64))
         return light_id
 
+    # ---------------------------------------------------------------------- lights
+    def add_infinite_light(self, l2w=None, radiance=(1.0, 1.0, 1.0), env_map=None):
+        """InfiniteAreaLight; env_map (H,W,3) lat-long, importance
+        luminance·sinθ."""
+        self.env_row = len(self.lights)
+        self.lights.append({"type": lt.INFINITE,
+                            "emit": np.asarray(radiance, np.float32),
+                            "l2w": l2w if l2w is not None else tr.identity()})
+        if env_map is not None:
+            self.env_map = np.asarray(env_map, np.float32)
+
     # --------------------------------------------------------------------- finalize
     def finalize(self, device=None):
         """Compile to (scene, meta); tensors go to `device` (CUDA unless the
@@ -158,10 +204,6 @@ class SceneBuilder:
         n_tris = sum(len(t) for t in self.tri_idx)
         if n_tris == 0:
             raise ValueError("scene has no geometry")
-        if n_tris > BRUTE_MAX_TRIS:
-            raise NotImplementedError(
-                f"{n_tris} triangles: scenes above {BRUTE_MAX_TRIS} triangles "
-                "use the BVH, which is not ported yet")
         if self.camera is None:
             raise ValueError("scene has no camera")
         verts = np.concatenate(self.verts)
@@ -203,12 +245,19 @@ class SceneBuilder:
                     else np.zeros((1, 4, 4), np.float32)),
         }
 
-        # ---- light table (the columns area-light sampling reads)
+        if self.images:
+            scene["images"] = tuple(self.images)
+            scene["mipmaps"] = tuple(pack_pyramid(build_pyramid(im))
+                                     for im in self.images)
+
+        # ---- light table (the columns area and infinite lights read)
         L = max(len(self.lights), 1)
-        at_max = max(max((len(lg["tris"]) for lg in self.lights), default=0), 1)
+        at_max = max(max((len(lg.get("tris", ())) for lg in self.lights), default=0), 1)
         larr = {
             "type": np.zeros(L, np.int32),
             "emit": np.zeros((L, 3), np.float32),
+            "l2w": np.tile(tr.identity(), (L, 1, 1)),
+            "w2l": np.tile(tr.identity(), (L, 1, 1)),
             "area": np.ones(L, np.float32),
             "av0": np.zeros((L, at_max, 3), np.float32),
             "av1": np.zeros((L, at_max, 3), np.float32),
@@ -219,6 +268,10 @@ class SceneBuilder:
         for i, lg in enumerate(self.lights):
             larr["type"][i] = lg["type"]
             larr["emit"][i] = lg["emit"]
+            larr["l2w"][i] = np.asarray(lg.get("l2w", tr.identity()), np.float32)
+            larr["w2l"][i] = tr.inverse(lg.get("l2w", tr.identity()))
+            if lg["type"] != lt.AREA:
+                continue
             tris = lg["tris"]
             areas = lg["tri_areas"]
             total = float(areas.sum())
@@ -236,7 +289,20 @@ class SceneBuilder:
             larr["acdf"][i, :len(cdf)] = cdf.astype(np.float32)
             larr["acdf"][i, len(cdf):] = 1.0
         scene["lights"] = larr
+        if self.env_row >= 0:
+            scene["env_row"] = np.int32(self.env_row)
+            scene["env_dist"] = env_distribution(self.env_map)
+            if self.env_map is not None:
+                scene["env_map"] = self.env_map
         scene["camera"] = self.camera
+
+        # ---- BVH stream table (force_leaf=4: a box record costs the stream
+        # traversal as much as a triangle record)
+        depth = None
+        if n_tris > BRUTE_MAX_TRIS:
+            b_np = build_bvh_native(verts, tri_idx, max_prims=4, force_leaf=4)
+            scene["bvh"] = {"stream": build_stream_table(b_np, verts, tri_idx)}
+            depth = tree_depth(b_np)
 
         meta = SceneMeta(
             tex_specs=tuple(self.tex_specs),
@@ -249,5 +315,10 @@ class SceneBuilder:
             filter=self.filter,
             xres=self.xres,
             yres=self.yres,
+            has_env_map=self.env_map is not None,
+            n_images=len(self.images),
         )
-        return to_torch(scene, device), meta
+        scene = to_torch(scene, device)
+        if depth is not None:
+            scene["bvh"]["depth"] = depth
+        return scene, meta

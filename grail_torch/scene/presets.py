@@ -1,4 +1,5 @@
-"""Built-in scenes (port of grail/scene/presets.py: the Cornell box)."""
+"""Built-in scenes (port of grail/scene/presets.py: the Cornell box and the
+textured terrain under a sky, mesh_scene)."""
 from __future__ import annotations
 
 import numpy as np
@@ -8,6 +9,9 @@ from ..core import transform as tr
 from ..core.rng import SamplerConfig, ZERO_TWO
 from ..engine import camera as cam
 from ..engine.filters import FilterConfig
+from ..shade import bsdf as bx
+from ..shade.materials import CONV_INV
+from ..shade.textures import TexSpec
 
 
 def _quad(p0, p1, p2, p3):
@@ -86,5 +90,130 @@ def cornell_box(xres=256, yres=256, spp=16, sampler_kind=ZERO_TWO,
     c2w = tr.look_at([0.0, 1.0, 3.9], [0.0, 1.0, 0.0], [0.0, 1.0, 0.0])
     b.camera = cam.build_camera(cam.PERSPECTIVE, c2w, c2w, xres, yres, fov=39.0)
 
+    scene, meta = b.finalize(device)
+    return scene, meta, b
+
+
+def tessellate_sphere(center=(0, 0, 0), radius=1.0, nu=32, nv=16):
+    """Lat-long sphere tessellation."""
+    cx, cy, cz = center
+    vs = []
+    for j in range(nv + 1):
+        theta = np.pi * j / nv
+        for i in range(nu):
+            phi = 2 * np.pi * i / nu
+            vs.append([cx + radius * np.sin(theta) * np.cos(phi),
+                       cy + radius * np.cos(theta),
+                       cz + radius * np.sin(theta) * np.sin(phi)])
+    vs = np.array(vs, np.float32)
+    fs = []
+    for j in range(nv):
+        for i in range(nu):
+            i2 = (i + 1) % nu
+            a = j * nu + i
+            bq = j * nu + i2
+            c = (j + 1) * nu + i2
+            d = (j + 1) * nu + i
+            if j > 0:
+                fs.append([a, c, bq])
+            if j < nv - 1:
+                fs.append([a, d, c])
+    return vs, np.array(fs, np.int64)
+
+
+def _sky_env_map(h=64, w=128, sun_dir=(0.4, 0.6, 0.5), sun_power=60.0):
+    """Procedural lat-long sky: a horizon-to-zenith gradient and a sun disk.
+    Row v is theta from the light's +z axis; with an identity light-to-world,
+    world up (+y) is the sinθ·sinφ component."""
+    theta = (np.arange(h) + 0.5) / h * np.pi
+    phi = (np.arange(w) + 0.5) / w * 2 * np.pi
+    st, ct = np.sin(theta)[:, None], np.cos(theta)[:, None]
+    dx = st * np.cos(phi)[None, :]
+    dy = st * np.sin(phi)[None, :]
+    dz = np.broadcast_to(ct, (h, w))
+    sd = np.asarray(sun_dir, np.float64)
+    sd /= np.linalg.norm(sd)
+    cos_sun = dx * sd[0] + dy * sd[1] + dz * sd[2]
+    horizon = np.clip(1.0 - np.abs(dy), 0, 1) ** 3
+    sky = (np.stack([0.25 + 0.5 * horizon,
+                     0.45 + 0.35 * horizon,
+                     0.9 - 0.1 * horizon], -1)
+           * np.clip(dy + 0.35, 0.05, 1.0)[..., None])
+    sun = np.clip((cos_sun - 0.9995) / 0.0005, 0, 1)[..., None] \
+        * np.array([1.0, 0.9, 0.7]) * sun_power
+    return (sky + sun).astype(np.float32)
+
+
+def _checker_image(n=256, c0=(0.9, 0.85, 0.75), c1=(0.25, 0.3, 0.35), k=16):
+    ij = np.indices((n, n)).sum(0) // (n // k)
+    m = (ij % 2).astype(np.float32)[..., None]
+    return (np.asarray(c0) * (1 - m) + np.asarray(c1) * m).astype(np.float32)
+
+
+def mesh_scene(xres=256, yres=256, spp=16, grid=224, sampler_kind=ZERO_TWO,
+               device=None):
+    """The ~100k-triangle textured terrain (2(grid-1)^2 triangles of a
+    displaced height field, image-mapped checker texture) with a glossy
+    sphere of 2,208 triangles, lit by a procedural sky environment map with a
+    sun disk. Tensors go to `device` (CUDA unless the caller passes another).
+    Returns (scene, meta, builder)."""
+    b = SceneBuilder()
+    b.xres, b.yres = xres, yres
+    b.sampler = SamplerConfig(kind=sampler_kind, spp=spp)
+    b.filter = FilterConfig.from_name("box")
+
+    # displaced terrain: a few fixed-frequency sines + value noise
+    n = grid
+    xs = np.linspace(-4.0, 4.0, n, dtype=np.float32)
+    zs = np.linspace(-4.0, 4.0, n, dtype=np.float32)
+    X, Z = np.meshgrid(xs, zs)
+    rng = np.random.RandomState(7)
+    gsz = 17
+    lattice = rng.rand(gsz, gsz).astype(np.float32)
+    u = (X + 4.0) / 8.0 * (gsz - 1)
+    v = (Z + 4.0) / 8.0 * (gsz - 1)
+    iu, iv = u.astype(np.int64), v.astype(np.int64)
+    fu, fv = u - iu, v - iv
+    fu = fu * fu * (3 - 2 * fu)
+    fv = fv * fv * (3 - 2 * fv)
+    n00 = lattice[iv, iu]
+    n10 = lattice[iv, np.minimum(iu + 1, gsz - 1)]
+    n01 = lattice[np.minimum(iv + 1, gsz - 1), iu]
+    n11 = lattice[np.minimum(iv + 1, gsz - 1), np.minimum(iu + 1, gsz - 1)]
+    noise = (n00 * (1 - fu) * (1 - fv) + n10 * fu * (1 - fv)
+             + n01 * (1 - fu) * fv + n11 * fu * fv)
+    Y = (0.35 * np.sin(1.7 * X) * np.cos(1.3 * Z)
+         + 0.18 * np.sin(4.1 * X + 1.0) * np.sin(3.7 * Z)
+         + 0.9 * noise).astype(np.float32)
+    verts = np.stack([X, Y, Z], -1).reshape(-1, 3)
+    uvs = np.stack([(X + 4.0) / 8.0, (Z + 4.0) / 8.0], -1).reshape(-1, 2)
+    ii, jj = np.meshgrid(np.arange(n - 1), np.arange(n - 1))
+    a = (jj * n + ii).ravel()
+    idx = np.concatenate([
+        np.stack([a, a + n, a + 1], -1),
+        np.stack([a + 1, a + n, a + n + 1], -1)], 0).astype(np.int64)
+
+    img_id = b.add_image(_checker_image())
+    tex = b.add_texture(TexSpec(kind="image", image_id=img_id, su=6.0, sv=6.0))
+    terrain_mat = b.matte(kd_tex=tex)
+    b.add_mesh(verts, idx, terrain_mat, uvs=uvs)
+
+    # glossy sphere resting on the terrain
+    sp_v, sp_i = tessellate_sphere(center=(0.0, 1.4, 0.0), radius=0.8, nu=48, nv=24)
+    ks = b.const_tex((0.6, 0.6, 0.6))
+    kd = b.const_tex((0.25, 0.05, 0.04))
+    rough = b.add_texture(TexSpec(kind="const"), (0.08, 0.08, 0.08))
+    ior = b.const_tex((1.5,) * 3)
+    sphere_mat = b.add_material([
+        {"type": bx.LAMBERT, "s0": kd},
+        {"type": bx.BLINN, "s0": ks, "fr": bx.FR_DIELECTRIC, "f0": rough,
+         "f0_conv": CONV_INV, "f2": ior},
+    ])
+    b.add_mesh(sp_v, sp_i, sphere_mat)
+
+    b.add_infinite_light(env_map=_sky_env_map())
+
+    c2w = tr.look_at([0.0, 3.2, 7.5], [0.0, 0.6, 0.0], [0.0, 1.0, 0.0])
+    b.camera = cam.build_camera(cam.PERSPECTIVE, c2w, c2w, xres, yres, fov=42.0)
     scene, meta = b.finalize(device)
     return scene, meta, b

@@ -1,16 +1,16 @@
-"""BSDF lobe stack (port of grail/shade/bsdf.py: the stack dispatch and the
-LAMBERT lobe).
+"""BSDF lobe stack (port of grail/shade/bsdf.py: the stack dispatch, the
+LAMBERT lobe and the BLINN microfacet lobe with its Fresnel terms).
 
 A BSDF is a static-length stack of lobe slots evaluated in the local shading
 frame (z up). As in the reference, only the lobe types present in the scene
-(`present`, a static tuple) are evaluated, each under its type mask. Lobe
-types other than LAMBERT are not ported yet and raise.
+(`present`, a static tuple) are evaluated, each under its type mask. Other
+lobe types are not ported yet and raise.
 """
 from __future__ import annotations
 
 import torch
 
-from ..core.vecmath import INV_PI
+from ..core.vecmath import INV_PI, INV_TWOPI, PI, dot, normalize
 from ..core import montecarlo as mc
 
 # lobe type tags (same values as grail)
@@ -26,16 +26,19 @@ LAMBERT_T = 8
 BLINN_T = 9
 MEASURED = 10
 
+# fresnel type tags
 FR_NOOP = 0
+FR_DIELECTRIC = 1
+FR_CONDUCTOR = 2
 
-PORTED_TYPES = (LAMBERT,)
+PORTED_TYPES = (LAMBERT, BLINN)
 
 
 def _check_present(present):
     missing = sorted(set(present) - set(PORTED_TYPES))
     if missing:
         raise NotImplementedError(f"lobe types {missing} are not ported yet "
-                                  "(LAMBERT only)")
+                                  "(LAMBERT, BLINN)")
 
 
 def cos_theta(w):
@@ -50,30 +53,118 @@ def same_hemisphere(w, wp):
     return w[..., 2] * wp[..., 2] > 0.0
 
 
+# ------------------------------------------------------------------------- Fresnel
+def fr_dielectric(cosi, eta_i, eta_t):
+    """Exact dielectric Fresnel with total internal reflection; cosi signed,
+    the indices swap when exiting. Returns the scalar reflectance."""
+    cosi = torch.clamp(cosi, -1.0, 1.0)
+    entering = cosi > 0.0
+    ei = torch.where(entering, eta_i, eta_t)
+    et = torch.where(entering, eta_t, eta_i)
+    sint = ei / et * torch.sqrt(torch.clamp_min(1.0 - cosi * cosi, 0.0))
+    cost = torch.sqrt(torch.clamp_min(1.0 - sint * sint, 0.0))
+    aci = torch.abs(cosi)
+    rparl = (et * aci - ei * cost) / torch.clamp_min(et * aci + ei * cost, 1e-12)
+    rperp = (ei * aci - et * cost) / torch.clamp_min(ei * aci + et * cost, 1e-12)
+    fr = 0.5 * (rparl * rparl + rperp * rperp)
+    return torch.where(sint >= 1.0, 1.0, fr)
+
+
+def fr_conductor(cosi, eta, k):
+    """Conductor Fresnel; eta, k RGB (...,3), cosi (...)."""
+    cosi = torch.abs(cosi)[..., None]
+    tmp = (eta * eta + k * k) * cosi * cosi
+    rparl2 = (tmp - 2.0 * eta * cosi + 1.0) / torch.clamp_min(
+        tmp + 2.0 * eta * cosi + 1.0, 1e-12)
+    tmp_f = eta * eta + k * k
+    rperp2 = (tmp_f - 2.0 * eta * cosi + cosi * cosi) / torch.clamp_min(
+        tmp_f + 2.0 * eta * cosi + cosi * cosi, 1e-12)
+    return (rparl2 + rperp2) / 2.0
+
+
+def lobe_fresnel(fr_type, cosi, eta_f, eta_s, k_s):
+    """Masked dispatch over the Fresnel type: RGB reflectance (...,3)."""
+    one = torch.ones(cosi.shape + (3,), dtype=torch.float32, device=cosi.device)
+    f_diel = fr_dielectric(cosi, torch.ones_like(eta_f), eta_f)[..., None] * one
+    return torch.where((fr_type == FR_DIELECTRIC)[..., None], f_diel,
+                       torch.where((fr_type == FR_CONDUCTOR)[..., None],
+                                   fr_conductor(cosi, eta_s, k_s), one))
+
+
+# ------------------------------------------------------------------ Blinn microfacets
+def blinn_d(wh, exponent):
+    return (exponent + 2.0) * INV_TWOPI * torch.pow(
+        torch.clamp_min(abs_cos_theta(wh), 1e-6), exponent)
+
+
+def blinn_sample_wh(wo, u1, u2, exponent):
+    """Half vector distributed as the Blinn D (pbrt Blinn::Sample_f)."""
+    costheta = torch.pow(torch.clamp_min(u1, 1e-12), 1.0 / (exponent + 1.0))
+    sintheta = torch.sqrt(torch.clamp_min(1.0 - costheta * costheta, 0.0))
+    phi = u2 * 2.0 * PI
+    wh = torch.stack([sintheta * torch.cos(phi), sintheta * torch.sin(phi),
+                      costheta], dim=-1)
+    return torch.where(same_hemisphere(wo, wh)[..., None], wh, -wh)
+
+
+def blinn_pdf_wh_to_wi(wo, wh, exponent):
+    """pdf of wi under Blinn sampling (with the dwh/dwi Jacobian)."""
+    pdf_wh = ((exponent + 1.0) * torch.pow(
+        torch.clamp_min(abs_cos_theta(wh), 1e-6), exponent) * INV_TWOPI)
+    return pdf_wh / (4.0 * torch.clamp_min(torch.abs(dot(wo, wh)), 1e-6))
+
+
+def torrance_sparrow_g(wo, wi, wh):
+    ndotwh = abs_cos_theta(wh)
+    wodotwh = torch.clamp_min(torch.abs(dot(wo, wh)), 1e-6)
+    return torch.clamp_max(torch.minimum(
+        2.0 * ndotwh * abs_cos_theta(wo) / wodotwh,
+        2.0 * ndotwh * abs_cos_theta(wi) / wodotwh), 1.0)
+
+
+def _half_vector(wo, wi):
+    wh = normalize(wi + wo)
+    wh_ok = torch.sum(torch.abs(wi + wo), dim=-1) > 1e-9
+    return wh, wh_ok
+
+
 # --------------------------------------------------------------------- one lobe slot
-def lobe_f(lobe_type, wo, wi, R, present):
+def lobe_f(lobe_type, wo, wi, R, S1, S2, f0, f2, fr_type, present):
     """One lobe slot's BRDF value (masked by type). Delta lobes return 0."""
     _check_present(present)
     result = wo.new_zeros((wo.shape[0], 3))
+    reflect = same_hemisphere(wo, wi)
     if LAMBERT in present:
-        reflect = same_hemisphere(wo, wi)
         m = (lobe_type == LAMBERT) & reflect
         result = result + torch.where(m[..., None], R * INV_PI, 0.0)
+    if BLINN in present:
+        aci, aco = abs_cos_theta(wi), abs_cos_theta(wo)
+        wh, wh_ok = _half_vector(wo, wi)
+        F = lobe_fresnel(fr_type, dot(wi, wh), f2, S1, S2)
+        G = torrance_sparrow_g(wo, wi, wh)
+        denom = torch.clamp_min(4.0 * aci * aco, 1e-6)
+        val = R * F * (blinn_d(wh, f0) * G / denom)[..., None]
+        m = ((lobe_type == BLINN) & reflect & wh_ok & (aci > 1e-6) & (aco > 1e-6))
+        result = result + torch.where(m[..., None], val, 0.0)
     return result
 
 
-def lobe_pdf(lobe_type, wo, wi, present):
+def lobe_pdf(lobe_type, wo, wi, f0, present):
     """pdf of one lobe slot's sampling strategy."""
     _check_present(present)
     pdf = wo.new_zeros(wo.shape[:-1])
+    reflect = same_hemisphere(wo, wi)
     if LAMBERT in present:
-        reflect = same_hemisphere(wo, wi)
         cos_pdf = abs_cos_theta(wi) * INV_PI
         pdf = pdf + torch.where((lobe_type == LAMBERT) & reflect, cos_pdf, 0.0)
+    if BLINN in present:
+        wh, wh_ok = _half_vector(wo, wi)
+        pdf = pdf + torch.where((lobe_type == BLINN) & reflect & wh_ok,
+                                blinn_pdf_wh_to_wi(wo, wh, f0), 0.0)
     return pdf
 
 
-def lobe_sample_wi(lobe_type, wo, u1, u2, present):
+def lobe_sample_wi(lobe_type, wo, u1, u2, f0, present):
     """Sample an incident direction from one lobe slot's strategy; returns
     (wi, is_valid)."""
     _check_present(present)
@@ -82,11 +173,17 @@ def lobe_sample_wi(lobe_type, wo, u1, u2, present):
     if LAMBERT in present:
         entering_sign = torch.where(cos_theta(wo) > 0.0, 1.0, -1.0)
         one = torch.ones_like(entering_sign)
-        wi_cos = mc.cosine_sample_hemisphere(u1, u2)
-        cand = wi_cos * torch.stack([one, one, entering_sign], dim=-1)
+        cand = mc.cosine_sample_hemisphere(u1, u2) * torch.stack(
+            [one, one, entering_sign], dim=-1)
         m = lobe_type == LAMBERT
         wi = torch.where(m[..., None], cand, wi)
         valid = torch.where(m, True, valid)
+    if BLINN in present:
+        wh = blinn_sample_wh(wo, u1, u2, f0)
+        cand = -wo + 2.0 * dot(wo, wh)[..., None] * wh
+        m = lobe_type == BLINN
+        wi = torch.where(m[..., None], cand, wi)
+        valid = torch.where(m, same_hemisphere(wo, cand), valid)
     return wi, valid
 
 
@@ -105,7 +202,9 @@ def bsdf_f(lobes, wo, wi, present, include_specular=True):
     total = wo.new_zeros(wo.shape)
     for k in range(lobes["type"].shape[1]):
         total = total + lobe_f(lobes["type"][:, k], wo, wi, lobes["R"][:, k],
-                               present)
+                               lobes["S1"][:, k], lobes["S2"][:, k],
+                               lobes["f0"][:, k], lobes["f2"][:, k],
+                               lobes["fr"][:, k], present)
     return total
 
 
@@ -115,7 +214,8 @@ def bsdf_pdf(lobes, wo, wi, present, include_specular=False):
     total = wo.new_zeros(wo.shape[:-1])
     for k in range(lobes["type"].shape[1]):
         total = total + torch.where(
-            match[:, k], lobe_pdf(lobes["type"][:, k], wo, wi, present), 0.0)
+            match[:, k], lobe_pdf(lobes["type"][:, k], wo, wi, lobes["f0"][:, k],
+                                  present), 0.0)
     n = torch.sum(match.to(torch.float32), dim=-1)
     return torch.where(n > 0, total / torch.clamp_min(n, 1.0), 0.0)
 
@@ -134,7 +234,8 @@ def bsdf_sample(lobes, wo, u1, u2, u_comp, present, include_specular=True):
     lane = torch.arange(wo.shape[0], device=wo.device)
     ch_type = lobes["type"][lane, slot_sel]
 
-    wi, valid = lobe_sample_wi(ch_type, wo, u1, u2, present)
+    wi, valid = lobe_sample_wi(ch_type, wo, u1, u2, lobes["f0"][lane, slot_sel],
+                               present)
     chosen_specular = (ch_type == SPEC_REFL) | (ch_type == SPEC_TRANS)
     valid = valid & (n_match > 0)
 

@@ -1,5 +1,6 @@
 """Differential geometry at hit points (port of grail/shade/geometry.py,
-without instances and the scene-sharded ring record)."""
+without instances and the scene-sharded ring record), and the uv screen
+derivatives that texture filtering reads at camera hits."""
 from __future__ import annotations
 
 import torch
@@ -122,3 +123,51 @@ def world_to_local(sg, w):
 
 def local_to_world(sg, w):
     return w[..., 0:1] * sg["ss"] + w[..., 1:2] * sg["ts"] + w[..., 2:3] * sg["ns"]
+
+
+def uv_differentials(sg, rx_o, rx_d, ry_o, ry_d):
+    """DifferentialGeometry::ComputeDifferentials: intersect the x/y offset
+    rays with the tangent plane at p, then solve dpdx = dudx*dpdu + dvdx*dpdv
+    over the two axes where the normal is smallest. Returns (duvdx, duvdy),
+    each (N,2); a degenerate configuration gives zeros."""
+    p, ng = sg["p"], sg["ng"]
+    dist = dot(ng, p)
+
+    def plane_hit(o, d):
+        denom = dot(ng, d)
+        ok = torch.abs(denom) >= 1e-9
+        tt = (dist - dot(ng, o)) / torch.where(ok, denom, 1.0)
+        return o + tt[..., None] * d, ok
+
+    px, okx = plane_hit(rx_o, rx_d)
+    py, oky = plane_hit(ry_o, ry_d)
+    dpdx = px - p
+    dpdy = py - p
+
+    drop = torch.argmax(torch.abs(ng), dim=-1)       # the largest-|n| axis
+    ax0 = torch.where(drop == 0, 1, 0)[..., None]
+    ax1 = torch.where(drop == 2, 1, 2)[..., None]
+
+    def pick(v, a):
+        return torch.gather(v, -1, a)[..., 0]
+
+    A00 = pick(sg["dpdu"], ax0)
+    A01 = pick(sg["dpdv"], ax0)
+    A10 = pick(sg["dpdu"], ax1)
+    A11 = pick(sg["dpdv"], ax1)
+    det = A00 * A11 - A01 * A10
+    solvable = torch.abs(det) >= 1e-12
+    inv = 1.0 / torch.where(solvable, det, 1.0)
+
+    def solve(b):
+        b0 = pick(b, ax0)
+        b1 = pick(b, ax1)
+        return (A11 * b0 - A01 * b1) * inv, (A00 * b1 - A10 * b0) * inv
+
+    dudx, dvdx = solve(dpdx)
+    dudy, dvdy = solve(dpdy)
+    okx = okx & solvable
+    oky = oky & solvable
+    duvdx = torch.stack([torch.where(okx, dudx, 0.0), torch.where(okx, dvdx, 0.0)], dim=-1)
+    duvdy = torch.stack([torch.where(oky, dudy, 0.0), torch.where(oky, dvdy, 0.0)], dim=-1)
+    return duvdx, duvdy

@@ -1,17 +1,21 @@
-"""Light sampling (port of grail/shade/lights.py, AREA lights only).
+"""Light sampling (port of grail/shade/lights.py: AREA and INFINITE lights).
 
 Area lights pick a triangle from a per-light area CDF, then a uniform
 barycentric point, and convert to solid angle with the per-point pdf
 r^2/(|cos|·totalArea) — the area-domain MIS form the reference documents.
-The static `present_types` branching is kept; light types other than AREA
-are not ported yet and raise.
+The infinite light samples its lat-long map through a Distribution2D of
+luminance·sinθ (infinite.cpp). The static `present_types` branching is
+kept; other light types are not ported yet and raise.
 """
 from __future__ import annotations
 
 import torch
 
-from ..core.vecmath import dot, normalize, length_sq, cross
+from ..core.vecmath import (PI, TWO_PI, cross, dot, length_sq, normalize,
+                            spherical_direction, spherical_phi, spherical_theta)
 from ..core import montecarlo as mc
+from ..core import transform as tr
+from .textures import image_bilinear
 
 POINT = 0
 SPOT = 1
@@ -60,10 +64,10 @@ def sample_li(scene, li, p, u1, u2, u3, present_types):
     li (N,) light row per shade point; (u1, u2) 2D sample; u3 picks the area
     light's triangle. Returns dict: wi (N,3), radiance (N,3), pdf (N,),
     dist (N,) shadow-ray length, delta (N,) bool."""
-    unported = sorted(set(present_types) - {AREA})
+    unported = sorted(set(present_types) - {AREA, INFINITE})
     if unported:
         raise NotImplementedError(f"light types {unported} are not ported yet "
-                                  "(AREA only)")
+                                  "(AREA, INFINITE)")
     lights = scene["lights"]
     lt = lights["type"][li]
     n = p.shape[0]
@@ -82,8 +86,51 @@ def sample_li(scene, li, p, u1, u2, u3, present_types):
         pdf = torch.where(m, pdf_a, pdf)
         dist = torch.where(m, dist_a * (1.0 - 1e-3), dist)
 
+    if INFINITE in present_types:
+        u, v, map_pdf = mc.sample_distribution_2d(scene["env_dist"], u1, u2)
+        theta = v * PI
+        phi = u * TWO_PI
+        sintheta = torch.sin(theta)
+        wl = spherical_direction(sintheta, torch.cos(theta), phi)
+        wi_e = tr.xform_v(lights["l2w"][li], wl)
+        pdf_e = map_pdf / torch.clamp_min(2.0 * PI * PI * sintheta, 1e-9)
+        m = lt == INFINITE
+        wi = torch.where(m[..., None], wi_e, wi)
+        radiance = torch.where(m[..., None], env_radiance(scene, li, wi_e), radiance)
+        pdf = torch.where(m, pdf_e, pdf)
+
     return {"wi": wi, "radiance": radiance, "pdf": pdf, "dist": dist,
             "delta": is_delta(lt)}
+
+
+def env_radiance(scene, li, w_world):
+    """InfiniteAreaLight::Le for directions: a lat-long map lookup."""
+    lights = scene["lights"]
+    wl = normalize(tr.xform_v(lights["w2l"][li], w_world))
+    s = spherical_phi(wl) / TWO_PI
+    t = spherical_theta(wl) / PI
+    emit = lights["emit"][li]
+    if scene.get("env_map") is None:
+        return emit
+    return emit * image_bilinear(scene["env_map"], s, t)
+
+
+def escaped_radiance(scene, d, present_types):
+    """Sum of the lights' Le for escaped rays (pbrt Light::Le)."""
+    if INFINITE not in present_types:
+        return d.new_zeros(d.shape)
+    li = scene["env_row"].expand(d.shape[0])
+    return env_radiance(scene, li, d)
+
+
+def env_pdf(scene, li, w_world):
+    """InfiniteAreaLight::Pdf(p, wi): map pdf over the lat-long Jacobian."""
+    wl = normalize(tr.xform_v(scene["lights"]["w2l"][li], w_world))
+    theta = spherical_theta(wl)
+    phi = spherical_phi(wl)
+    sintheta = torch.clamp_min(torch.sin(theta), 1e-6)
+    p2 = mc.distribution_2d_pdf(scene["env_dist"], phi / TWO_PI, theta / PI)
+    return p2 / (2.0 * PI * PI * sintheta)
 
 
 def area_light_emitted(scene, sg, wo_world):

@@ -1,16 +1,20 @@
 """Where the device time of one render goes, on the card.
 
-    python3 -m grail_torch.tools.profile_render [--res 256] [--spp 16] [--depth 5]
+    python3 -m grail_torch.tools.profile_render [--scene cornell|mesh]
+        [--res 256] [--spp 16] [--depth 5] [--grid 224]
 
-Renders the Cornell box once to warm up, once timed, then once under
+Renders the Cornell box (or mesh_scene, the textured terrain of
+2(grid-1)^2 triangles under an environment light) once to warm up, once
+timed, then once under
 torch.profiler, and prints JSON lines: the render's wall time (unprofiled and
 profiled), the summed kernel time and the device's busy share (kernel time
 over the unprofiled wall time), the number of kernel launches; for each stage
 of the path its kernel time, the device timeline it spans and the host time
 spent issuing it (all inclusive of what runs inside; sample_li lies inside
 direct lighting and bsdf_eval partly inside bsdf_sample, so stages nest);
-and the kernels and operators that take the most device time. Needs a CUDA
-device.
+and the kernels and operators that take the most device time. The stream traversal
+kernels are launched through ctypes and do not appear in the profiler's
+kernel list; chip_smoke.py times them with CUDA events. Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from ..core import rng
 from ..engine import camera, film, integrator, render as rnd
 from ..kernels import intersect
-from ..scene.presets import cornell_box
+from ..scene.presets import cornell_box, mesh_scene
 from ..shade import bsdf, geometry, lights, materials
 
 # stage name -> (module, function names) wrapped in a profiler range
@@ -34,6 +38,12 @@ _STAGES = {
     "rng": (rng, ("sample_1d", "sample_2d")),
     "camera": (camera, ("generate_rays",)),
     "intersect": (intersect, ("intersect", "intersect_p")),
+    "binning": (intersect, ("bin_rays_key", "bucket_rank", "sort_by_rank",
+                            "unsort")),                 # inside intersect
+    "traversal": (intersect, ("stream_traverse",)),     # inside intersect
+    "uv_differentials": (geometry, ("uv_differentials",)),
+    "textures": (integrator, ("eval_textures",)),
+    "environment": (lights, ("env_pdf", "escaped_radiance")),
     "shading_geometry": (geometry, ("shading_geometry",)),
     "textures_lobes": (materials, ("gather_lobes",)),
     "bsdf_sample": (bsdf, ("bsdf_sample",)),
@@ -67,6 +77,8 @@ def _instrument():
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scene", choices=("cornell", "mesh"), default="cornell")
+    ap.add_argument("--grid", type=int, default=224, help="mesh terrain grid")
     ap.add_argument("--res", type=int, default=256)
     ap.add_argument("--spp", type=int, default=16)
     ap.add_argument("--depth", type=int, default=5)
@@ -75,7 +87,11 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_render: no CUDA device")
     dev = torch.device("cuda", 0)
-    scene, meta, _ = cornell_box(args.res, args.res, args.spp, device=dev)
+    if args.scene == "mesh":
+        scene, meta, _ = mesh_scene(args.res, args.res, args.spp, grid=args.grid,
+                                    device=dev)
+    else:
+        scene, meta, _ = cornell_box(args.res, args.res, args.spp, device=dev)
     cfg = integrator.IntegratorConfig(kind="path", max_depth=args.depth)
     rnd.render(scene, meta, cfg, spp=args.spp, device=dev)
     torch.cuda.synchronize()
@@ -102,7 +118,8 @@ def main(argv=None):
                and not e.key.startswith("stage:")]
     kernel_us = sum(e.self_device_time_total for e in kernels)
     print(json.dumps({
-        "render": {"res": args.res, "spp": args.spp, "max_depth": args.depth,
+        "render": {"scene": args.scene, "n_tris": meta.n_tris,
+                   "res": args.res, "spp": args.spp, "max_depth": args.depth,
                    "wall_ms": wall_plain * 1e3, "wall_ms_profiled": wall * 1e3,
                    "kernel_ms": kernel_us / 1e3,
                    "device_busy_share": kernel_us / 1e3 / (wall_plain * 1e3),

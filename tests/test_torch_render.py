@@ -82,6 +82,36 @@ def test_li_matches_reference_per_lane(li_case, monkeypatch):
     assert close.mean() >= 0.99, f"{close.mean():.4%} of lanes match"
 
 
+def test_li_halton_matches_reference_per_lane():
+    """Under the HALTON sampler the reference draws bounces >= 1 with a
+    traced dimension (inside lax.fori_loop), which takes base 2; bounce 0
+    keeps each dimension's prime. The port's lanes must follow both."""
+    res, spp = 16, 4
+    scene, meta, _ = cornell_box(res, res, spp, sampler_kind=jrng.HALTON)
+    n_pix = res * res
+    px_t, py_t = jfilm.lane_pixel(jnp.arange(n_pix, dtype=jnp.uint32), res)
+    pix = jnp.tile(py_t.astype(jnp.uint32) * res + px_t.astype(jnp.uint32), spp)
+    samp = jnp.repeat(jnp.arange(spp, dtype=jnp.uint32), n_pix)
+    ufx, ufy = jrng.sample_2d(meta.sampler, pix, samp, jint.SLOT_FILM)
+    ul1, ul2 = jrng.sample_2d(meta.sampler, pix, samp, jint.SLOT_LENS)
+    ut = jrng.sample_1d(meta.sampler, pix, samp, jint.SLOT_TIME)
+    rays = jcam.generate_rays(scene["camera"], (pix % res).astype(jnp.int32),
+                              (pix // res).astype(jnp.int32), ufx, ufy, ul1, ul2,
+                              ut, meta.cam_kind)
+    rays = {k: rays[k] for k in ("o", "d", "weight")}
+    cfg = jint.IntegratorConfig(kind="path", max_depth=3)
+    L_ref = np.asarray(jax.jit(partial(jint.li, scene, meta, cfg))(rays, pix, samp))
+    ts, tm = scene_from_numpy(jax.tree_util.tree_map(np.asarray, scene), meta,
+                              device="cpu")
+    L = tint.li(ts, tm, tint.IntegratorConfig(kind="path", max_depth=3),
+                {k: torch.tensor(np.asarray(v)) for k, v in rays.items()},
+                torch.tensor(np.asarray(pix).astype(np.int64)),
+                torch.tensor(np.asarray(samp).astype(np.int64))).numpy()
+    assert np.isfinite(L).all() and L.mean() > 0.01
+    close = np.all(np.abs(L - L_ref) <= 1e-6 + 1e-4 * np.abs(L_ref), axis=-1)
+    assert close.mean() >= 0.99, f"{close.mean():.4%} of lanes match"
+
+
 def test_compaction_is_bitwise_exact(li_case):
     _, ts, tm, rays, pix, samp = li_case
     packed = tint.li(ts, tm, tint.IntegratorConfig(compact_min=4096), rays, pix, samp)

@@ -68,13 +68,19 @@ def test_scene_meta_matches(both):
 
 def test_unported_scenes_raise(both):
     scene_np, jm, _, _ = both
-    with pytest.raises(NotImplementedError, match="bvh"):
-        scene_from_numpy(dict(scene_np, bvh={"stream": np.zeros(4)}), jm, device="cpu")
+    with pytest.raises(NotImplementedError, match="clustered"):
+        scene_from_numpy(dict(scene_np, bvh={"cstream": np.zeros((2, 4, 128))}), jm,
+                         device="cpu")
+    with pytest.raises(NotImplementedError, match="inst"):
+        scene_from_numpy(dict(scene_np, inst={"m0": np.zeros((1, 4, 4))}), jm,
+                         device="cpu")
     with pytest.raises(NotImplementedError, match="has_bump"):
         scene_from_numpy(scene_np, dataclasses.replace(jm, has_bump=True),
                          device="cpu")
+    # above 64 triangles a scene gets the BVH's stream table, as the reference
     b = SceneBuilder()
     verts = np.random.RandomState(0).rand(65 * 3, 3)
     b.add_mesh(verts, np.arange(65 * 3).reshape(65, 3), b.matte())
-    with pytest.raises(NotImplementedError, match="BVH"):
-        b.finalize(device="cpu")
+    b.camera = cornell_box(16, 16, 1, device="cpu")[2].camera
+    scene, _ = b.finalize(device="cpu")
+    assert scene["bvh"]["stream"].shape[1] == 128 and scene["bvh"]["depth"] >= 1
