@@ -16,17 +16,22 @@ failure ends the run with a non-zero exit code:
   5. bench: the bench render (256x256, 16 spp, path integrator, max depth 5)
      through the kernel, with its launch count, and the kernel's time beside
      its plain version and bound;
-  mesh100k (the 100k-triangle terrain at grid=224, BVH stream traversal):
-  6. parity: each of the four traversal kernels against its plain version at
-     1,048,576 rays: the bench camera wave (skip, closest hit), a binned
-     incoherent secondary wave (ordered, closest and any hit) and shadow rays
-     with random lengths and 1/8 dead lanes (skip, any hit);
+  mesh100k (the 100k-triangle terrain at grid=224, BVH traversal):
+  6. parity: each of the four record-stream kernels against its plain
+     version at 1,048,576 rays: the bench camera wave (skip, closest hit), a
+     binned incoherent secondary wave (ordered, closest and any hit) and
+     shadow rays with random lengths and 1/8 dead lanes (skip, any hit); the
+     two 4-wide kernels on the rays of the kernels they replace on the main
+     path (closest hit on the secondary wave, any hit on the shadow rays),
+     against their plain versions and against those kernels;
   7. main path: a 64x64, 4 spp, depth 3 render on the card against the CPU,
-     through the binned (ordered-kernel) route;
+     through the binned (4-wide) route;
   8. bench: the bench render (256x256, 16 spp, depth 5) through the kernels,
      with launches per render of each kernel;
   9. kernel_time: each traversal kernel's ms per launch beside its plain
-     version and its bound.
+     version and its bound; each 4-wide kernel timed in turns with the
+     kernel it replaces, and the 4-wide closest hit on the camera wave in
+     turns with the skip kernel that the main path keeps there.
 Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 Needs a CUDA device and nvcc; imports nothing of JAX.
 """
@@ -42,11 +47,12 @@ import torch
 from grail_torch.engine.integrator import IntegratorConfig
 from grail_torch.engine.render import camera_rays, megawave_lanes, render
 from grail_torch.kernels import brute_intersect as bi
+from grail_torch.kernels import bvh4 as b4
 from grail_torch.kernels import bvh_stream as bs
 from grail_torch.kernels import build
 from grail_torch.kernels.binning import (N_RAY_BUCKETS, bin_rays_key, bucket_rank,
                                          sort_by_rank)
-from grail_torch.kernels.intersect import BIG_T, SORT_MIN, pack_tris
+from grail_torch.kernels.intersect import BIG_T, SORT_MIN, moller_trumbore, pack_tris
 from grail_torch.scene.presets import cornell_box, mesh_scene
 
 N_RAYS = 1 << 20
@@ -68,6 +74,10 @@ RELMAE_MAX = 1e-3
 STREAM_SOURCE = "grail_torch/kernels/csrc/bvh_stream.cu"
 STREAM_REPLACES = {"ordered": "grail/kernels/bvh_stream.py:269",
                    "skip": "grail/kernels/bvh_stream.py:414"}
+BVH4_SOURCE = "grail_torch/kernels/csrc/bvh4.cu"
+# each 4-wide kernel: the record-stream kernel it replaces on the main path
+BVH4_REPLACES = {"bvh4_closest": "ordered_closest", "bvh4_any_hit": "skip_any_hit"}
+NODE_BYTES, TRI_BYTES = 128, 48
 
 
 def emit(obj):
@@ -152,6 +162,40 @@ def compare(kern, plain, any_hit=False):
         occ_agree = float(((p_k >= 0) == (p_p >= 0)).float().mean())
         check(occ_agree >= OCC_AGREE_MIN, f"occlusion agrees on {occ_agree:.6f}")
     return n_bad, errs, bitwise
+
+
+def against_replaced(new, old, args, any_hit, scene):
+    """Mismatch counts of a 4-wide kernel against the record-stream kernel it
+    replaces, on the same rays; raises beyond the stated thresholds. t, b1
+    and b2 must be bitwise equal where prim agrees. Closest hit: prim agrees
+    on >= PRIM_AGREE_MIN of the rays. Any hit: occlusion agrees on
+    >= OCC_AGREE_MIN, and since the two walks visit in other orders (near
+    first here, preorder there) the first occluder found may differ, so
+    instead of prim, >= PRIM_AGREE_MIN of the reported triangles must be
+    real hits of their rays in (tmin, tmax) by moller_trumbore."""
+    same = new[1] == old[1]
+    n = new[1].numel()
+    n_prim = int((~same).sum())
+    n_occ = int(((new[1] >= 0) != (old[1] >= 0)).sum())
+    check(all(torch.equal(a[same], b[same]) for a, b in zip(new, old)),
+          "t, b1, b2 differ from the replaced kernel where prim agrees")
+    out = {"prim_mismatch": n_prim, "occlusion_mismatch": n_occ}
+    if not any_hit:
+        check(1.0 - n_prim / n >= PRIM_AGREE_MIN,
+              f"prim disagrees with the replaced kernel on {n_prim} of {n} rays")
+        return out
+    check(1.0 - n_occ / n >= OCC_AGREE_MIN,
+          f"occlusion disagrees with the replaced kernel on {n_occ} of {n} rays")
+    hit = new[1] >= 0
+    o, d, tmin, tmax = (a[hit] for a in args)
+    idx = scene["tri_idx"][new[1][hit].long()].long()
+    v = scene["verts"]
+    v0 = v[idx[:, 0]]
+    real = moller_trumbore(o, d, v0, v[idx[:, 1]] - v0, v[idx[:, 2]] - v0, tmin, tmax)[0]
+    out["reported_not_real_hit"] = int((~real).sum())
+    check(float(real.float().mean()) >= PRIM_AGREE_MIN,
+          f"{out['reported_not_real_hit']} reported occluders are not hits")
+    return out
 
 
 def cornell_phases(dev, gpu):
@@ -292,15 +336,20 @@ def _kind(name):
 
 
 def mesh_phases(dev, gpu):
-    """Phases 6-9; returns the four bvh_stream entries of the kernels line."""
+    """Phases 6-9; returns the four bvh_stream and the two bvh4 entries of
+    the kernels line."""
     t0 = time.perf_counter()
     scene, meta, _ = mesh_scene(256, 256, 16, grid=MESH_GRID, device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     table, depth = scene["bvh"]["stream"], scene["bvh"]["depth"]
+    nodes, tris4, stack = (scene["bvh"][k] for k in ("bvh4_nodes", "bvh4_tris",
+                                                      "bvh4_stack"))
     emit({"phase": "mesh_scene", "grid": MESH_GRID, "triangles": meta.n_tris,
           "records": table.shape[0] * bs.RECS_PER_ROW, "table_bytes": table.numel() * 4,
-          "tree_depth": depth, "host_build_seconds": build_s})
+          "tree_depth": depth, "bvh4_nodes": nodes.shape[0],
+          "bvh4_table_bytes": (nodes.numel() + tris4.numel()) * 4,
+          "bvh4_stack_bound": stack, "host_build_seconds": build_s})
 
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -321,7 +370,7 @@ def mesh_phases(dev, gpu):
         live = int((args[3] > args[2]).sum())
         visits = (int(plain[4].sum()), int(plain[5].sum()))
         results[name] = {"case": case, "args": args, "errs": errs, "live": live,
-                         "visits": visits, "plain_s": plain_s}
+                         "visits": visits, "plain_s": plain_s, "kern": kern}
         emit({"phase": "parity", "scene": "mesh100k", "kernel": f"bvh_stream_{name}",
               "case": case, "rays": N_RAYS, "live_rays": live,
               "hits": int((kern[1] >= 0).sum()), "prim_mismatch": n_bad,
@@ -330,6 +379,43 @@ def mesh_phases(dev, gpu):
               "box_visits": visits[0], "tri_visits": visits[1],
               "max_visits_per_ray": int((plain[4] + plain[5]).max()),
               "plain_seconds": plain_s})
+    # the 4-wide kernels on the rays of the kernels they replace
+    results4 = {}
+    for name, old in BVH4_REPLACES.items():
+        any_hit = name == "bvh4_any_hit"
+        r = results[old]
+        with torch.no_grad():
+            kern = b4.bvh4_traverse(nodes, tris4, *r["args"], any_hit=any_hit,
+                                    stack=stack)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            plain = b4.bvh4_traverse_plain(nodes, tris4, *r["args"], any_hit=any_hit,
+                                           stack=stack)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t1
+            n_bad, errs, bitwise = compare(kern, plain, any_hit)
+            vs_old = against_replaced(kern, r["kern"], r["args"], any_hit, scene)
+        counts = tuple(int(x.sum()) for x in plain[4:])
+        results4[name] = {"errs": errs, "counts": counts}
+        # items (node fetches + triangle tests) per ray, over warps of 32
+        # consecutive rays: the share of lanes busy while the warp walks
+        items = (plain[4] + plain[6]).view(-1, 32).double()
+        lane_use = float(items.mean(1).sum() / items.amax(1).sum())
+        emit({"phase": "parity", "scene": "mesh100k", "kernel": name, "case": r["case"],
+              "rays": N_RAYS, "live_rays": r["live"], "hits": int((kern[1] >= 0).sum()),
+              "prim_mismatch": n_bad,
+              "occlusion_mismatch": int(((kern[1] >= 0) != (plain[1] >= 0)).sum()),
+              "max_abs_diff": errs, "bitwise_equal": bitwise,
+              f"vs_bvh_stream_{old}": vs_old, "node_fetches": counts[0],
+              "box_tests": counts[1], "tri_tests": counts[2],
+              "max_node_fetches_per_ray": int(plain[4].max()),
+              "warp_lane_use": lane_use, "plain_seconds": plain_s})
+        check(bitwise, f"{name} is not bitwise equal to its plain version")
+    # keep only the rays and counts: the outputs would count in the bench
+    # render's peak memory
+    del kern, plain
+    for r in results.values():
+        del r["kern"]
     emit({"phase": "parity", "scene": "mesh100k", "seconds": time.perf_counter() - t0})
 
     # the main path on the card against the same render on the CPU, at
@@ -342,12 +428,12 @@ def mesh_phases(dev, gpu):
     imgs = {}
     for where in (dev, torch.device("cpu")):
         sc, mt, _ = mesh_scene(res_e, res_e, spp_e, grid=MESH_GRID, device=where)
-        for name in bs.KERNELS:
-            bs.LAUNCHES[name] = 0
+        for counts in (bs.LAUNCHES, b4.LAUNCHES):
+            counts.update(dict.fromkeys(counts, 0))
         imgs[where.type] = render(sc, mt, cfg_e, spp=spp_e,
                                   device=where)[0].cpu().numpy()
         if where.type == "cuda":
-            gpu_launches = dict(bs.LAUNCHES)
+            gpu_launches = dict(bs.LAUNCHES, **b4.LAUNCHES)
     err = relative_mae(imgs["cuda"], imgs["cpu"])
     emit({"phase": "main_path_vs_cpu", "scene": "mesh100k", "res": res_e,
           "spp": spp_e, "max_depth": 3, "lanes": res_e * res_e * spp_e,
@@ -355,9 +441,9 @@ def mesh_phases(dev, gpu):
           "bitwise_equal": bool(np.array_equal(imgs["cuda"], imgs["cpu"])),
           "seconds": time.perf_counter() - t0})
     check(res_e * res_e * spp_e // 2 >= SORT_MIN, "comparison wave below SORT_MIN")
-    check(gpu_launches["ordered_closest"] == cfg_e.max_depth
-          and gpu_launches["skip_closest"] == 1
-          and gpu_launches["skip_any_hit"] == cfg_e.max_depth + 1,
+    check(gpu_launches == {"skip_closest": 1, "skip_any_hit": 0, "ordered_closest": 0,
+                           "ordered_any_hit": 0, "bvh4_closest": cfg_e.max_depth,
+                           "bvh4_any_hit": cfg_e.max_depth + 1},
           f"GPU mesh render took {gpu_launches}, not the binned route")
     check(np.isfinite(imgs["cuda"]).all() and err < RELMAE_MAX,
           f"GPU mesh render differs from the CPU render (relative MAE {err})")
@@ -370,22 +456,24 @@ def mesh_phases(dev, gpu):
     torch.cuda.synchronize()
     times, launches = [], []
     torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
     for _ in range(3):
-        for name in bs.KERNELS:
-            bs.LAUNCHES[name] = 0
+        for counts in (bs.LAUNCHES, b4.LAUNCHES):
+            counts.update(dict.fromkeys(counts, 0))
         bi.LAUNCHES = 0
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         img, _ = render(scene, meta, cfg, spp=spp, device=dev)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t1)
-        launches.append(dict(bs.LAUNCHES, brute_intersect=bi.LAUNCHES))
+        launches.append(dict(bs.LAUNCHES, **b4.LAUNCHES, brute_intersect=bi.LAUNCHES))
     img = img.cpu().numpy()
     # one megawave of 1M rays: the camera wave's closest hit (skip), the
-    # binned closest hits of bounces 1-5 (ordered), one shadow wave a bounce
-    expected = {"skip_closest": 1, "skip_any_hit": cfg.max_depth + 1,
-                "ordered_closest": cfg.max_depth, "ordered_any_hit": 0,
-                "brute_intersect": 0}
+    # binned closest hits of bounces 1-5 (4-wide), one shadow wave a bounce
+    # (4-wide)
+    expected = {"skip_closest": 1, "skip_any_hit": 0, "ordered_closest": 0,
+                "ordered_any_hit": 0, "bvh4_closest": cfg.max_depth,
+                "bvh4_any_hit": cfg.max_depth + 1, "brute_intersect": 0}
     emit({"phase": "bench", "scene": "mesh100k", "res": 256, "spp": spp,
           "max_depth": cfg.max_depth, "grid": MESH_GRID, "render_seconds": times,
           "camera_rays_per_sec": meta.xres * meta.yres * spp / statistics.median(times),
@@ -393,7 +481,7 @@ def mesh_phases(dev, gpu):
           "host_build_seconds": build_s, "image_mean": float(img.mean()),
           "isfinite": bool(np.isfinite(img).all()),
           "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
-          "seconds": time.perf_counter() - t0})
+          "held_before_render_bytes": held, "seconds": time.perf_counter() - t0})
     check(all(n == expected for n in launches),
           f"traversal kernels launched {launches} per render, want {expected}")
     check(np.isfinite(img).all() and img.shape == (256, 256, 3) and img.mean() > 0.0,
@@ -428,6 +516,79 @@ def mesh_phases(dev, gpu):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
             "library_ms": None})
+    # each 4-wide kernel in turns with the kernel it replaces (old, new,
+    # new, old); its bound counts its own walk: the ray bytes and the 4-wide
+    # tables once, 26 operations a slab test and 55 a triangle test. The
+    # bound of the replaced kernel's walk on these rays (the record table,
+    # the records it visits) is printed beside it as bound_ms_record_walk.
+    table4_bytes = (nodes.numel() + tris4.numel()) * 4
+    for name, old in BVH4_REPLACES.items():
+        any_hit = name == "bvh4_any_hit"
+        r = results[old]
+        args = r["args"]
+        old_kind = _kind(old)[0]
+        runs = {"old": lambda: bs.stream_traverse(table, *args, any_hit=any_hit,
+                                                  kind=old_kind, depth=depth),
+                "new": lambda: b4.bvh4_traverse(nodes, tris4, *args, any_hit=any_hit,
+                                                stack=stack)}
+        turns = {k: [] for k in runs}
+        with torch.no_grad():
+            for who in ("old", "new", "new", "old"):
+                turns[who].append(cuda_ms(runs[who], 20))
+            plain_ms = cuda_ms(lambda: b4.bvh4_traverse_plain(
+                nodes, tris4, *args, any_hit=any_hit, stack=stack), 1, warmup=0)
+        ms = statistics.mean(turns["new"])
+        n_node, n_test, n_tri4 = results4[name]["counts"]
+        ops = OPS_PER_BOX * n_test + OPS_PER_PAIR * n_tri4
+        bytes_moved = N_RAYS * RAY_BYTES + table4_bytes
+        t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_FP32_OPS * 1e3
+        n_box, n_tri = r["visits"]
+        rec_bound = max((N_RAYS * RAY_BYTES + table.numel() * 4) / PEAK_BYTES,
+                        (OPS_PER_BOX * n_box + OPS_PER_PAIR * n_tri) / PEAK_FP32_OPS) * 1e3
+        emit({"phase": "kernel_time", "kernel": name, "case": r["case"], "rays": N_RAYS,
+              "live_rays": r["live"], "ms": ms, "ms_turns": turns, "plain_ms": plain_ms,
+              "fill_blocks": b4.fill_blocks(dev.index, any_hit, stack),
+              "node_fetches": n_node, "box_tests": n_test, "tri_tests": n_tri4,
+              "bytes_read": n_node * NODE_BYTES + n_tri4 * TRI_BYTES,
+              "bytes": bytes_moved, "operations": ops, "bytes_ms": t_bytes,
+              "operations_ms": t_ops, "replaced": f"bvh_stream_{old}",
+              "replaced_box_visits": n_box, "replaced_tri_visits": n_tri,
+              "bound_ms_record_walk": rec_bound, "gpu": gpu})
+        entries.append({
+            "name": name, "route": "cuda", "source": BVH4_SOURCE,
+            "replaces": STREAM_REPLACES[old_kind], "launches": launches[0][name],
+            "max_abs_err": max(results4[name]["errs"].values()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "bound_ms_record_walk": rec_bound, "library_ms": None})
+
+    # the camera wave, which the main path keeps on the skip kernel: the
+    # 4-wide closest hit on it, checked as on the secondary wave and timed
+    # in turns with the skip kernel (skip, bvh4, bvh4, skip)
+    args = results["skip_closest"]["args"]
+    runs = {"skip_closest": lambda: bs.stream_traverse(table, *args, kind="skip",
+                                                       depth=depth),
+            "bvh4_closest": lambda: b4.bvh4_traverse(nodes, tris4, *args, stack=stack)}
+    with torch.no_grad():
+        new = runs["bvh4_closest"]()
+        plain = b4.bvh4_traverse_plain(nodes, tris4, *args, stack=stack)
+        n_bad, errs, bitwise = compare(new, plain)
+        vs_skip = against_replaced(new, runs["skip_closest"](), args, False, scene)
+        counts = tuple(int(x.sum()) for x in plain[4:])
+        del new, plain
+        turns = {k: [] for k in runs}
+        for who in ("skip_closest", "bvh4_closest", "bvh4_closest", "skip_closest"):
+            turns[who].append(cuda_ms(runs[who], 20))
+    check(bitwise, "bvh4_closest is not bitwise equal to its plain version "
+                   "on the camera wave")
+    emit({"phase": "kernel_time", "kernel": "bvh4_closest", "case": "camera_wave",
+          "rays": N_RAYS, "ms": statistics.mean(turns["bvh4_closest"]),
+          "skip_closest_ms": statistics.mean(turns["skip_closest"]), "ms_turns": turns,
+          "bitwise_equal": bitwise, "prim_mismatch": n_bad,
+          "vs_bvh_stream_skip_closest": vs_skip, "node_fetches": counts[0],
+          "box_tests": counts[1], "tri_tests": counts[2],
+          "skip_box_visits": results["skip_closest"]["visits"][0],
+          "skip_tri_visits": results["skip_closest"]["visits"][1], "gpu": gpu})
     emit({"phase": "kernel_time", "scene": "mesh100k", "seconds": time.perf_counter() - t0})
     return entries
 

@@ -1,6 +1,7 @@
 """Ray-scene intersection (port of grail/kernels/intersect.py): the brute
-route for scenes without a BVH and the single-table stream route for scenes
-with one.
+route for scenes without a BVH and, for scenes with one, the single-table
+stream route on unbinned camera waves and the 4-wide BVH route on every
+other wave.
 
 Hit record (dict of (N,) tensors): t, prim (int32, -1 = miss), b1, b2.
 Scenes with instances, a scene-sharded ring or clustered stream tables take
@@ -15,6 +16,7 @@ from ..core.vecmath import cross, dot
 from ..device import check_on, resolve_device
 from .binning import N_RAY_BUCKETS, bin_rays_key, bucket_rank, sort_by_rank, unsort
 from .brute_intersect import brute_intersect
+from .bvh4 import bvh4_traverse
 from .bvh_stream import stream_traverse
 
 BIG_T = 3.0e37
@@ -96,13 +98,13 @@ def _stream_bvh(scene, o, d, tmax, tmin, any_hit=False, sort=None):
     without clustered tables). Waves of SORT_MIN rays or more are
     counting-sorted into coherence buckets first and their results gathered
     back; sort=False marks a tile-ordered camera wave. Closest hit takes the
-    skip kernel on unsorted waves and the ordered kernel on sorted ones; any
-    hit always takes the skip kernel. Dead lanes (tmax <= tmin, the
-    integrator's mask) are made inert and sorted last."""
+    skip kernel on the record stream for unsorted waves and the 4-wide
+    kernel for sorted ones; any hit always takes the 4-wide kernel. Dead
+    lanes (tmax <= tmin, the integrator's mask) are made inert and sorted
+    last."""
     bvh = scene["bvh"]
     if sort is None:
         sort = o.shape[0] >= SORT_MIN
-    closest_kind = "skip" if sort is False else "ordered"
     if tmin is None:
         tmin = torch.zeros_like(tmax)
     dead = tmax <= tmin
@@ -114,15 +116,17 @@ def _stream_bvh(scene, o, d, tmax, tmin, any_hit=False, sort=None):
         key = torch.where(dead, N_RAY_BUCKETS, key)          # dead lanes last
         rank = bucket_rank(key, N_RAY_BUCKETS + 1)
         o, d, tmin, tmax = sort_by_rank(rank, o, d, tmin, tmax)
-    args = (bvh["stream"], o.contiguous(), d.contiguous(), tmin.contiguous(),
-            tmax.contiguous())
+    rays = (o.contiguous(), d.contiguous(), tmin.contiguous(), tmax.contiguous())
+    tables = (bvh["bvh4_nodes"], bvh["bvh4_tris"])
     if any_hit:
-        occ = stream_traverse(*args, any_hit=True, kind="skip")[1] >= 0
+        occ = bvh4_traverse(*tables, *rays, any_hit=True,
+                            stack=bvh["bvh4_stack"])[1] >= 0
         return unsort(rank, occ)[0] if sort else occ
-    t, prim, b1, b2 = stream_traverse(*args, kind=closest_kind,
-                                      depth=bvh["depth"])
     if sort:
-        t, prim, b1, b2 = unsort(rank, t, prim, b1, b2)
+        t, prim, b1, b2 = unsort(rank, *bvh4_traverse(*tables, *rays,
+                                                       stack=bvh["bvh4_stack"]))
+    else:
+        t, prim, b1, b2 = stream_traverse(bvh["stream"], *rays, kind="skip")
     return {"t": torch.where(prim >= 0, t, BIG_T), "prim": prim, "b1": b1, "b2": b2}
 
 

@@ -6,7 +6,7 @@ soup, a material lobe table, a texture table with its images and MIP
 pyramids, a light table with per-light area CDFs, pre-gathered
 light-triangle vertices and light transforms, the environment map and its
 Distribution2D, the camera pack and, above 64 triangles, the BVH's stream
-record table. Host-side work is numpy, as in the reference, so both packages
+record table and its 4-wide node and triangle tables. Host-side work is numpy, as in the reference, so both packages
 hold the same bits. Instances, media, the other light types and the
 power-weighted light distribution are not ported yet; a scene that would
 need them raises.
@@ -24,6 +24,7 @@ from ..core import transform as tr
 from ..core.rng import SamplerConfig
 from ..device import resolve_device
 from ..engine.filters import FilterConfig
+from ..kernels.bvh4 import build_bvh4_tables
 from ..kernels.bvh_stream import build_stream_table, tree_depth
 from ..native import build_bvh_native
 from ..shade import bsdf as bx
@@ -297,11 +298,14 @@ class SceneBuilder:
         scene["camera"] = self.camera
 
         # ---- BVH stream table (force_leaf=4: a box record costs the stream
-        # traversal as much as a triangle record)
+        # traversal as much as a triangle record) and the 4-wide tables
         depth = None
         if n_tris > BRUTE_MAX_TRIS:
             b_np = build_bvh_native(verts, tri_idx, max_prims=4, force_leaf=4)
-            scene["bvh"] = {"stream": build_stream_table(b_np, verts, tri_idx)}
+            nodes, tris4, stack = build_bvh4_tables(b_np, verts, tri_idx)
+            scene["bvh"] = {"stream": build_stream_table(b_np, verts, tri_idx),
+                            "bvh4_nodes": nodes, "bvh4_tris": tris4,
+                            "bvh4_stack": stack}
             depth = tree_depth(b_np)
 
         meta = SceneMeta(

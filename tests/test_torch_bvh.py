@@ -160,9 +160,10 @@ def test_binning_matches_reference(terrain):
 
 
 def test_stream_dispatch_sorted_and_unsorted(terrain):
-    """The dispatch's binned (ordered kernel) and unbinned (skip kernel)
-    routes give the reference kernel's hits, with dead lanes inert and
-    misses at BIG_T."""
+    """The dispatch's binned (4-wide walk, bvh4_traverse) and unbinned
+    (skip kernel) routes give the reference kernel's hits, with dead lanes
+    inert and misses at BIG_T; its any hit (4-wide) gives the reference's
+    occlusion."""
     s = terrain
     ts, _ = scene_from_numpy(s["scene_np"], s["meta"], device="cpu")
     args = [torch.tensor(s[k]) for k in ("o", "d", "tmax", "tmin")]

@@ -9,7 +9,7 @@ the infinite light to rtol 1e-4 (float32 transcendental functions and
 another operation order round the last bits differently).
 Slice: li per lane at depth 3 (>= 99% of lanes within rtol 1e-4, atol 1e-6,
 as in tests/test_torch_render.py), unbinned and with ray binning forced on
-(the ordered traversal's route), the rendered image's relative MAE below
+(the 4-wide traversal's route), the rendered image's relative MAE below
 1e-3, and wavefront compaction bitwise equal to compact=False.
 """
 from functools import partial
@@ -262,21 +262,25 @@ def test_li_matches_reference_per_lane(mesh, li_ref):
 
 def test_li_binned_matches_reference_per_lane(mesh, li_ref, monkeypatch):
     """With the binning threshold lowered below this wave's 512 lanes, the
-    bounces after the camera wave bin and sort their rays, take the ordered
+    bounces after the camera wave bin and sort their rays, take the 4-wide
     traversal and gather the results back, as every wave of the bench
     render does; the reference, at its own threshold, bins none of them."""
     kinds = []
-    traverse = tisect.stream_traverse
 
-    def recording_traverse(*args, **kw):
-        kinds.append((kw.get("kind", "skip"), kw.get("any_hit", False)))
-        return traverse(*args, **kw)
+    def recording(route, traverse):
+        def call(*args, **kw):
+            kinds.append((route, kw.get("kind"), kw.get("any_hit", False)))
+            return traverse(*args, **kw)
+        return call
 
     monkeypatch.setattr(tisect, "SORT_MIN", 256)
-    monkeypatch.setattr(tisect, "stream_traverse", recording_traverse)
+    monkeypatch.setattr(tisect, "stream_traverse",
+                        recording("stream", tisect.stream_traverse))
+    monkeypatch.setattr(tisect, "bvh4_traverse", recording("bvh4", tisect.bvh4_traverse))
     _li_close(mesh, li_ref)
-    assert kinds.count(("ordered", False)) == DEPTH
-    assert kinds.count(("skip", False)) == 1
+    assert kinds.count(("bvh4", None, False)) == DEPTH
+    assert kinds.count(("stream", "skip", False)) == 1
+    assert {k for k in kinds if k[2]} == {("bvh4", None, True)}
 
 
 def test_render_matches_reference(mesh):
