@@ -8,34 +8,40 @@ failure ends the run with a non-zero exit code:
   1. environment: the card's name and power limit (nvidia-smi), versions;
   2. build: every CUDA kernel of the port, compiled from the sources here
      (one nvcc per source, all started together), with ptxas's registers
-     and spills per kernel instance;
+     and spills per kernel instance, and the brute-force kernel's static
+     instructions a ray-triangle pair (its triangle loop in cuobjdump -sass);
   Cornell box (36 triangles, brute-force intersector):
-  3. parity: the kernel against its plain PyTorch version on the card at the
-     main path's shapes (1,048,576 rays);
+  3. parity: both instances (closest and any hit) against their plain
+     PyTorch version on the card at the main path's shapes (1,048,576 rays)
+     and at a ragged count (1,048,613), bitwise;
   4. main path: a render on the card against the same render on the CPU;
   5. bench: the bench render (256x256, 16 spp, path integrator, max depth 5)
-     through the kernel, with its launch count, and the kernel's time beside
-     its plain version and bound;
+     through the kernel, with its launch counts, and each instance's time
+     beside its plain version, its bound and the issue-rate ceiling;
   mesh100k (the 100k-triangle terrain at grid=224, BVH traversal):
   6. parity: each of the four record-stream kernels against its plain
      version at 1,048,576 rays: the bench camera wave (skip, closest hit), a
      binned incoherent secondary wave (ordered, closest and any hit) and
      shadow rays with random lengths and 1/8 dead lanes (skip, any hit); the
-     two 4-wide kernels on the rays of the kernels they replace on the main
-     path (closest hit on the secondary wave, any hit on the shadow rays),
-     against their plain versions and against those kernels;
+     three 4-wide kernels on the rays of the kernels they replace on the
+     main path (per-ray closest hit on the secondary wave, per-ray any hit
+     on the shadow rays, warp-coherent closest hit on the camera wave),
+     against their plain versions and against those kernels, and the
+     per-ray closest hit on the camera wave against its plain version;
   7. main path: a 64x64, 4 spp, depth 3 render on the card against the CPU,
-     through the binned (4-wide) route;
+     through the 4-wide route;
   8. bench: the bench render (256x256, 16 spp, depth 5) through the kernels,
      with launches per render of each kernel;
   9. kernel_time: each traversal kernel's ms per launch beside its plain
      version and its bound; each 4-wide kernel timed in turns with the
-     kernel it replaces, and the 4-wide closest hit on the camera wave in
-     turns with the skip kernel that the main path keeps there.
+     kernel it replaces, and on the camera wave the warp-coherent kernel,
+     the per-ray 4-wide kernel and the skip kernel in turns.
 Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 Needs a CUDA device and nvcc; imports nothing of JAX.
 """
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
@@ -62,6 +68,7 @@ MESH_GRID = 224
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 OPS_PER_PAIR = 55          # Möller-Trumbore + hit test per ray-triangle pair
+LANES_PER_SM = 128         # FP32 lanes of a Hopper SM: one instruction a lane a clock
 # slab test per box record (bvh_stream.cu): 6 subtracts, 6 multiplies, one
 # min and one max per axis (6), 4 min/max across axes, 1 multiply and
 # 3 compares
@@ -76,7 +83,12 @@ STREAM_REPLACES = {"ordered": "grail/kernels/bvh_stream.py:269",
                    "skip": "grail/kernels/bvh_stream.py:414"}
 BVH4_SOURCE = "grail_torch/kernels/csrc/bvh4.cu"
 # each 4-wide kernel: the record-stream kernel it replaces on the main path
-BVH4_REPLACES = {"bvh4_closest": "ordered_closest", "bvh4_any_hit": "skip_any_hit"}
+BVH4_REPLACES = {"bvh4_closest": "ordered_closest", "bvh4_any_hit": "skip_any_hit",
+                 "bvh4_coherent": "skip_closest"}
+BVH4_SOURCES = {"bvh4_closest": BVH4_SOURCE, "bvh4_any_hit": BVH4_SOURCE,
+                "bvh4_coherent": "grail_torch/kernels/csrc/bvh4_coherent.cu"}
+BRUTE_SOURCE = "grail_torch/kernels/csrc/brute_intersect.cu"
+RAGGED = 37                # rays past 1M in the ragged parity case
 NODE_BYTES, TRI_BYTES = 128, 48
 
 
@@ -92,6 +104,29 @@ def check(cond, what):
 def run(cmd):
     return subprocess.run(cmd, capture_output=True, text=True, timeout=120,
                           check=True).stdout.strip()
+
+
+def sass_loop_instructions(name):
+    """{function: instructions of its largest loop} of kernel library
+    `name`, from cuobjdump -sass (a loop: the span from a backward branch's
+    target to the branch, every path and out-of-line block inside it); None
+    where the toolkit has no cuobjdump."""
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", build.lib_path(name)], capture_output=True,
+                         text=True, timeout=120, check=True).stdout
+    loops = {}
+    for chunk in out.split("Function : ")[1:]:
+        fn = chunk.split(None, 1)[0]
+        best = 0
+        for addr, target in re.findall(r"/\*([0-9a-f]+)\*/[^;]*?\bBRA\b[^;]*?0x([0-9a-f]+)",
+                                       chunk):
+            a, t = int(addr, 16), int(target, 16)
+            if t <= a:
+                best = max(best, (a - t) // 16 + 1)
+        loops[fn] = best
+    return loops
 
 
 def relative_mae(a, b):
@@ -198,25 +233,32 @@ def against_replaced(new, old, args, any_hit, scene):
     return out
 
 
-def cornell_phases(dev, gpu):
-    """Phases 3-5; returns the brute_intersect entry of the kernels line."""
+def cornell_phases(dev, gpu, issue_rate, sass):
+    """Phases 3-5; returns the entries of the kernels line of the brute-force
+    kernel's two instances (closest hit, any hit)."""
     t0 = time.perf_counter()
     scene, meta, _ = cornell_box(256, 256, 16, device=dev)
     tris9 = pack_tris(scene)
     cases = ray_cases(scene, meta, dev)
-    max_err = 0.0
+    max_err = dict.fromkeys(bi.KERNELS, 0.0)
     with torch.no_grad():
         for case, args in cases.items():
-            for any_hit in (False, True):
-                kern = bi.brute_intersect(tris9, *args, any_hit=any_hit)
-                plain = bi.brute_intersect_plain(tris9, *args, any_hit=any_hit)
-                torch.cuda.synchronize()
-                n_bad, errs, bitwise = compare(kern, plain)
-                max_err = max([max_err] + list(errs.values()))
-                emit({"phase": "parity", "scene": "cornell", "kernel": "brute_intersect",
-                      "case": case, "any_hit": any_hit, "rays": args[0].shape[0],
-                      "hits": int((kern[1] >= 0).sum()), "prim_mismatch": n_bad,
-                      "max_abs_diff": errs, "bitwise_equal": bitwise})
+            ragged = tuple(torch.cat([a, a[:RAGGED]]).contiguous() for a in args)
+            for rays in (args, ragged):
+                for any_hit in (False, True):
+                    name = bi.KERNELS[int(any_hit)]
+                    kern = bi.brute_intersect(tris9, *rays, any_hit=any_hit)
+                    plain = bi.brute_intersect_plain(tris9, *rays, any_hit=any_hit)
+                    torch.cuda.synchronize()
+                    n_bad, errs, bitwise = compare(kern, plain)
+                    max_err[name] = max([max_err[name]] + list(errs.values()))
+                    emit({"phase": "parity", "scene": "cornell", "kernel": name,
+                          "case": case, "rays": rays[0].shape[0],
+                          "hits": int((kern[1] >= 0).sum()), "prim_mismatch": n_bad,
+                          "max_abs_diff": errs, "bitwise_equal": bitwise})
+                    check(bitwise, f"{name} is not bitwise equal to its plain version "
+                                   f"({case}, {rays[0].shape[0]} rays)")
+    del kern, plain
     emit({"phase": "parity", "scene": "cornell", "seconds": time.perf_counter() - t0})
 
     # the main path on the card against the same render on the CPU
@@ -244,52 +286,74 @@ def cornell_phases(dev, gpu):
     times, launches = [], []
     torch.cuda.reset_peak_memory_stats(dev)
     for _ in range(3):
-        bi.LAUNCHES = 0
+        bi.LAUNCHES.update(dict.fromkeys(bi.LAUNCHES, 0))
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         img, _ = render(scene, meta, cfg, spp=spp, device=dev)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t1)
-        launches.append(bi.LAUNCHES)
+        launches.append(dict(bi.LAUNCHES))
     img = img.cpu().numpy()
-    expected = 2 * (cfg.max_depth + 1)       # one closest hit + one shadow ray a bounce
+    # one closest hit and one shadow ray a bounce
+    expected = dict.fromkeys(bi.KERNELS, cfg.max_depth + 1)
     emit({"phase": "bench", "scene": "cornell", "res": 256, "spp": spp,
           "max_depth": cfg.max_depth, "render_seconds": times,
           "camera_rays_per_sec": meta.xres * meta.yres * spp / statistics.median(times),
-          "brute_intersect_launches_per_render": launches,
+          "launches_per_render": launches,
           "expected_launches": expected, "image_mean": float(img.mean()),
           "isfinite": bool(np.isfinite(img).all()),
           "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
           "seconds": time.perf_counter() - t0})
     check(all(n == expected for n in launches),
-          f"brute_intersect launched {launches} times per render, want {expected}")
+          f"brute_intersect launched {launches} per render, want {expected}")
     check(np.isfinite(img).all() and img.shape == (256, 256, 3) and img.mean() > 0.0,
           "bench image is not finite and positive")
 
-    # kernel, plain version and bound at the main path's shapes
-    o, d, tmin, tmax = cases["camera_wave"]
-    n, n_tris = o.shape[0], tris9.shape[0]
-    with torch.no_grad():
-        ms = cuda_ms(lambda: bi.brute_intersect(tris9, o, d, tmin, tmax), 50)
-        plain_ms = cuda_ms(lambda: bi.brute_intersect_plain(tris9, o, d, tmin, tmax), 5)
-        so, sd, smin, smax = cases["shadow"]
-        any_ms = cuda_ms(lambda: bi.brute_intersect(tris9, so, sd, smin, smax,
-                                                    any_hit=True), 50)
-    live = int((tmax > tmin).sum())
-    bytes_moved = n * (12 + 12 + 4 + 4) + n_tris * 36 + n * 16
-    ops = OPS_PER_PAIR * live * n_tris
-    t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_FP32_OPS * 1e3
-    emit({"phase": "kernel_time", "kernel": "brute_intersect", "case": "camera_wave",
-          "rays": n, "triangles": n_tris, "ms": ms, "plain_ms": plain_ms,
-          "any_hit_shadow_ms": any_ms, "bytes": bytes_moved, "operations": ops,
-          "bytes_ms": t_bytes, "operations_ms": t_ops, "gpu": gpu})
-    return {"name": "brute_intersect", "route": "cuda",
-            "source": "grail_torch/kernels/csrc/brute_intersect.cu",
-            "replaces": "grail/kernels/pallas_intersect.py:31",
-            "launches": launches[0], "max_abs_err": max_err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes > t_ops else "operations",
-            "library_ms": None}
+    # each instance's time, its plain version's, its bound and the issue
+    # ceiling at the main path's shapes: closest hit on the camera wave, any
+    # hit on the shadow rays. Pairs counted as this run's rays need them: a
+    # live ray tests every triangle, an any-hit ray up to its first hit.
+    # The ceiling: those pairs times the kernel's static instructions a pair
+    # (its triangle loop over the rays a thread, every path) over the
+    # card's FP32 issue rate; the kernel issues only the paths a pair takes.
+    n_tris = tris9.shape[0]
+    per_thread = int(re.search(r"kRays = (\d+);",
+                               open(BRUTE_SOURCE).read()).group(1))
+    entries = []
+    for any_hit, case in ((False, "camera_wave"), (True, "shadow")):
+        name = bi.KERNELS[int(any_hit)]
+        o, d, tmin, tmax = cases[case]
+        n = o.shape[0]
+        with torch.no_grad():
+            ms = cuda_ms(lambda: bi.brute_intersect(tris9, o, d, tmin, tmax, any_hit), 50)
+            plain_ms = cuda_ms(lambda: bi.brute_intersect_plain(tris9, o, d, tmin, tmax,
+                                                                any_hit), 5)
+            prim = bi.brute_intersect_plain(tris9, o, d, tmin, tmax, any_hit)[1]
+        live = tmax > tmin
+        tested = torch.where(prim >= 0, prim + 1, n_tris) if any_hit else n_tris
+        pairs = int(torch.where(live, tested, 0).sum())
+        bytes_moved = n * RAY_BYTES + n_tris * 36
+        ops = OPS_PER_PAIR * pairs
+        t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_FP32_OPS * 1e3
+        loop = None if sass is None else next(
+            (v for k, v in sass.items() if f"ILb{int(any_hit)}E" in k), None)
+        per_pair = None if loop is None else loop / per_thread
+        ceiling = None if per_pair is None else pairs * per_pair / issue_rate * 1e3
+        emit({"phase": "kernel_time", "kernel": name, "case": case, "rays": n,
+              "live_rays": int(live.sum()), "triangles": n_tris, "pairs": pairs,
+              "ms": ms, "plain_ms": plain_ms, "bytes": bytes_moved, "operations": ops,
+              "bytes_ms": t_bytes, "operations_ms": t_ops,
+              "sass_loop_instructions": loop, "rays_per_thread": per_thread,
+              "static_instructions_per_pair": per_pair,
+              "issue_rate_lane_instructions_per_s": issue_rate,
+              "issue_ceiling_ms": ceiling, "gpu": gpu})
+        entries.append({"name": name, "route": "cuda", "source": BRUTE_SOURCE,
+                        "replaces": "grail/kernels/pallas_intersect.py:31",
+                        "launches": launches[0][name], "max_abs_err": max_err[name],
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                        "bound_by": "bytes" if t_bytes > t_ops else "operations",
+                        "library_ms": None})
+    return entries
 
 
 def mesh_ray_cases(scene, meta, dev):
@@ -333,6 +397,30 @@ def mesh_ray_cases(scene, meta, dev):
 
 def _kind(name):
     return name.split("_", 1)[0], name.endswith("any_hit")
+
+
+def bvh4_run(name, nodes, tris4, args, stack):
+    """4-wide kernel `name` (a LAUNCHES key of bvh4) on the rays args."""
+    if name == "bvh4_coherent":
+        return b4.bvh4_coherent(nodes, tris4, *args, stack=stack)
+    return b4.bvh4_traverse(nodes, tris4, *args, any_hit=name == "bvh4_any_hit",
+                            stack=stack)
+
+
+def bvh4_plain(name, nodes, tris4, args, stack):
+    """The plain version of 4-wide kernel `name`, with its counts."""
+    if name == "bvh4_coherent":
+        return b4.bvh4_coherent_plain(nodes, tris4, *args, stack=stack)
+    return b4.bvh4_traverse_plain(nodes, tris4, *args, any_hit=name == "bvh4_any_hit",
+                                  stack=stack)
+
+
+def lane_use(plain):
+    """Items (node fetches + triangle tests) a ray of a per-ray walk, over
+    warps of 32 consecutive rays: the share of lanes busy while the warp
+    walks (mean over max)."""
+    items = (plain[4] + plain[6]).view(-1, 32).double()
+    return float(items.mean(1).sum() / items.amax(1).sum())
 
 
 def mesh_phases(dev, gpu):
@@ -385,32 +473,53 @@ def mesh_phases(dev, gpu):
         any_hit = name == "bvh4_any_hit"
         r = results[old]
         with torch.no_grad():
-            kern = b4.bvh4_traverse(nodes, tris4, *r["args"], any_hit=any_hit,
-                                    stack=stack)
+            kern = bvh4_run(name, nodes, tris4, r["args"], stack)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            plain = b4.bvh4_traverse_plain(nodes, tris4, *r["args"], any_hit=any_hit,
-                                           stack=stack)
+            plain = bvh4_plain(name, nodes, tris4, r["args"], stack)
             torch.cuda.synchronize()
             plain_s = time.perf_counter() - t1
             n_bad, errs, bitwise = compare(kern, plain, any_hit)
             vs_old = against_replaced(kern, r["kern"], r["args"], any_hit, scene)
         counts = tuple(int(x.sum()) for x in plain[4:])
         results4[name] = {"errs": errs, "counts": counts}
-        # items (node fetches + triangle tests) per ray, over warps of 32
-        # consecutive rays: the share of lanes busy while the warp walks
-        items = (plain[4] + plain[6]).view(-1, 32).double()
-        lane_use = float(items.mean(1).sum() / items.amax(1).sum())
+        extra = {}
+        if name == "bvh4_coherent":
+            # lanes of the warp busy in its slab tests: slab tests of the
+            # lanes over 4 a node fetch for every lane of the warp
+            extra["node_fetches_per_warp"] = counts[0] / plain[4].numel()
+            extra["slab_lane_use"] = counts[1] / 4 / (b4.WARP * counts[0])
+        else:
+            extra["max_node_fetches_per_ray"] = int(plain[4].max())
+            extra["warp_lane_use"] = lane_use(plain)
         emit({"phase": "parity", "scene": "mesh100k", "kernel": name, "case": r["case"],
               "rays": N_RAYS, "live_rays": r["live"], "hits": int((kern[1] >= 0).sum()),
               "prim_mismatch": n_bad,
               "occlusion_mismatch": int(((kern[1] >= 0) != (plain[1] >= 0)).sum()),
               "max_abs_diff": errs, "bitwise_equal": bitwise,
               f"vs_bvh_stream_{old}": vs_old, "node_fetches": counts[0],
-              "box_tests": counts[1], "tri_tests": counts[2],
-              "max_node_fetches_per_ray": int(plain[4].max()),
-              "warp_lane_use": lane_use, "plain_seconds": plain_s})
+              "box_tests": counts[1], "tri_tests": counts[2], **extra,
+              "plain_seconds": plain_s})
         check(bitwise, f"{name} is not bitwise equal to its plain version")
+    # the per-ray 4-wide closest hit on the camera wave: checked as on the
+    # secondary wave; its walk's counts set the warp-coherent kernel's bound
+    args = results["skip_closest"]["args"]
+    with torch.no_grad():
+        kern = b4.bvh4_traverse(nodes, tris4, *args, stack=stack)
+        plain = b4.bvh4_traverse_plain(nodes, tris4, *args, stack=stack)
+        n_bad, errs, bitwise = compare(kern, plain)
+        vs_old = against_replaced(kern, results["skip_closest"]["kern"], args, False, scene)
+    camera_counts = tuple(int(x.sum()) for x in plain[4:])
+    results4["bvh4_coherent"]["per_ray_counts"] = camera_counts
+    emit({"phase": "parity", "scene": "mesh100k", "kernel": "bvh4_closest",
+          "case": "camera_wave", "rays": N_RAYS, "prim_mismatch": n_bad,
+          "max_abs_diff": errs, "bitwise_equal": bitwise,
+          "vs_bvh_stream_skip_closest": vs_old, "node_fetches": camera_counts[0],
+          "box_tests": camera_counts[1], "tri_tests": camera_counts[2],
+          "max_node_fetches_per_ray": int(plain[4].max()),
+          "warp_lane_use": lane_use(plain)})
+    check(bitwise, "bvh4_closest is not bitwise equal to its plain version on the "
+                   "camera wave")
     # keep only the rays and counts: the outputs would count in the bench
     # render's peak memory
     del kern, plain
@@ -421,7 +530,8 @@ def mesh_phases(dev, gpu):
     # the main path on the card against the same render on the CPU, at
     # 16,384 lanes: above the dispatch's binning threshold (SORT_MIN) at
     # every bounce, also after the pre-RR split halves the wave, so the
-    # comparison runs the binned, ordered route as the bench render does
+    # comparison runs the binned route after the camera wave as the bench
+    # render does
     t0 = time.perf_counter()
     cfg_e = IntegratorConfig(kind="path", max_depth=3)
     res_e, spp_e = 64, 4
@@ -441,10 +551,11 @@ def mesh_phases(dev, gpu):
           "bitwise_equal": bool(np.array_equal(imgs["cuda"], imgs["cpu"])),
           "seconds": time.perf_counter() - t0})
     check(res_e * res_e * spp_e // 2 >= SORT_MIN, "comparison wave below SORT_MIN")
-    check(gpu_launches == {"skip_closest": 1, "skip_any_hit": 0, "ordered_closest": 0,
-                           "ordered_any_hit": 0, "bvh4_closest": cfg_e.max_depth,
+    check(gpu_launches == {"skip_closest": 0, "skip_any_hit": 0, "ordered_closest": 0,
+                           "ordered_any_hit": 0, "bvh4_coherent": 1,
+                           "bvh4_closest": cfg_e.max_depth,
                            "bvh4_any_hit": cfg_e.max_depth + 1},
-          f"GPU mesh render took {gpu_launches}, not the binned route")
+          f"GPU mesh render took {gpu_launches}, not the 4-wide route")
     check(np.isfinite(imgs["cuda"]).all() and err < RELMAE_MAX,
           f"GPU mesh render differs from the CPU render (relative MAE {err})")
 
@@ -458,22 +569,21 @@ def mesh_phases(dev, gpu):
     torch.cuda.reset_peak_memory_stats(dev)
     held = torch.cuda.memory_allocated(dev)
     for _ in range(3):
-        for counts in (bs.LAUNCHES, b4.LAUNCHES):
+        for counts in (bs.LAUNCHES, b4.LAUNCHES, bi.LAUNCHES):
             counts.update(dict.fromkeys(counts, 0))
-        bi.LAUNCHES = 0
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         img, _ = render(scene, meta, cfg, spp=spp, device=dev)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t1)
-        launches.append(dict(bs.LAUNCHES, **b4.LAUNCHES, brute_intersect=bi.LAUNCHES))
+        launches.append(dict(bs.LAUNCHES, **b4.LAUNCHES, **bi.LAUNCHES))
     img = img.cpu().numpy()
-    # one megawave of 1M rays: the camera wave's closest hit (skip), the
-    # binned closest hits of bounces 1-5 (4-wide), one shadow wave a bounce
-    # (4-wide)
-    expected = {"skip_closest": 1, "skip_any_hit": 0, "ordered_closest": 0,
-                "ordered_any_hit": 0, "bvh4_closest": cfg.max_depth,
-                "bvh4_any_hit": cfg.max_depth + 1, "brute_intersect": 0}
+    # one megawave of 1M rays: the camera wave's closest hit (4-wide, a walk
+    # a warp), the binned closest hits of bounces 1-5 (4-wide, a walk a ray),
+    # one shadow wave a bounce (4-wide, a walk a ray)
+    expected = {"skip_closest": 0, "skip_any_hit": 0, "ordered_closest": 0,
+                "ordered_any_hit": 0, "bvh4_coherent": 1, "bvh4_closest": cfg.max_depth,
+                "bvh4_any_hit": cfg.max_depth + 1, **dict.fromkeys(bi.KERNELS, 0)}
     emit({"phase": "bench", "scene": "mesh100k", "res": 256, "spp": spp,
           "max_depth": cfg.max_depth, "grid": MESH_GRID, "render_seconds": times,
           "camera_rays_per_sec": meta.xres * meta.yres * spp / statistics.median(times),
@@ -517,10 +627,14 @@ def mesh_phases(dev, gpu):
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
             "library_ms": None})
     # each 4-wide kernel in turns with the kernel it replaces (old, new,
-    # new, old); its bound counts its own walk: the ray bytes and the 4-wide
-    # tables once, 26 operations a slab test and 55 a triangle test. The
-    # bound of the replaced kernel's walk on these rays (the record table,
-    # the records it visits) is printed beside it as bound_ms_record_walk.
+    # new, old); on the camera wave the warp-coherent kernel, the per-ray
+    # 4-wide kernel and skip (skip, coherent, per-ray, per-ray, coherent,
+    # skip). Its bound counts the per-ray 4-wide walk on these rays: the ray
+    # bytes and the 4-wide tables once, 26 operations a slab test and 55 a
+    # triangle test (for the coherent kernel not the extra lane tests of the
+    # warp). The bound of the replaced kernel's walk on these rays (the
+    # record table, the records it visits) is printed beside it as
+    # bound_ms_record_walk.
     table4_bytes = (nodes.numel() + tris4.numel()) * 4
     for name, old in BVH4_REPLACES.items():
         any_hit = name == "bvh4_any_hit"
@@ -529,17 +643,22 @@ def mesh_phases(dev, gpu):
         old_kind = _kind(old)[0]
         runs = {"old": lambda: bs.stream_traverse(table, *args, any_hit=any_hit,
                                                   kind=old_kind, depth=depth),
-                "new": lambda: b4.bvh4_traverse(nodes, tris4, *args, any_hit=any_hit,
-                                                stack=stack)}
+                "new": lambda: bvh4_run(name, nodes, tris4, args, stack)}
+        order = ("old", "new", "new", "old")
+        if name == "bvh4_coherent":
+            runs["per_ray"] = lambda: b4.bvh4_traverse(nodes, tris4, *args, stack=stack)
+            order = ("old", "new", "per_ray", "per_ray", "new", "old")
         turns = {k: [] for k in runs}
         with torch.no_grad():
-            for who in ("old", "new", "new", "old"):
+            for who in order:
                 turns[who].append(cuda_ms(runs[who], 20))
-            plain_ms = cuda_ms(lambda: b4.bvh4_traverse_plain(
-                nodes, tris4, *args, any_hit=any_hit, stack=stack), 1, warmup=0)
+            plain_ms = cuda_ms(lambda: bvh4_plain(name, nodes, tris4, args, stack), 1,
+                               warmup=0)
         ms = statistics.mean(turns["new"])
         n_node, n_test, n_tri4 = results4[name]["counts"]
-        ops = OPS_PER_BOX * n_test + OPS_PER_PAIR * n_tri4
+        b_node, b_test, b_tri = results4[name].get("per_ray_counts",
+                                                   results4[name]["counts"])
+        ops = OPS_PER_BOX * b_test + OPS_PER_PAIR * b_tri
         bytes_moved = N_RAYS * RAY_BYTES + table4_bytes
         t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_FP32_OPS * 1e3
         n_box, n_tri = r["visits"]
@@ -547,48 +666,21 @@ def mesh_phases(dev, gpu):
                         (OPS_PER_BOX * n_box + OPS_PER_PAIR * n_tri) / PEAK_FP32_OPS) * 1e3
         emit({"phase": "kernel_time", "kernel": name, "case": r["case"], "rays": N_RAYS,
               "live_rays": r["live"], "ms": ms, "ms_turns": turns, "plain_ms": plain_ms,
-              "fill_blocks": b4.fill_blocks(dev.index, any_hit, stack),
+              "fill_blocks": b4.fill_blocks(dev.index, any_hit, stack,
+                                            coherent=name == "bvh4_coherent"),
               "node_fetches": n_node, "box_tests": n_test, "tri_tests": n_tri4,
-              "bytes_read": n_node * NODE_BYTES + n_tri4 * TRI_BYTES,
-              "bytes": bytes_moved, "operations": ops, "bytes_ms": t_bytes,
-              "operations_ms": t_ops, "replaced": f"bvh_stream_{old}",
+              "bound_node_fetches": b_node, "bound_box_tests": b_test,
+              "bound_tri_tests": b_tri, "bytes": bytes_moved, "operations": ops,
+              "bytes_ms": t_bytes, "operations_ms": t_ops, "replaced": f"bvh_stream_{old}",
               "replaced_box_visits": n_box, "replaced_tri_visits": n_tri,
               "bound_ms_record_walk": rec_bound, "gpu": gpu})
         entries.append({
-            "name": name, "route": "cuda", "source": BVH4_SOURCE,
+            "name": name, "route": "cuda", "source": BVH4_SOURCES[name],
             "replaces": STREAM_REPLACES[old_kind], "launches": launches[0][name],
             "max_abs_err": max(results4[name]["errs"].values()), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
             "bound_ms_record_walk": rec_bound, "library_ms": None})
-
-    # the camera wave, which the main path keeps on the skip kernel: the
-    # 4-wide closest hit on it, checked as on the secondary wave and timed
-    # in turns with the skip kernel (skip, bvh4, bvh4, skip)
-    args = results["skip_closest"]["args"]
-    runs = {"skip_closest": lambda: bs.stream_traverse(table, *args, kind="skip",
-                                                       depth=depth),
-            "bvh4_closest": lambda: b4.bvh4_traverse(nodes, tris4, *args, stack=stack)}
-    with torch.no_grad():
-        new = runs["bvh4_closest"]()
-        plain = b4.bvh4_traverse_plain(nodes, tris4, *args, stack=stack)
-        n_bad, errs, bitwise = compare(new, plain)
-        vs_skip = against_replaced(new, runs["skip_closest"](), args, False, scene)
-        counts = tuple(int(x.sum()) for x in plain[4:])
-        del new, plain
-        turns = {k: [] for k in runs}
-        for who in ("skip_closest", "bvh4_closest", "bvh4_closest", "skip_closest"):
-            turns[who].append(cuda_ms(runs[who], 20))
-    check(bitwise, "bvh4_closest is not bitwise equal to its plain version "
-                   "on the camera wave")
-    emit({"phase": "kernel_time", "kernel": "bvh4_closest", "case": "camera_wave",
-          "rays": N_RAYS, "ms": statistics.mean(turns["bvh4_closest"]),
-          "skip_closest_ms": statistics.mean(turns["skip_closest"]), "ms_turns": turns,
-          "bitwise_equal": bitwise, "prim_mismatch": n_bad,
-          "vs_bvh_stream_skip_closest": vs_skip, "node_fetches": counts[0],
-          "box_tests": counts[1], "tri_tests": counts[2],
-          "skip_box_visits": results["skip_closest"]["visits"][0],
-          "skip_tri_visits": results["skip_closest"]["visits"][1], "gpu": gpu})
     emit({"phase": "kernel_time", "scene": "mesh100k", "seconds": time.perf_counter() - t0})
     return entries
 
@@ -615,7 +707,15 @@ def main():
                                        or "spill" in ln]}
                       for name, (sec, log) in built.items()}})
 
-    kernels = [cornell_phases(dev, gpu)] + mesh_phases(dev, gpu)
+    sass = sass_loop_instructions("brute_intersect")
+    emit({"phase": "sass", "kernel": "brute_intersect",
+          "loop_instructions": sass if sass is not None else "cuobjdump not available"})
+    clock_mhz = float(run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                           "--format=csv,noheader,nounits"]).splitlines()[0])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    issue_rate = sms * LANES_PER_SM * clock_mhz * 1e6
+
+    kernels = cornell_phases(dev, gpu, issue_rate, sass) + mesh_phases(dev, gpu)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(gpu, flush=True)
     emit({"kernels": kernels})

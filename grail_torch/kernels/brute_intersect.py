@@ -2,9 +2,11 @@
 kernel in csrc/brute_intersect.cu and its plain PyTorch version.
 
 Replaces grail/kernels/pallas_intersect.py::_kernel (TPU). The kernel is
-compute-bound on the card (about 55 FP32 operations per ray-triangle pair
-against 48 bytes of ray I/O per ray); see the note in the CUDA source for
-the bound and what the design does about it.
+bound by instruction issue on the card (about 55 FP32 operations per
+ray-triangle pair against 48 bytes of ray I/O per ray, and no multiply-add
+contracted); see the note in the CUDA source for the bound and what the
+design does about it. It reads the triangles as 48-byte rows (pad_tris),
+which the wrapper makes on the device from the (T,9) table.
 
 `brute_intersect` takes the plain version only for tensors that lie on the
 CPU. For CUDA tensors it launches the kernel or raises.
@@ -17,10 +19,12 @@ import torch
 
 from . import build
 
-MAX_TRIS = 1024        # (T,9) f32 table staged in shared memory: 36 KB at the cap
+MAX_TRIS = 1024        # (T,12) f32 table staged in shared memory: 48 KB at the cap
 
-# Launches of the CUDA kernel in this process (plain-version calls excluded).
-LAUNCHES = 0
+KERNELS = ("brute_intersect", "brute_intersect_any_hit")
+
+# Launches of each CUDA kernel in this process (plain-version calls excluded).
+LAUNCHES = dict.fromkeys(KERNELS, 0)
 
 
 def _launcher():
@@ -75,6 +79,13 @@ def brute_intersect_plain(tris9, o, d, tmin, tmax, any_hit=False):
             torch.where(found, take(b2), 0.0))
 
 
+def pad_tris(tris9):
+    """The kernel's (T,12) table from the (T,9) [v0|e1|e2] one: each of v0,
+    e1, e2 padded to a 16-byte float4 with a zero word the kernel never
+    reads."""
+    return torch.nn.functional.pad(tris9.reshape(-1, 3, 3), (0, 1)).reshape(-1, 12)
+
+
 def _check(tris9, o, d, tmin, tmax):
     n = o.shape[0]
     build.check_operands({"tris9": (tris9, (tris9.shape[0], 9)), "o": (o, (n, 3)),
@@ -90,7 +101,6 @@ def _check(tris9, o, d, tmin, tmax):
 def brute_intersect(tris9, o, d, tmin, tmax, any_hit=False):
     """Closest hit (or first hit, any_hit=True) of each ray over the table.
     Returns (t, prim, b1, b2) as brute_intersect_plain."""
-    global LAUNCHES
     if o.device.type == "cpu":
         return brute_intersect_plain(tris9, o, d, tmin, tmax, any_hit)
     if o.device.type != "cuda":
@@ -103,13 +113,14 @@ def brute_intersect(tris9, o, d, tmin, tmax, any_hit=False):
     b2 = torch.empty_like(t)
     if n == 0:
         return t, prim, b1, b2
+    tris = pad_tris(tris9)
     fn = _launcher()
     with torch.cuda.device(o.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(tris9.data_ptr(), tris9.shape[0], o.data_ptr(), d.data_ptr(),
+        err = fn(tris.data_ptr(), tris.shape[0], o.data_ptr(), d.data_ptr(),
                  tmin.data_ptr(), tmax.data_ptr(), t.data_ptr(), prim.data_ptr(),
                  b1.data_ptr(), b2.data_ptr(), n, int(any_hit), stream)
     if err != 0:
         raise RuntimeError(f"brute_intersect kernel launch failed (CUDA error {err})")
-    LAUNCHES += 1
+    LAUNCHES[KERNELS[int(any_hit)]] += 1
     return t, prim, b1, b2

@@ -2,9 +2,7 @@
 //
 // Replaces grail/kernels/pallas_intersect.py::_kernel, the TPU kernel that
 // streams a packed (T,9) [v0|e1|e2] triangle table through SMEM over (8,128)
-// ray tiles. Here: one thread per ray, 256 threads a block; the block stages
-// the whole table (at most 1024 triangles, 36 KB) in shared memory, and every
-// thread then reads the same triangle in the same iteration (a broadcast).
+// ray tiles.
 //
 // Contract, as the reference: each ray keeps the hit with tmin < t < t_best,
 // compared strictly, looping over triangles in index order, so the lowest
@@ -13,89 +11,153 @@
 // prim >= 0). A lane with tmax <= tmin (the integrator's dead-lane mask)
 // cannot hit and skips the loop.
 //
-// Arithmetic keeps the operation order of the reference kernel. Built with
-// --fmad=false and without fast math, so no multiply-add is contracted and
-// the division is IEEE: the result should equal the plain PyTorch version
-// (brute_intersect.py) bit for bit.
-//
-// Bound: about 55 FP32 operations per ray-triangle pair against 48 bytes of
-// ray I/O per ray. At the Cornell box's 36 triangles and 1M rays that is
-// ~2.0 G operations (~0.03 ms at 67 TFLOP/s) against 48 MB (~0.014 ms at
-// 3.35 TB/s): compute-bound, and the more so as T grows. The design answers
-// with the cheapest operand path (shared-memory broadcast, no per-pair global
-// traffic) and an early exit for dead lanes and for any-hit rays; the ray I/O
-// is read and written exactly once.
+// What bounds it on the H100: issue. The work is ~55 FP32 operations per
+// ray-triangle pair against 48 bytes of ray I/O per ray (36 triangles, 1M
+// rays: ~0.03 ms of operations at 67 TFLOP/s, ~0.014 ms of bytes). Built
+// with --fmad=false (no multiply-add may be contracted, or the bits would
+// differ from the plain version), every multiply and add is its own
+// instruction, so the ceiling is the FP32 issue rate (132 SMs x 128 lanes a
+// clock), not the FMA rate that the operations bound divides by. Every
+// instruction a pair does not issue is time saved. The design:
+//   - A 48-byte triangle row, float4 v0|-, e1|-, e2|- (the wrapper pads the
+//     (T,9) table on the device; the fourth words are never read), staged in
+//     shared memory: a lane reads a triangle as 3 aligned 16-byte broadcasts.
+//   - kRays rays a thread: one triangle's 3 loads and the loop's bookkeeping
+//     serve kRays rays. Fixed at 2 by measurement on the H100 (4 was no
+//     faster: PERF.md).
+//   - A pair stops as soon as the reference would reject it. The hit
+//     predicate is a conjunction, so a pair whose b1 fails skips s2, b2 and
+//     t, and one whose b2 fails skips t. Two tests run before the IEEE
+//     division, on num1 = s . s1 and the divisor (b1 = num1 * (1/divisor)):
+//       * |num1| > RN(|divisor| * 1.0001) rejects: then |b1| > 1. The two
+//         roundings of b1 (reciprocal, product) and the one of the bound
+//         each err by at most 2^-22 relatively, also where 1/divisor is
+//         subnormal (divisor >= 2^126: 2^-149 / 2^-128) or the divisor is
+//         subnormal (then 1/divisor > 2^126 or overflows to inf, and |b1| is
+//         inf or far above 1); 1.0001 leaves a margin of 2^-13. A NaN
+//         compares false and is not rejected; an infinite divisor makes the
+//         bound inf and nothing is rejected.
+//       * opposite signs of num1 and divisor with |num1| * 2^64 > that bound
+//         reject: then b1 < 0 strictly. The product num1 * (1/divisor) is at
+//         least 2^-65 in magnitude, far from underflowing to -0.0 (which
+//         the reference accepts, as -0.0 >= 0.0). Strict > keeps an
+//         infinite divisor (1/divisor = -0.0 or +0.0) out.
+//     A surviving pair computes every value with the reference's expressions
+//     in the reference's order, so it keeps its bits. divisor == 0 is the
+//     reference's first conjunct and rejects at once; past it, the
+//     reference's 1 / (divisor == 0 ? 1 : divisor) is 1 / divisor.
+// Built with --fmad=false and IEEE division: the result equals the plain
+// PyTorch version (brute_intersect.py) bit for bit.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
+constexpr int kRays = 2;                       // rays a thread
+constexpr int kRaysPerBlock = kThreads * kRays;
+
+// true only for pairs the reference rejects: divisor == 0, or b1 outside
+// [0, 1] (see the note above)
+__device__ __forceinline__ bool rejected_early(float divisor, float num1) {
+  if (divisor == 0.0f) return true;
+  const float bound = fabsf(divisor) * 1.0001f;
+  const float a = fabsf(num1);
+  if (a > bound) return true;
+  return ((__float_as_int(num1) ^ __float_as_int(divisor)) < 0) && (a * 0x1p64f > bound);
+}
 
 template <bool kAnyHit>
 __global__ void __launch_bounds__(kThreads) brute_intersect_kernel(
-    const float* __restrict__ tris, int n_tris,
+    const float4* __restrict__ tris, int n_tris,
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ tmin, const float* __restrict__ tmax,
     float* __restrict__ t_out, int* __restrict__ prim_out,
     float* __restrict__ b1_out, float* __restrict__ b2_out, int n) {
-  extern __shared__ float s_tris[];
-  for (int i = threadIdx.x; i < n_tris * 9; i += blockDim.x) s_tris[i] = tris[i];
+  extern __shared__ float4 s_tris[];
+  for (int i = threadIdx.x; i < 3 * n_tris; i += kThreads) s_tris[i] = tris[i];
   __syncthreads();
 
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
-  const float ox = o[3 * r + 0], oy = o[3 * r + 1], oz = o[3 * r + 2];
-  const float dx = d[3 * r + 0], dy = d[3 * r + 1], dz = d[3 * r + 2];
-  const float t_min = tmin[r];
-  float t_best = tmax[r];
-  int prim_best = -1;
-  float b1_best = 0.0f, b2_best = 0.0f;
-
-  if (t_best > t_min) {
-    for (int k = 0; k < n_tris; ++k) {
-      const float* tri = s_tris + 9 * k;
-      const float v0x = tri[0], v0y = tri[1], v0z = tri[2];
-      const float e1x = tri[3], e1y = tri[4], e1z = tri[5];
-      const float e2x = tri[6], e2y = tri[7], e2z = tri[8];
-      // s1 = d x e2
-      const float s1x = dy * e2z - dz * e2y;
-      const float s1y = dz * e2x - dx * e2z;
-      const float s1z = dx * e2y - dy * e2x;
-      const float divisor = s1x * e1x + s1y * e1y + s1z * e1z;
-      const float inv = 1.0f / (divisor == 0.0f ? 1.0f : divisor);
-      const float sx = ox - v0x;
-      const float sy = oy - v0y;
-      const float sz = oz - v0z;
-      const float b1 = (sx * s1x + sy * s1y + sz * s1z) * inv;
-      // s2 = s x e1
-      const float s2x = sy * e1z - sz * e1y;
-      const float s2y = sz * e1x - sx * e1z;
-      const float s2z = sx * e1y - sy * e1x;
-      const float b2 = (dx * s2x + dy * s2y + dz * s2z) * inv;
-      const float t = (e2x * s2x + e2y * s2y + e2z * s2z) * inv;
-      const bool hit = (divisor != 0.0f) && (b1 >= 0.0f) && (b1 <= 1.0f) &&
-                       (b2 >= 0.0f) && (b1 + b2 <= 1.0f) && (t > t_min) &&
-                       (t < t_best);
-      if (hit) {
-        t_best = t;
-        prim_best = k;
-        b1_best = b1;
-        b2_best = b2;
-        if (kAnyHit) break;
-      }
+  const int first = blockIdx.x * kRaysPerBlock + threadIdx.x;
+  float ox[kRays], oy[kRays], oz[kRays], dx[kRays], dy[kRays], dz[kRays];
+  float t_min[kRays], t_best[kRays], b1_best[kRays], b2_best[kRays];
+  int prim_best[kRays];
+  bool live[kRays];
+#pragma unroll
+  for (int j = 0; j < kRays; ++j) {
+    const int r = first + j * kThreads;
+    live[j] = false;
+    prim_best[j] = -1;
+    b1_best[j] = b2_best[j] = 0.0f;
+    ox[j] = oy[j] = oz[j] = dx[j] = dy[j] = dz[j] = t_min[j] = t_best[j] = 0.0f;
+    if (r < n) {
+      ox[j] = o[3 * r + 0], oy[j] = o[3 * r + 1], oz[j] = o[3 * r + 2];
+      dx[j] = d[3 * r + 0], dy[j] = d[3 * r + 1], dz[j] = d[3 * r + 2];
+      t_min[j] = tmin[r];
+      t_best[j] = tmax[r];
+      live[j] = t_best[j] > t_min[j];
     }
   }
-  t_out[r] = t_best;
-  prim_out[r] = prim_best;
-  b1_out[r] = b1_best;
-  b2_out[r] = b2_best;
+  bool any = false;
+#pragma unroll
+  for (int j = 0; j < kRays; ++j) any = any || live[j];
+
+#pragma unroll 1
+  for (int k = 0; any && k < n_tris; ++k) {
+    const float4 v0 = s_tris[3 * k], e1 = s_tris[3 * k + 1], e2 = s_tris[3 * k + 2];
+#pragma unroll
+    for (int j = 0; j < kRays; ++j) {
+      if (!live[j]) continue;
+      // s1 = d x e2
+      const float s1x = dy[j] * e2.z - dz[j] * e2.y;
+      const float s1y = dz[j] * e2.x - dx[j] * e2.z;
+      const float s1z = dx[j] * e2.y - dy[j] * e2.x;
+      const float divisor = s1x * e1.x + s1y * e1.y + s1z * e1.z;
+      const float sx = ox[j] - v0.x;
+      const float sy = oy[j] - v0.y;
+      const float sz = oz[j] - v0.z;
+      const float num1 = sx * s1x + sy * s1y + sz * s1z;
+      if (rejected_early(divisor, num1)) continue;
+      const float inv = 1.0f / divisor;
+      const float b1 = num1 * inv;
+      if (!((b1 >= 0.0f) && (b1 <= 1.0f))) continue;
+      // s2 = s x e1
+      const float s2x = sy * e1.z - sz * e1.y;
+      const float s2y = sz * e1.x - sx * e1.z;
+      const float s2z = sx * e1.y - sy * e1.x;
+      const float b2 = (dx[j] * s2x + dy[j] * s2y + dz[j] * s2z) * inv;
+      if (!((b2 >= 0.0f) && (b1 + b2 <= 1.0f))) continue;
+      const float t = (e2.x * s2x + e2.y * s2y + e2.z * s2z) * inv;
+      if (!((t > t_min[j]) && (t < t_best[j]))) continue;
+      t_best[j] = t;
+      prim_best[j] = k;
+      b1_best[j] = b1;
+      b2_best[j] = b2;
+      if (kAnyHit) live[j] = false;
+    }
+    if (kAnyHit) {
+      any = false;
+#pragma unroll
+      for (int j = 0; j < kRays; ++j) any = any || live[j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kRays; ++j) {
+    const int r = first + j * kThreads;
+    if (r < n) {
+      t_out[r] = t_best[j];
+      prim_out[r] = prim_best[j];
+      b1_out[r] = b1_best[j];
+      b2_out[r] = b2_best[j];
+    }
+  }
 }
 
 }  // namespace
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success). The caller
-// checks shapes, types, devices and n_tris <= 1024 (36 KB of shared memory,
-// under the 48 KB a block may take without opting in).
+// Launches on `stream`; returns cudaGetLastError() (0 on success). tris is
+// the (T,12) float4 table [v0|-, e1|-, e2|-], 16-byte aligned. The caller
+// checks shapes, types, devices, alignment and n_tris <= 1024 (48 KB of
+// shared memory, the most a block may take without opting in).
 extern "C" int grail_brute_intersect(const float* tris, int n_tris,
                                      const float* o, const float* d,
                                      const float* tmin, const float* tmax,
@@ -103,15 +165,16 @@ extern "C" int grail_brute_intersect(const float* tris, int n_tris,
                                      float* b1_out, float* b2_out, int n,
                                      int any_hit, void* stream) {
   if (n <= 0) return 0;
-  const dim3 grid((n + kThreads - 1) / kThreads);
-  const size_t smem = sizeof(float) * 9 * static_cast<size_t>(n_tris);
+  const dim3 grid((n + kRaysPerBlock - 1) / kRaysPerBlock);
+  const size_t smem = sizeof(float4) * 3 * static_cast<size_t>(n_tris);
+  const float4* tr = reinterpret_cast<const float4*>(tris);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (any_hit) {
     brute_intersect_kernel<true><<<grid, kThreads, smem, s>>>(
-        tris, n_tris, o, d, tmin, tmax, t_out, prim_out, b1_out, b2_out, n);
+        tr, n_tris, o, d, tmin, tmax, t_out, prim_out, b1_out, b2_out, n);
   } else {
     brute_intersect_kernel<false><<<grid, kThreads, smem, s>>>(
-        tris, n_tris, o, d, tmin, tmax, t_out, prim_out, b1_out, b2_out, n);
+        tr, n_tris, o, d, tmin, tmax, t_out, prim_out, b1_out, b2_out, n);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,7 @@
 """Ray-scene intersection (port of grail/kernels/intersect.py): the brute
-route for scenes without a BVH and, for scenes with one, the single-table
-stream route on unbinned camera waves and the 4-wide BVH route on every
-other wave.
+route for scenes without a BVH and, for scenes with one, the 4-wide BVH
+route: a walk a warp on unbinned (tile-ordered) closest-hit waves, a walk a
+ray on every other wave.
 
 Hit record (dict of (N,) tensors): t, prim (int32, -1 = miss), b1, b2.
 Scenes with instances, a scene-sharded ring or clustered stream tables take
@@ -16,8 +16,7 @@ from ..core.vecmath import cross, dot
 from ..device import check_on, resolve_device
 from .binning import N_RAY_BUCKETS, bin_rays_key, bucket_rank, sort_by_rank, unsort
 from .brute_intersect import brute_intersect
-from .bvh4 import bvh4_traverse
-from .bvh_stream import stream_traverse
+from .bvh4 import bvh4_coherent, bvh4_traverse
 
 BIG_T = 3.0e37
 SORT_MIN = 8192     # waves of at least this many rays are binned first
@@ -94,14 +93,13 @@ def _check_routes(scene, o, device):
 
 
 def _stream_bvh(scene, o, d, tmax, tmin, any_hit=False, sort=None):
-    """Stream traversal with ray binning (the reference's _stream_bvh
-    without clustered tables). Waves of SORT_MIN rays or more are
-    counting-sorted into coherence buckets first and their results gathered
-    back; sort=False marks a tile-ordered camera wave. Closest hit takes the
-    skip kernel on the record stream for unsorted waves and the 4-wide
-    kernel for sorted ones; any hit always takes the 4-wide kernel. Dead
-    lanes (tmax <= tmin, the integrator's mask) are made inert and sorted
-    last."""
+    """BVH traversal with ray binning (the reference's _stream_bvh without
+    clustered tables). Waves of SORT_MIN rays or more are counting-sorted
+    into coherence buckets first and their results gathered back;
+    sort=False marks a tile-ordered camera wave. Closest hit takes the
+    warp-coherent 4-wide walk for unsorted waves and the per-ray 4-wide walk
+    for sorted ones; any hit always takes the per-ray walk. Dead lanes
+    (tmax <= tmin, the integrator's mask) are made inert and sorted last."""
     bvh = scene["bvh"]
     if sort is None:
         sort = o.shape[0] >= SORT_MIN
@@ -126,7 +124,7 @@ def _stream_bvh(scene, o, d, tmax, tmin, any_hit=False, sort=None):
         t, prim, b1, b2 = unsort(rank, *bvh4_traverse(*tables, *rays,
                                                        stack=bvh["bvh4_stack"]))
     else:
-        t, prim, b1, b2 = stream_traverse(bvh["stream"], *rays, kind="skip")
+        t, prim, b1, b2 = bvh4_coherent(*tables, *rays, stack=bvh["bvh4_stack"])
     return {"t": torch.where(prim >= 0, t, BIG_T), "prim": prim, "b1": b1, "b2": b2}
 
 

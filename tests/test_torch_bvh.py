@@ -159,12 +159,18 @@ def test_binning_matches_reference(terrain):
         back[1].numpy(), np.asarray(jbin.unsort(jnp.asarray(rank_ref), sorted_ref[1])[0]))
 
 
-def test_stream_dispatch_sorted_and_unsorted(terrain):
-    """The dispatch's binned (4-wide walk, bvh4_traverse) and unbinned
-    (skip kernel) routes give the reference kernel's hits, with dead lanes
-    inert and misses at BIG_T; its any hit (4-wide) gives the reference's
-    occlusion."""
+def test_stream_dispatch_sorted_and_unsorted(terrain, monkeypatch):
+    """The dispatch's binned (4-wide walk a ray, bvh4_traverse) and unbinned
+    (4-wide walk a warp, bvh4_coherent) routes give the reference kernel's
+    hits, with dead lanes inert and misses at BIG_T; its any hit (4-wide, a
+    walk a ray) gives the reference's occlusion."""
     s = terrain
+    routes = []
+    for name in ("bvh4_traverse", "bvh4_coherent"):
+        def call(*a, _name=name, _fn=getattr(tisect, name), **kw):
+            routes.append((_name, kw.get("any_hit", False)))
+            return _fn(*a, **kw)
+        monkeypatch.setattr(tisect, name, call)
     ts, _ = scene_from_numpy(s["scene_np"], s["meta"], device="cpu")
     args = [torch.tensor(s[k]) for k in ("o", "d", "tmax", "tmin")]
     ref = np.asarray(_run(jnp.asarray(s["scene_np"]["bvh"]["stream"]),
@@ -173,11 +179,15 @@ def test_stream_dispatch_sorted_and_unsorted(terrain):
     occ_ref = np.asarray(_run(jnp.asarray(s["scene_np"]["bvh"]["stream"]),
                               *(jnp.asarray(s[k]) for k in ("o", "d", "tmin", "tmax")),
                               any_hit=True, interpret=True)[1]) >= 0
-    for sort in (False, True):
+    for sort, route in ((False, "bvh4_coherent"), (True, "bvh4_traverse")):
+        routes.clear()
         hit = tisect.intersect(ts, *args, device="cpu", sort=sort)
+        assert routes == [(route, False)]
         prim = hit["prim"].numpy()
         np.testing.assert_array_equal(prim >= 0, ref >= 0)
         assert (prim == ref).mean() >= 0.999
         assert (hit["t"].numpy()[prim < 0] == np.float32(tisect.BIG_T)).all()
+    routes.clear()
     occ = tisect.intersect_p(ts, *args, device="cpu").numpy()
     np.testing.assert_array_equal(occ, occ_ref)
+    assert routes == [("bvh4_traverse", True)]

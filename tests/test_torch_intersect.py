@@ -61,7 +61,7 @@ def _agree(prim_ref, prim, t_ref, t, b1_ref, b1, b2_ref, b2):
 
 def test_plain_closest_hit_matches_pallas_interpret(setup):
     s = setup
-    tbi.LAUNCHES = 0
+    before = dict(tbi.LAUNCHES)
     t_j, prim_j, b1_j, b2_j = (np.asarray(a) for a in _run(
         jnp.asarray(s["tris9"]), jnp.asarray(s["o"]), jnp.asarray(s["d"]),
         jnp.asarray(s["tmin"]), jnp.asarray(s["tmax"]), interpret=True))
@@ -76,7 +76,7 @@ def test_plain_closest_hit_matches_pallas_interpret(setup):
     # dead lanes (tmax = 0) never hit
     assert (prim[400:450] == -1).all()
     # on the CPU the wrapper runs the plain version, never the kernel
-    assert tbi.LAUNCHES == 0
+    assert tbi.LAUNCHES == before
 
 
 def test_plain_matches_reference_oracle(setup):
@@ -139,3 +139,65 @@ def test_dispatch_refuses_unported_routes(setup, monkeypatch):
     with pytest.raises(ValueError, match="triangles exceed"):
         tbi._check(torch.zeros(tbi.MAX_TRIS + 1, 9), *_torch(
             s["o"][:8], s["d"][:8], s["tmin"][:8], s["tmax"][:8]))
+
+
+def test_padded_table_is_pack_tris_row_for_row(setup):
+    """The kernel's 48-byte rows (v0|-, e1|-, e2|-) hold pack_tris's (T,9)
+    rows word for word, for the reference's packer and the port's; the pad
+    words are zero."""
+    s = setup
+    scene_t, _ = scene_from_numpy(s["scene_np"], s["meta"], device="cpu")
+    for tris9 in (torch.tensor(s["tris9"]), tisect.pack_tris(scene_t)):
+        rows = tbi.pad_tris(tris9)
+        assert rows.shape == (tris9.shape[0], 12) and rows.is_contiguous()
+        words = rows.view(torch.int32).reshape(-1, 3, 4)
+        assert torch.equal(words[:, :, :3].reshape(-1, 9), tris9.view(torch.int32))
+        assert not words[:, :, 3].any()
+    np.testing.assert_array_equal(tisect.pack_tris(scene_t).numpy(), s["tris9"])
+
+
+def _rejected_early(divisor, num1):
+    """csrc/brute_intersect.cu's tests ahead of the division, in float32."""
+    with np.errstate(over="ignore", invalid="ignore"):
+        bound = np.abs(divisor) * np.float32(1.0001)
+        a = np.abs(num1)
+        opposite = np.signbit(num1) != np.signbit(divisor)
+        return ((divisor == 0) | (a > bound)
+                | (opposite & (a * np.float32(2.0 ** 64) > bound)))
+
+
+def test_early_rejection_rejects_no_reference_hit():
+    """The kernel rejects a pair on num1 = s . s1 and the divisor before
+    dividing. It may reject only pairs whose b1 = num1 * (1 / divisor)
+    fails the reference's 0 <= b1 <= 1 (or whose divisor is 0), including
+    b1 = -0.0 after an underflowing product, which the reference accepts,
+    and subnormal, huge and infinite operands."""
+    rs = np.random.RandomState(3)
+    n = 200_000
+    mant = rs.rand(2, n) * 2.0 - 1.0
+    expo = rs.randint(-160, 130, size=(2, n))
+    with np.errstate(over="ignore", under="ignore"):
+        divisor, num1 = (mant * 2.0 ** expo).astype(np.float32)
+    # near-equal magnitudes (b1 around +-1) and exactly equal ones
+    num1[: n // 8] = (divisor[: n // 8] * (1 + (rs.rand(n // 8) - 0.5) * 1e-6)).astype(np.float32)
+    num1[n // 8: n // 4] = -divisor[n // 8: n // 4]
+    special = np.array([0.0, -0.0, 1e-45, -1e-45, 1e-38, -1e-38, 3e38, -3e38,
+                        np.inf, -np.inf, np.nan, 1.0, -1.0, 2.0 ** -64, -(2.0 ** -64)],
+                       np.float32)
+    dd, nn = np.meshgrid(special, special)
+    divisor = np.concatenate([divisor, dd.ravel()])
+    num1 = np.concatenate([num1, nn.ravel()])
+    with np.errstate(all="ignore"):
+        inv = np.float32(1.0) / np.where(divisor == 0, np.float32(1.0), divisor)
+        b1 = num1 * inv
+    accepted = (divisor != 0) & (b1 >= 0) & (b1 <= 1)
+    rejected = _rejected_early(divisor, num1)
+    assert not (rejected & accepted).any()
+    # b1 = -0.0 from an underflow is accepted, and not rejected early
+    tiny = np.array([1e-30, -1e-30], np.float32), np.array([-1e20, 1e30], np.float32)
+    with np.errstate(all="ignore"):
+        b1_tiny = tiny[0] * (np.float32(1.0) / tiny[1])
+    assert (b1_tiny == 0).all() and np.signbit(b1_tiny).all()
+    assert not _rejected_early(tiny[1], tiny[0]).any()
+    # and it does reject most of what the reference rejects
+    assert rejected.sum() > 0.5 * (~accepted).sum()
