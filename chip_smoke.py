@@ -17,25 +17,26 @@ failure ends the run with a non-zero exit code:
   4. main path: a render on the card against the same render on the CPU;
   5. bench: the bench render (256x256, 16 spp, path integrator, max depth 5)
      through the kernel, with its launch counts, and each instance's time
-     beside its plain version, its bound and the issue-rate ceiling;
+     beside its plain version, its bound (the operations of the stages of
+     the hit test that each pair needs) and its issue time were every pair
+     to take every path of its loop;
   mesh100k (the 100k-triangle terrain at grid=224, BVH traversal):
   6. parity: each of the four record-stream kernels against its plain
      version at 1,048,576 rays: the bench camera wave (skip, closest hit), a
      binned incoherent secondary wave (ordered, closest and any hit) and
      shadow rays with random lengths and 1/8 dead lanes (skip, any hit); the
-     three 4-wide kernels on the rays of the kernels they replace on the
-     main path (per-ray closest hit on the secondary wave, per-ray any hit
-     on the shadow rays, warp-coherent closest hit on the camera wave),
-     against their plain versions and against those kernels, and the
-     per-ray closest hit on the camera wave against its plain version;
+     two 4-wide kernels on the rays of the kernels they replace on the main
+     path (closest hit on the secondary wave and on the camera wave, any hit
+     on the shadow rays), against their plain versions and against those
+     kernels;
   7. main path: a 64x64, 4 spp, depth 3 render on the card against the CPU,
      through the 4-wide route;
   8. bench: the bench render (256x256, 16 spp, depth 5) through the kernels,
-     with launches per render of each kernel;
+     with launches per render of each kernel, the closest hit's split by
+     wave (camera, binned);
   9. kernel_time: each traversal kernel's ms per launch beside its plain
      version and its bound; each 4-wide kernel timed in turns with the
-     kernel it replaces, and on the camera wave the warp-coherent kernel,
-     the per-ray 4-wide kernel and the skip kernel in turns.
+     kernel it replaces, on each wave it takes.
 Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 Needs a CUDA device and nvcc; imports nothing of JAX.
 """
@@ -58,7 +59,9 @@ from grail_torch.kernels import bvh_stream as bs
 from grail_torch.kernels import build
 from grail_torch.kernels.binning import (N_RAY_BUCKETS, bin_rays_key, bucket_rank,
                                          sort_by_rank)
-from grail_torch.kernels.intersect import BIG_T, SORT_MIN, moller_trumbore, pack_tris
+from grail_torch.kernels.intersect import (BIG_T, CLOSEST_WAVES, SORT_MIN,
+                                           moller_trumbore, pack_tris)
+from grail_torch.native import build_bvh_native
 from grail_torch.scene.presets import cornell_box, mesh_scene
 
 N_RAYS = 1 << 20
@@ -67,7 +70,12 @@ MESH_GRID = 224
 # tensor cores and HBM3 bandwidth
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
-OPS_PER_PAIR = 55          # Möller-Trumbore + hit test per ray-triangle pair
+# Möller-Trumbore and its hit test per ray-triangle pair, by stage of the
+# predicate (a conjunction, so a pair that fails a stage needs no later one):
+# s1, the divisor, its guard and reciprocal, s, b1 and the divisor and b1
+# tests (29); s2, b2, b1 + b2 and their tests (18); t and its two tests (8)
+OPS_STAGES = (29, 18, 8)
+OPS_PER_PAIR = sum(OPS_STAGES)   # every stage: 55
 LANES_PER_SM = 128         # FP32 lanes of a Hopper SM: one instruction a lane a clock
 # slab test per box record (bvh_stream.cu): 6 subtracts, 6 multiplies, one
 # min and one max per axis (6), 4 min/max across axes, 1 multiply and
@@ -78,15 +86,18 @@ PRIM_AGREE_MIN = 0.999
 OCC_AGREE_MIN = 0.9999
 RTOL, ATOL = 1e-5, 1e-6
 RELMAE_MAX = 1e-3
+SLEEP_CYCLES = 100_000_000    # ~50 ms of the card's clock ahead of a timed run
 STREAM_SOURCE = "grail_torch/kernels/csrc/bvh_stream.cu"
 STREAM_REPLACES = {"ordered": "grail/kernels/bvh_stream.py:269",
                    "skip": "grail/kernels/bvh_stream.py:414"}
 BVH4_SOURCE = "grail_torch/kernels/csrc/bvh4.cu"
-# each 4-wide kernel: the record-stream kernel it replaces on the main path
-BVH4_REPLACES = {"bvh4_closest": "ordered_closest", "bvh4_any_hit": "skip_any_hit",
-                 "bvh4_coherent": "skip_closest"}
-BVH4_SOURCES = {"bvh4_closest": BVH4_SOURCE, "bvh4_any_hit": BVH4_SOURCE,
-                "bvh4_coherent": "grail_torch/kernels/csrc/bvh4_coherent.cu"}
+# each 4-wide kernel, the record-stream kernel it replaces on the main path
+# and the dispatch's closest-hit route (intersect.CLOSEST_WAVES), one entry a
+# wave: closest hit on binned secondary waves, any hit on shadow waves,
+# closest hit on the camera wave
+BVH4_REPLACES = (("bvh4_closest", "ordered_closest", "binned"),
+                 ("bvh4_any_hit", "skip_any_hit", None),
+                 ("bvh4_closest", "skip_closest", "unbinned"))
 BRUTE_SOURCE = "grail_torch/kernels/csrc/brute_intersect.cu"
 RAGGED = 37                # rays past 1M in the ragged parity case
 NODE_BYTES, TRI_BYTES = 128, 48
@@ -134,12 +145,16 @@ def relative_mae(a, b):
 
 
 def cuda_ms(fn, reps, warmup=2):
-    """Mean device time of fn() over reps launches (CUDA events, warmed up)."""
+    """Mean device time of fn() over reps launches (CUDA events, warmed up).
+    A sleep kernel queued first keeps the card busy while the host queues
+    the launches, so a wrapper's host time per call, which can exceed a
+    short kernel's, does not count."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -309,13 +324,16 @@ def cornell_phases(dev, gpu, issue_rate, sass):
     check(np.isfinite(img).all() and img.shape == (256, 256, 3) and img.mean() > 0.0,
           "bench image is not finite and positive")
 
-    # each instance's time, its plain version's, its bound and the issue
-    # ceiling at the main path's shapes: closest hit on the camera wave, any
-    # hit on the shadow rays. Pairs counted as this run's rays need them: a
-    # live ray tests every triangle, an any-hit ray up to its first hit.
-    # The ceiling: those pairs times the kernel's static instructions a pair
-    # (its triangle loop over the rays a thread, every path) over the
-    # card's FP32 issue rate; the kernel issues only the paths a pair takes.
+    # each instance's time, its plain version's and its bound at the main
+    # path's shapes: closest hit on the camera wave, any hit on the shadow
+    # rays. Pairs counted as this run's rays need them: a live ray tests
+    # every triangle, an any-hit ray up to its first hit; each pair's
+    # operations by the stages of the hit test it reaches (OPS_STAGES).
+    # Beside it, the bound with every stage counted for every pair (55),
+    # and those pairs times the kernel's static instructions a pair (its
+    # triangle loop over the rays a thread, every path) over the card's FP32
+    # issue rate: its issue time were every pair to take every path; a warp
+    # issues only the paths one of its lanes takes.
     n_tris = tris9.shape[0]
     per_thread = int(re.search(r"kRays = (\d+);",
                                open(BRUTE_SOURCE).read()).group(1))
@@ -328,31 +346,34 @@ def cornell_phases(dev, gpu, issue_rate, sass):
             ms = cuda_ms(lambda: bi.brute_intersect(tris9, o, d, tmin, tmax, any_hit), 50)
             plain_ms = cuda_ms(lambda: bi.brute_intersect_plain(tris9, o, d, tmin, tmax,
                                                                 any_hit), 5)
-            prim = bi.brute_intersect_plain(tris9, o, d, tmin, tmax, any_hit)[1]
-        live = tmax > tmin
-        tested = torch.where(prim >= 0, prim + 1, n_tris) if any_hit else n_tris
-        pairs = int(torch.where(live, tested, 0).sum())
+            stages = [int(c.sum()) for c in bi.brute_intersect_plain(
+                tris9, o, d, tmin, tmax, any_hit, counts=True)[4:]]
+        pairs = stages[0]
         bytes_moved = n * RAY_BYTES + n_tris * 36
-        ops = OPS_PER_PAIR * pairs
+        ops = sum(k * c for k, c in zip(OPS_STAGES, stages))
         t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_FP32_OPS * 1e3
+        bound_every_pair = max(t_bytes, OPS_PER_PAIR * pairs / PEAK_FP32_OPS * 1e3)
         loop = None if sass is None else next(
             (v for k, v in sass.items() if f"ILb{int(any_hit)}E" in k), None)
         per_pair = None if loop is None else loop / per_thread
-        ceiling = None if per_pair is None else pairs * per_pair / issue_rate * 1e3
+        every_path = None if per_pair is None else pairs * per_pair / issue_rate * 1e3
         emit({"phase": "kernel_time", "kernel": name, "case": case, "rays": n,
-              "live_rays": int(live.sum()), "triangles": n_tris, "pairs": pairs,
+              "live_rays": int((tmax > tmin).sum()), "triangles": n_tris,
+              "pairs": pairs, "pairs_past_b1": stages[1], "pairs_past_b2": stages[2],
               "ms": ms, "plain_ms": plain_ms, "bytes": bytes_moved, "operations": ops,
               "bytes_ms": t_bytes, "operations_ms": t_ops,
+              "bound_ms": max(t_bytes, t_ops), "bound_ms_every_pair": bound_every_pair,
               "sass_loop_instructions": loop, "rays_per_thread": per_thread,
               "static_instructions_per_pair": per_pair,
               "issue_rate_lane_instructions_per_s": issue_rate,
-              "issue_ceiling_ms": ceiling, "gpu": gpu})
-        entries.append({"name": name, "route": "cuda", "source": BRUTE_SOURCE,
+              "issue_ms_every_path": every_path, "gpu": gpu})
+        entries.append({"name": name, "case": case, "route": "cuda",
+                        "source": BRUTE_SOURCE,
                         "replaces": "grail/kernels/pallas_intersect.py:31",
                         "launches": launches[0][name], "max_abs_err": max_err[name],
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                         "bound_by": "bytes" if t_bytes > t_ops else "operations",
-                        "library_ms": None})
+                        "bound_ms_every_pair": bound_every_pair, "library_ms": None})
     return entries
 
 
@@ -399,33 +420,9 @@ def _kind(name):
     return name.split("_", 1)[0], name.endswith("any_hit")
 
 
-def bvh4_run(name, nodes, tris4, args, stack):
-    """4-wide kernel `name` (a LAUNCHES key of bvh4) on the rays args."""
-    if name == "bvh4_coherent":
-        return b4.bvh4_coherent(nodes, tris4, *args, stack=stack)
-    return b4.bvh4_traverse(nodes, tris4, *args, any_hit=name == "bvh4_any_hit",
-                            stack=stack)
-
-
-def bvh4_plain(name, nodes, tris4, args, stack):
-    """The plain version of 4-wide kernel `name`, with its counts."""
-    if name == "bvh4_coherent":
-        return b4.bvh4_coherent_plain(nodes, tris4, *args, stack=stack)
-    return b4.bvh4_traverse_plain(nodes, tris4, *args, any_hit=name == "bvh4_any_hit",
-                                  stack=stack)
-
-
-def lane_use(plain):
-    """Items (node fetches + triangle tests) a ray of a per-ray walk, over
-    warps of 32 consecutive rays: the share of lanes busy while the warp
-    walks (mean over max)."""
-    items = (plain[4] + plain[6]).view(-1, 32).double()
-    return float(items.mean(1).sum() / items.amax(1).sum())
-
-
 def mesh_phases(dev, gpu):
-    """Phases 6-9; returns the four bvh_stream and the two bvh4 entries of
-    the kernels line."""
+    """Phases 6-9; returns the entries of the kernels line: the four
+    bvh_stream kernels, and the two bvh4 kernels on each wave they take."""
     t0 = time.perf_counter()
     scene, meta, _ = mesh_scene(256, 256, 16, grid=MESH_GRID, device=dev)
     torch.cuda.synchronize()
@@ -433,8 +430,19 @@ def mesh_phases(dev, gpu):
     table, depth = scene["bvh"]["stream"], scene["bvh"]["depth"]
     nodes, tris4, stack = (scene["bvh"][k] for k in ("bvh4_nodes", "bvh4_tris",
                                                       "bvh4_stack"))
+    # the record table's share of the set-up: its host packing and upload,
+    # timed again on the same tree (no main-path kernel reads it)
+    verts_np, idx_np = scene["verts"].cpu().numpy(), scene["tri_idx"].cpu().numpy()
+    b_np = build_bvh_native(verts_np, idx_np, max_prims=4, force_leaf=4)
+    t1 = time.perf_counter()
+    again = torch.as_tensor(bs.build_stream_table(b_np, verts_np, idx_np), device=dev)
+    torch.cuda.synchronize()
+    record_s = time.perf_counter() - t1
+    check(torch.equal(again, table), "record table rebuilt differs from the scene's")
+    del again
     emit({"phase": "mesh_scene", "grid": MESH_GRID, "triangles": meta.n_tris,
           "records": table.shape[0] * bs.RECS_PER_ROW, "table_bytes": table.numel() * 4,
+          "record_table_host_seconds": record_s,
           "tree_depth": depth, "bvh4_nodes": nodes.shape[0],
           "bvh4_table_bytes": (nodes.numel() + tris4.numel()) * 4,
           "bvh4_stack_bound": stack, "host_build_seconds": build_s})
@@ -469,57 +477,36 @@ def mesh_phases(dev, gpu):
               "plain_seconds": plain_s})
     # the 4-wide kernels on the rays of the kernels they replace
     results4 = {}
-    for name, old in BVH4_REPLACES.items():
+    for name, old, _ in BVH4_REPLACES:
         any_hit = name == "bvh4_any_hit"
         r = results[old]
         with torch.no_grad():
-            kern = bvh4_run(name, nodes, tris4, r["args"], stack)
+            kern = b4.bvh4_traverse(nodes, tris4, *r["args"], any_hit=any_hit,
+                                    stack=stack)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            plain = bvh4_plain(name, nodes, tris4, r["args"], stack)
+            plain = b4.bvh4_traverse_plain(nodes, tris4, *r["args"], any_hit=any_hit,
+                                           stack=stack)
             torch.cuda.synchronize()
             plain_s = time.perf_counter() - t1
             n_bad, errs, bitwise = compare(kern, plain, any_hit)
             vs_old = against_replaced(kern, r["kern"], r["args"], any_hit, scene)
         counts = tuple(int(x.sum()) for x in plain[4:])
-        results4[name] = {"errs": errs, "counts": counts}
-        extra = {}
-        if name == "bvh4_coherent":
-            # lanes of the warp busy in its slab tests: slab tests of the
-            # lanes over 4 a node fetch for every lane of the warp
-            extra["node_fetches_per_warp"] = counts[0] / plain[4].numel()
-            extra["slab_lane_use"] = counts[1] / 4 / (b4.WARP * counts[0])
-        else:
-            extra["max_node_fetches_per_ray"] = int(plain[4].max())
-            extra["warp_lane_use"] = lane_use(plain)
+        results4[old] = {"errs": errs, "counts": counts}
+        # items (node fetches + triangle tests) per ray, over warps of 32
+        # consecutive rays: the share of lanes busy while the warp walks
+        items = (plain[4] + plain[6]).view(-1, 32).double()
+        lane_use = float(items.mean(1).sum() / items.amax(1).sum())
         emit({"phase": "parity", "scene": "mesh100k", "kernel": name, "case": r["case"],
               "rays": N_RAYS, "live_rays": r["live"], "hits": int((kern[1] >= 0).sum()),
               "prim_mismatch": n_bad,
               "occlusion_mismatch": int(((kern[1] >= 0) != (plain[1] >= 0)).sum()),
               "max_abs_diff": errs, "bitwise_equal": bitwise,
               f"vs_bvh_stream_{old}": vs_old, "node_fetches": counts[0],
-              "box_tests": counts[1], "tri_tests": counts[2], **extra,
-              "plain_seconds": plain_s})
-        check(bitwise, f"{name} is not bitwise equal to its plain version")
-    # the per-ray 4-wide closest hit on the camera wave: checked as on the
-    # secondary wave; its walk's counts set the warp-coherent kernel's bound
-    args = results["skip_closest"]["args"]
-    with torch.no_grad():
-        kern = b4.bvh4_traverse(nodes, tris4, *args, stack=stack)
-        plain = b4.bvh4_traverse_plain(nodes, tris4, *args, stack=stack)
-        n_bad, errs, bitwise = compare(kern, plain)
-        vs_old = against_replaced(kern, results["skip_closest"]["kern"], args, False, scene)
-    camera_counts = tuple(int(x.sum()) for x in plain[4:])
-    results4["bvh4_coherent"]["per_ray_counts"] = camera_counts
-    emit({"phase": "parity", "scene": "mesh100k", "kernel": "bvh4_closest",
-          "case": "camera_wave", "rays": N_RAYS, "prim_mismatch": n_bad,
-          "max_abs_diff": errs, "bitwise_equal": bitwise,
-          "vs_bvh_stream_skip_closest": vs_old, "node_fetches": camera_counts[0],
-          "box_tests": camera_counts[1], "tri_tests": camera_counts[2],
-          "max_node_fetches_per_ray": int(plain[4].max()),
-          "warp_lane_use": lane_use(plain)})
-    check(bitwise, "bvh4_closest is not bitwise equal to its plain version on the "
-                   "camera wave")
+              "box_tests": counts[1], "tri_tests": counts[2],
+              "max_node_fetches_per_ray": int(plain[4].max()),
+              "warp_lane_use": lane_use, "plain_seconds": plain_s})
+        check(bitwise, f"{name} is not bitwise equal to its plain version ({r['case']})")
     # keep only the rays and counts: the outputs would count in the bench
     # render's peak memory
     del kern, plain
@@ -530,8 +517,8 @@ def mesh_phases(dev, gpu):
     # the main path on the card against the same render on the CPU, at
     # 16,384 lanes: above the dispatch's binning threshold (SORT_MIN) at
     # every bounce, also after the pre-RR split halves the wave, so the
-    # comparison runs the binned route after the camera wave as the bench
-    # render does
+    # comparison bins every wave after the camera wave as the bench render
+    # does
     t0 = time.perf_counter()
     cfg_e = IntegratorConfig(kind="path", max_depth=3)
     res_e, spp_e = 64, 4
@@ -552,8 +539,7 @@ def mesh_phases(dev, gpu):
           "seconds": time.perf_counter() - t0})
     check(res_e * res_e * spp_e // 2 >= SORT_MIN, "comparison wave below SORT_MIN")
     check(gpu_launches == {"skip_closest": 0, "skip_any_hit": 0, "ordered_closest": 0,
-                           "ordered_any_hit": 0, "bvh4_coherent": 1,
-                           "bvh4_closest": cfg_e.max_depth,
+                           "ordered_any_hit": 0, "bvh4_closest": cfg_e.max_depth + 1,
                            "bvh4_any_hit": cfg_e.max_depth + 1},
           f"GPU mesh render took {gpu_launches}, not the 4-wide route")
     check(np.isfinite(imgs["cuda"]).all() and err < RELMAE_MAX,
@@ -565,11 +551,11 @@ def mesh_phases(dev, gpu):
     spp = meta.sampler.spp
     render(scene, meta, cfg, spp=spp, device=dev)
     torch.cuda.synchronize()
-    times, launches = [], []
+    times, launches, waves = [], [], []
     torch.cuda.reset_peak_memory_stats(dev)
     held = torch.cuda.memory_allocated(dev)
     for _ in range(3):
-        for counts in (bs.LAUNCHES, b4.LAUNCHES, bi.LAUNCHES):
+        for counts in (bs.LAUNCHES, b4.LAUNCHES, bi.LAUNCHES, CLOSEST_WAVES):
             counts.update(dict.fromkeys(counts, 0))
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -577,23 +563,28 @@ def mesh_phases(dev, gpu):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t1)
         launches.append(dict(bs.LAUNCHES, **b4.LAUNCHES, **bi.LAUNCHES))
+        waves.append(dict(CLOSEST_WAVES))
     img = img.cpu().numpy()
-    # one megawave of 1M rays: the camera wave's closest hit (4-wide, a walk
-    # a warp), the binned closest hits of bounces 1-5 (4-wide, a walk a ray),
-    # one shadow wave a bounce (4-wide, a walk a ray)
+    # one megawave of 1M rays, every wave on the 4-wide kernels: the camera
+    # wave's closest hit (unbinned), the binned closest hits of bounces 1-5,
+    # one shadow wave a bounce
     expected = {"skip_closest": 0, "skip_any_hit": 0, "ordered_closest": 0,
-                "ordered_any_hit": 0, "bvh4_coherent": 1, "bvh4_closest": cfg.max_depth,
+                "ordered_any_hit": 0, "bvh4_closest": cfg.max_depth + 1,
                 "bvh4_any_hit": cfg.max_depth + 1, **dict.fromkeys(bi.KERNELS, 0)}
+    expected_waves = {"binned": cfg.max_depth, "unbinned": 1}
     emit({"phase": "bench", "scene": "mesh100k", "res": 256, "spp": spp,
           "max_depth": cfg.max_depth, "grid": MESH_GRID, "render_seconds": times,
           "camera_rays_per_sec": meta.xres * meta.yres * spp / statistics.median(times),
           "launches_per_render": launches, "expected_launches": expected,
+          "bvh4_closest_by_wave": waves, "expected_by_wave": expected_waves,
           "host_build_seconds": build_s, "image_mean": float(img.mean()),
           "isfinite": bool(np.isfinite(img).all()),
           "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
           "held_before_render_bytes": held, "seconds": time.perf_counter() - t0})
     check(all(n == expected for n in launches),
           f"traversal kernels launched {launches} per render, want {expected}")
+    check(all(w == expected_waves for w in waves),
+          f"bvh4_closest took waves {waves} per render, want {expected_waves}")
     check(np.isfinite(img).all() and img.shape == (256, 256, 3) and img.mean() > 0.0,
           "bench image is not finite and positive")
 
@@ -620,45 +611,38 @@ def mesh_phases(dev, gpu):
               "bytes": bytes_moved, "operations": ops, "bytes_ms": t_bytes,
               "operations_ms": t_ops, "gpu": gpu})
         entries.append({
-            "name": f"bvh_stream_{name}", "route": "cuda", "source": STREAM_SOURCE,
+            "name": f"bvh_stream_{name}", "case": r["case"], "route": "cuda",
+            "source": STREAM_SOURCE,
             "replaces": STREAM_REPLACES[kind], "launches": launches[0][name],
             "max_abs_err": max(r["errs"].values()), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
             "library_ms": None})
     # each 4-wide kernel in turns with the kernel it replaces (old, new,
-    # new, old); on the camera wave the warp-coherent kernel, the per-ray
-    # 4-wide kernel and skip (skip, coherent, per-ray, per-ray, coherent,
-    # skip). Its bound counts the per-ray 4-wide walk on these rays: the ray
-    # bytes and the 4-wide tables once, 26 operations a slab test and 55 a
-    # triangle test (for the coherent kernel not the extra lane tests of the
-    # warp). The bound of the replaced kernel's walk on these rays (the
-    # record table, the records it visits) is printed beside it as
-    # bound_ms_record_walk.
+    # new, old) on each wave; its bound counts its own walk on these rays:
+    # the ray bytes and the 4-wide tables once, 26 operations a slab test
+    # and 55 a triangle test. The bound of the replaced kernel's walk on
+    # these rays (the record table, the records it visits) is printed beside
+    # it as bound_ms_record_walk.
     table4_bytes = (nodes.numel() + tris4.numel()) * 4
-    for name, old in BVH4_REPLACES.items():
+    for name, old, wave in BVH4_REPLACES:
         any_hit = name == "bvh4_any_hit"
         r = results[old]
         args = r["args"]
         old_kind = _kind(old)[0]
         runs = {"old": lambda: bs.stream_traverse(table, *args, any_hit=any_hit,
                                                   kind=old_kind, depth=depth),
-                "new": lambda: bvh4_run(name, nodes, tris4, args, stack)}
-        order = ("old", "new", "new", "old")
-        if name == "bvh4_coherent":
-            runs["per_ray"] = lambda: b4.bvh4_traverse(nodes, tris4, *args, stack=stack)
-            order = ("old", "new", "per_ray", "per_ray", "new", "old")
+                "new": lambda: b4.bvh4_traverse(nodes, tris4, *args, any_hit=any_hit,
+                                                stack=stack)}
         turns = {k: [] for k in runs}
         with torch.no_grad():
-            for who in order:
+            for who in ("old", "new", "new", "old"):
                 turns[who].append(cuda_ms(runs[who], 20))
-            plain_ms = cuda_ms(lambda: bvh4_plain(name, nodes, tris4, args, stack), 1,
-                               warmup=0)
+            plain_ms = cuda_ms(lambda: b4.bvh4_traverse_plain(
+                nodes, tris4, *args, any_hit=any_hit, stack=stack), 1, warmup=0)
         ms = statistics.mean(turns["new"])
-        n_node, n_test, n_tri4 = results4[name]["counts"]
-        b_node, b_test, b_tri = results4[name].get("per_ray_counts",
-                                                   results4[name]["counts"])
-        ops = OPS_PER_BOX * b_test + OPS_PER_PAIR * b_tri
+        n_node, n_test, n_tri4 = results4[old]["counts"]
+        ops = OPS_PER_BOX * n_test + OPS_PER_PAIR * n_tri4
         bytes_moved = N_RAYS * RAY_BYTES + table4_bytes
         t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_FP32_OPS * 1e3
         n_box, n_tri = r["visits"]
@@ -666,18 +650,19 @@ def mesh_phases(dev, gpu):
                         (OPS_PER_BOX * n_box + OPS_PER_PAIR * n_tri) / PEAK_FP32_OPS) * 1e3
         emit({"phase": "kernel_time", "kernel": name, "case": r["case"], "rays": N_RAYS,
               "live_rays": r["live"], "ms": ms, "ms_turns": turns, "plain_ms": plain_ms,
-              "fill_blocks": b4.fill_blocks(dev.index, any_hit, stack,
-                                            coherent=name == "bvh4_coherent"),
+              "fill_blocks": b4.fill_blocks(dev.index, any_hit, stack),
               "node_fetches": n_node, "box_tests": n_test, "tri_tests": n_tri4,
-              "bound_node_fetches": b_node, "bound_box_tests": b_test,
-              "bound_tri_tests": b_tri, "bytes": bytes_moved, "operations": ops,
-              "bytes_ms": t_bytes, "operations_ms": t_ops, "replaced": f"bvh_stream_{old}",
+              "bytes_read": n_node * NODE_BYTES + n_tri4 * TRI_BYTES,
+              "bytes": bytes_moved, "operations": ops, "bytes_ms": t_bytes,
+              "operations_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
+              "replaced": f"bvh_stream_{old}", "replaced_ms": statistics.mean(turns["old"]),
               "replaced_box_visits": n_box, "replaced_tri_visits": n_tri,
               "bound_ms_record_walk": rec_bound, "gpu": gpu})
         entries.append({
-            "name": name, "route": "cuda", "source": BVH4_SOURCES[name],
-            "replaces": STREAM_REPLACES[old_kind], "launches": launches[0][name],
-            "max_abs_err": max(results4[name]["errs"].values()), "ms": ms,
+            "name": name, "case": r["case"], "route": "cuda", "source": BVH4_SOURCE,
+            "replaces": STREAM_REPLACES[old_kind],
+            "launches": waves[0][wave] if wave else launches[0][name],
+            "max_abs_err": max(results4[old]["errs"].values()), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
             "bound_ms_record_walk": rec_bound, "library_ms": None})

@@ -1,13 +1,12 @@
 """4-wide BVH traversal: the node and triangle tables, the CUDA kernels in
-csrc/bvh4.cu (a walk a ray) and csrc/bvh4_coherent.cu (a walk a warp), and
-their plain PyTorch versions.
+csrc/bvh4.cu and their plain PyTorch version.
 
 On the main path these replace the TPU kernels of grail/kernels/bvh_stream.py
 `_make_kernel(False)` (ordered closest hit, every binned closest-hit wave),
-`_make_skip_kernel(True)` (skip-link any hit, every shadow wave) and
 `_make_skip_kernel(False)` (skip-link closest hit, the tile-ordered camera
-wave, now the warp-coherent walk); the notes in the CUDA sources say what
-bounds them on the H100 and what the designs do about it.
+wave) and `_make_skip_kernel(True)` (skip-link any hit, every shadow wave);
+the note in the CUDA source says what bounds them on the H100 and what the
+design does about it.
 
 Tables, built on the host from the binary SAH tree (native.collapse_bvh4):
   nodes (N4, 32) float32, 128 B a node, SoA over 4 slots: lo.x lo.y lo.z
@@ -26,18 +25,9 @@ first triangle is ~ref. A node's hit children are taken near first, sorted
 on (entry distance, slot), so ties go in slot order; the nearest is the next
 item and the others are pushed farthest first. A leaf's triangles are tested
 in order up to the one without `more`. An exhausted item pops the stack; an
-empty stack ends the walk, and so does any hit's first hit.
-
-The walk a warp (closest hit): `group` consecutive rays walk as one, with one
-stack of (ref, lane mask) entries. At a node each lane of the mask tests the
-4 boxes with its own t_best; the children some lane hit are taken near
-first in the order of the mask's lowest lane (its hits sorted as above, its
-misses last, ties in slot order), each with the mask of the lanes that hit
-it. At a leaf each lane of the mask tests the triangles. One ray a group
-walks as a ray walks alone.
-
-`bvh4_traverse` and `bvh4_coherent` take the plain version only for tensors
-that lie on the CPU; for CUDA tensors they launch the kernel or raise.
+empty stack ends the walk, and so does any hit's first hit. `bvh4_traverse`
+takes the plain version only for tensors that lie on the CPU; for CUDA
+tensors it launches the kernel or raises.
 """
 from __future__ import annotations
 
@@ -54,12 +44,11 @@ WIDTH = 4
 NODE_WORDS = 32
 TRI_WORDS = 12
 STACK_MAX = 64      # csrc kStackMax: 64 ints x 128 threads = 32 KB a block
-WARP = 32           # rays that walk as one in the warp-coherent kernel
 BIG_T = 3.0e37
 # the sorting network on (entry distance, slot) pairs, as in the kernel
 _NETWORK = ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2))
 
-KERNELS = ("bvh4_closest", "bvh4_any_hit", "bvh4_coherent")
+KERNELS = ("bvh4_closest", "bvh4_any_hit")
 
 # Launches of each CUDA kernel in this process (plain-version calls excluded).
 LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -94,57 +83,6 @@ def _inv_dir(d):
     """1/d with |d| clamped at 1e-20 (the reference's slab-test inverse)."""
     return 1.0 / torch.where(torch.abs(d) < 1e-20,
                              torch.where(d < 0, -1e-20, 1e-20), d)
-
-
-def _slab(box, o, inv, t_min, t_best):
-    """The kernel's slab test of each ray (..., 3) against the 4 boxes of
-    its node, box (..., 6, 4) [lo.xyz | hi.xyz] by slot. Returns the entry
-    distances and the hits, (..., 4) each."""
-    oo, ii = o[..., None], inv[..., None]
-    t0 = (box[..., 0:3, :] - oo) * ii
-    t1 = (box[..., 3:6, :] - oo) * ii
-    lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
-    near = torch.maximum(torch.maximum(lo[..., 0, :], lo[..., 1, :]), lo[..., 2, :])
-    far = (torch.minimum(torch.minimum(hi[..., 0, :], hi[..., 1, :]), hi[..., 2, :])
-           * 1.0000004)
-    return near, (near <= far) & (far > t_min[..., None]) & (near < t_best[..., None])
-
-
-def _near_first(near, hit, slots):
-    """Slots in visit order, a list of 4 (...,) tensors: the pairs (entry
-    distance, slot) sorted by the kernel's network, misses last."""
-    key = list(torch.where(hit, near, torch.inf).unbind(-1))
-    slot = list(slots.expand(hit.shape).unbind(-1))
-    for a, b in _NETWORK:
-        swap = (key[b] < key[a]) | ((key[b] == key[a]) & (slot[b] < slot[a]))
-        key[a], key[b] = torch.where(swap, key[b], key[a]), torch.where(swap, key[a], key[b])
-        slot[a], slot[b] = (torch.where(swap, slot[b], slot[a]),
-                            torch.where(swap, slot[a], slot[b]))
-    return slot
-
-
-def _moller_trumbore(v, o, d, t_min, t_best):
-    """The kernel's Möller-Trumbore: v the 12 words of a triangle row, o and
-    d the ray components, each broadcastable. Returns (hit, t, b1, b2)."""
-    ox, oy, oz = o
-    dx, dy, dz = d
-    s1x = dy * v[10] - dz * v[9]
-    s1y = dz * v[8] - dx * v[10]
-    s1z = dx * v[9] - dy * v[8]
-    divisor = s1x * v[4] + s1y * v[5] + s1z * v[6]
-    dinv = 1.0 / torch.where(divisor == 0.0, 1.0, divisor)
-    sx = ox - v[0]
-    sy = oy - v[1]
-    sz = oz - v[2]
-    b1 = (sx * s1x + sy * s1y + sz * s1z) * dinv
-    s2x = sy * v[6] - sz * v[5]
-    s2y = sz * v[4] - sx * v[6]
-    s2z = sx * v[5] - sy * v[4]
-    b2 = (dx * s2x + dy * s2y + dz * s2z) * dinv
-    t = (v[8] * s2x + v[9] * s2y + v[10] * s2z) * dinv
-    hit = ((divisor != 0.0) & (b1 >= 0.0) & (b1 <= 1.0) & (b2 >= 0.0)
-           & (b1 + b2 <= 1.0) & (t > t_min) & (t < t_best))
-    return hit, t, b1, b2
 
 
 def bvh4_traverse_plain(nodes, tris, o, d, tmin, tmax, any_hit=False, *, stack):
@@ -183,13 +121,28 @@ def bvh4_traverse_plain(nodes, tris, o, d, tmin, tmax, any_hit=False, *, stack):
         ref, sp = st["ref"], st["sp"]
         is_node = ref >= 0
         t_min, t_best = st["tmin"], st["t"]
+        ox, oy, oz = st["o"].unbind(-1)
+        dx, dy, dz = st["d"].unbind(-1)
 
         # node view: 4 slab tests, hit children sorted on (near, slot)
         nid = torch.where(is_node, ref, 0)
-        near, hit = _slab(nodes[nid, :6 * WIDTH].reshape(m, 6, WIDTH), st["o"],
-                          st["inv"], t_min, t_best)
+        box = nodes[nid, :6 * WIDTH].reshape(m, 6, WIDTH)
+        oo = st["o"][:, :, None]
+        inv = st["inv"][:, :, None]
+        t0 = (box[:, 0:3] - oo) * inv
+        t1 = (box[:, 3:6] - oo) * inv
+        lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+        near = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]), lo[:, 2])
+        far = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), hi[:, 2]) * 1.0000004
+        hit = (near <= far) & (far > t_min[:, None]) & (near < t_best[:, None])
         hits = hit.sum(1)
-        slot = _near_first(near, hit, slots)
+        key = list(torch.where(hit, near, torch.inf).unbind(1))
+        slot = list(slots.expand(m, WIDTH).unbind(1))
+        for a, b in _NETWORK:
+            swap = (key[b] < key[a]) | ((key[b] == key[a]) & (slot[b] < slot[a]))
+            key[a], key[b] = torch.where(swap, key[b], key[a]), torch.where(swap, key[a], key[b])
+            slot[a], slot[b] = (torch.where(swap, slot[b], slot[a]),
+                                torch.where(swap, slot[a], slot[b]))
         child = node_int[nid, 6 * WIDTH:7 * WIDTH].to(torch.int64)
         push = is_node & (hits > 1)
         top = sp + torch.where(push, hits - 1, 0)
@@ -204,9 +157,23 @@ def bvh4_traverse_plain(nodes, tris, o, d, tmin, tmax, any_hit=False, *, stack):
 
         # triangle view: Möller-Trumbore on the leaf's next triangle
         tid = torch.where(is_node, 0, ~ref)
-        hit_t, t, b1, b2 = _moller_trumbore(tris[tid].unbind(-1), st["o"].unbind(-1),
-                                            st["d"].unbind(-1), t_min, t_best)
-        upd = hit_t & ~is_node
+        v = tris[tid].unbind(-1)
+        s1x = dy * v[10] - dz * v[9]
+        s1y = dz * v[8] - dx * v[10]
+        s1z = dx * v[9] - dy * v[8]
+        divisor = s1x * v[4] + s1y * v[5] + s1z * v[6]
+        dinv = 1.0 / torch.where(divisor == 0.0, 1.0, divisor)
+        sx = ox - v[0]
+        sy = oy - v[1]
+        sz = oz - v[2]
+        b1 = (sx * s1x + sy * s1y + sz * s1z) * dinv
+        s2x = sy * v[6] - sz * v[5]
+        s2y = sz * v[4] - sx * v[6]
+        s2z = sx * v[5] - sy * v[4]
+        b2 = (dx * s2x + dy * s2y + dz * s2z) * dinv
+        t = (v[8] * s2x + v[9] * s2y + v[10] * s2z) * dinv
+        upd = ((divisor != 0.0) & (b1 >= 0.0) & (b1 <= 1.0) & (b2 >= 0.0)
+               & (b1 + b2 <= 1.0) & (t > t_min) & (t < t_best) & ~is_node)
         st["t"] = torch.where(upd, -BIG_T if any_hit else t, t_best)
         st["prim"] = torch.where(upd, tri_int[tid, 3], st["prim"])
         st["b1"] = torch.where(upd, b1, st["b1"])
@@ -236,114 +203,6 @@ def bvh4_traverse_plain(nodes, tris, o, d, tmin, tmax, any_hit=False, *, stack):
     return t_out, prim_out, b1_out, b2_out, node_out, WIDTH * node_out, tri_out
 
 
-def bvh4_coherent_plain(nodes, tris, o, d, tmin, tmax, *, stack, group=WARP):
-    """The warp-coherent kernel's walk: groups of `group` consecutive rays
-    (the last one padded with inactive lanes) walk in lockstep, one item a
-    group a step (a node, or one triangle of a leaf, for the lanes of the
-    item's mask), vectorized over the groups still walking. Raises if a walk
-    needs more than `stack` entries. With group=1 it is bvh4_traverse_plain's
-    closest hit, bit for bit.
-
-    Returns (t, prim, b1, b2, n_node, n_box_test, n_tri): n_node (int64,
-    one a group) counts the group's node fetches; n_box_test and n_tri
-    (int64, one a ray) the slab and triangle tests of each ray."""
-    dev = o.device
-    n = o.shape[0]
-    g = -(-n // group)
-    pad = g * group - n
-
-    def lanes(x, fill):
-        return torch.cat([x, x.new_full((pad,) + x.shape[1:], fill)]).reshape(
-            g, group, *x.shape[1:])
-
-    o_l, d_l, tmin_l = lanes(o, 0.0), lanes(d, 1.0), lanes(tmin, 0.0)
-    inv_l = _inv_dir(d_l)
-    t_l = lanes(tmax, 0.0)
-    prim_l = torch.full((g, group), -1, dtype=torch.int32, device=dev)
-    b1_l = torch.zeros((g, group), dtype=torch.float32, device=dev)
-    b2_l = torch.zeros_like(b1_l)
-    n_box = torch.zeros((g, group), dtype=torch.int64, device=dev)
-    n_tri = torch.zeros_like(n_box)
-    n_node = torch.zeros(g, dtype=torch.int64, device=dev)
-    ref = torch.zeros(g, dtype=torch.int64, device=dev)
-    sp = torch.zeros_like(ref)
-    mask = lanes(torch.ones(n, dtype=torch.bool, device=dev), False)
-    depth = max(stack, 1)
-    st_ref = torch.zeros((g, depth), dtype=torch.int64, device=dev)
-    st_mask = torch.zeros((g, depth, group), dtype=torch.bool, device=dev)
-    node_int = nodes.view(torch.int32)
-    tri_int = tris.view(torch.int32)
-    slots = torch.arange(WIDTH, device=dev)
-    gid = torch.arange(g, device=dev)
-
-    while gid.numel():
-        m = gid.numel()
-        rows = torch.arange(m, device=dev)
-        r, s, msk = ref[gid], sp[gid], mask[gid]
-        is_node = r >= 0
-        o_g, tmin_g, t_best = o_l[gid], tmin_l[gid], t_l[gid]
-
-        # node view: each lane's 4 slab tests; the children some lane hit,
-        # in the order of the mask's lowest lane
-        nid = torch.where(is_node, r, 0)
-        near, hit = _slab(nodes[nid, :6 * WIDTH].reshape(m, 1, 6, WIDTH), o_g,
-                          inv_l[gid], tmin_g, t_best)
-        hit &= (msk & is_node[:, None])[..., None]                 # (m, group, 4)
-        used = hit.any(1)                                          # (m, 4)
-        leader = msk.to(torch.uint8).argmax(1)                     # lowest lane
-        slot = _near_first(near[rows, leader], hit[rows, leader], slots)
-        child = node_int[nid, 6 * WIDTH:7 * WIDTH].to(torch.int64)
-        top = s + (used.sum(1) - 1).clamp_min(0)
-        if bool((top > stack).any()):
-            raise ValueError(f"a walk needs {int(top.max())} stack entries, "
-                             f"more than the {stack} given")
-        # farthest first: each child found pushes the one found before it
-        pending = torch.zeros(m, dtype=torch.bool, device=dev)
-        p_ref, p_mask = r, msk
-        for j in (3, 2, 1, 0):
-            on = used[rows, slot[j]]
-            push = rows[on & pending]
-            st_ref[gid[push], s[push]] = p_ref[push]
-            st_mask[gid[push], s[push]] = p_mask[push]
-            s = s + (on & pending).to(torch.int64)
-            p_ref = torch.where(on, child[rows, slot[j]], p_ref)
-            p_mask = torch.where(on[:, None], hit[rows, :, slot[j]], p_mask)
-            pending |= on
-
-        # triangle view: the leaf's next triangle for the lanes of the mask
-        tid = torch.where(is_node, 0, ~r)
-        upd, t, b1, b2 = _moller_trumbore(tris[tid][:, None, :].unbind(-1),
-                                          o_g.unbind(-1), d_l[gid].unbind(-1),
-                                          tmin_g, t_best)
-        at_leaf = msk & ~is_node[:, None]
-        upd &= at_leaf
-        t_l[gid] = torch.where(upd, t, t_best)
-        prim_l[gid] = torch.where(upd, tri_int[tid, 3][:, None], prim_l[gid])
-        b1_l[gid] = torch.where(upd, b1, b1_l[gid])
-        b2_l[gid] = torch.where(upd, b2, b2_l[gid])
-        n_node[gid] += is_node.to(torch.int64)
-        n_box[gid] += WIDTH * (msk & is_node[:, None]).to(torch.int64)
-        n_tri[gid] += at_leaf.to(torch.int64)
-
-        # next item: the nearest child some lane hit, the leaf's next
-        # triangle, or a pop
-        more = ~is_node & ((tri_int[tid, 11] & 1) > 0)
-        pop = ~pending & ~more
-        below = (s - 1).clamp_min(0)
-        ref[gid] = torch.where(pending, p_ref,
-                               torch.where(more, r - 1, st_ref[gid, below]))
-        mask[gid] = torch.where(pending[:, None], p_mask,
-                                torch.where(more[:, None], msk, st_mask[gid, below]))
-        sp[gid] = torch.where(pop, below, s)
-        gid = gid[~(pop & (s == 0))]
-
-    def rays(x):
-        return x.reshape(-1)[:n]
-
-    return (rays(t_l), rays(prim_l), rays(b1_l), rays(b2_l), n_node, rays(n_box),
-            rays(n_tri))
-
-
 # --------------------------------------------------------------------------
 # CUDA kernels
 # --------------------------------------------------------------------------
@@ -361,27 +220,14 @@ def _library():
     return lib
 
 
-def _coherent_library():
-    lib = build.load("bvh4_coherent")
-    lib.grail_bvh4_coherent.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 3
-                                        + [ctypes.c_void_p, ctypes.c_void_p])
-    lib.grail_bvh4_coherent.restype = ctypes.c_int
-    lib.grail_bvh4_coherent_fill_blocks.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.grail_bvh4_coherent_fill_blocks.restype = ctypes.c_int
-    return lib
-
-
 @functools.lru_cache(maxsize=None)
-def fill_blocks(device_index, any_hit, stack, coherent=False):
+def fill_blocks(device_index, any_hit, stack):
     """Blocks that fill the card at once: SMs x resident blocks of the
-    per-ray kernel with this stack depth, or of the warp-coherent kernel."""
+    kernel with this stack depth."""
     blocks = ctypes.c_int(0)
     with torch.cuda.device(device_index):
-        if coherent:
-            err = _coherent_library().grail_bvh4_coherent_fill_blocks(ctypes.byref(blocks))
-        else:
-            err = _library().grail_bvh4_fill_blocks(int(any_hit), max(stack, 1),
-                                                    ctypes.byref(blocks))
+        err = _library().grail_bvh4_fill_blocks(int(any_hit), max(stack, 1),
+                                                ctypes.byref(blocks))
     if err != 0 or blocks.value < 1:
         raise RuntimeError(f"bvh4 occupancy query failed (CUDA error {err})")
     return blocks.value
@@ -400,25 +246,14 @@ def _check(nodes, tris, o, d, tmin, tmax):
         raise ValueError("ray batch too large for one launch")
 
 
-def _outputs(o):
-    n = o.shape[0]
-    t = torch.empty(n, dtype=torch.float32, device=o.device)
-    return (t, torch.empty(n, dtype=torch.int32, device=o.device),
-            torch.empty_like(t), torch.empty_like(t))
-
-
-def _check_stack(stack):
-    if not 0 <= stack <= STACK_MAX:
-        raise ValueError(f"the tree's stack bound {stack} does not fit the "
-                         f"kernel's {STACK_MAX}-entry stack")
-
-
 def bvh4_traverse(nodes, tris, o, d, tmin, tmax, any_hit=False, *, stack):
     """Closest hit (or any hit) of each ray through the 4-wide tables.
     stack: the tables' stack bound (build_bvh4_tables), at most STACK_MAX.
     Returns (t, prim, b1, b2) as bvh4_traverse_plain. On the card, one
     launch of fill_blocks blocks of persistent warps."""
-    _check_stack(stack)
+    if not 0 <= stack <= STACK_MAX:
+        raise ValueError(f"the tree's stack bound {stack} does not fit the "
+                         f"kernel's {STACK_MAX}-entry stack")
     if o.device.type == "cpu":
         return bvh4_traverse_plain(nodes, tris, o, d, tmin, tmax, any_hit,
                                    stack=stack)[:4]
@@ -426,7 +261,10 @@ def bvh4_traverse(nodes, tris, o, d, tmin, tmax, any_hit=False, *, stack):
         raise ValueError(f"bvh4_traverse runs on cuda or cpu, not {o.device}")
     _check(nodes, tris, o, d, tmin, tmax)
     n = o.shape[0]
-    t, prim, b1, b2 = _outputs(o)
+    t = torch.empty(n, dtype=torch.float32, device=o.device)
+    prim = torch.empty(n, dtype=torch.int32, device=o.device)
+    b1 = torch.empty_like(t)
+    b2 = torch.empty_like(t)
     if n == 0:
         return t, prim, b1, b2
     blocks = fill_blocks(o.device.index, any_hit, stack)
@@ -442,36 +280,4 @@ def bvh4_traverse(nodes, tris, o, d, tmin, tmax, any_hit=False, *, stack):
     if err != 0:
         raise RuntimeError(f"bvh4 kernel launch failed (CUDA error {err})")
     LAUNCHES[KERNELS[int(any_hit)]] += 1
-    return t, prim, b1, b2
-
-
-def bvh4_coherent(nodes, tris, o, d, tmin, tmax, *, stack):
-    """Closest hit of each ray through the 4-wide tables, WARP consecutive
-    rays walking as one (for tile-ordered waves). stack: the tables' stack
-    bound, which also bounds the warp's stack, at most STACK_MAX. Returns
-    (t, prim, b1, b2) as bvh4_coherent_plain. On the card, one launch of
-    persistent warps that fill it."""
-    _check_stack(stack)
-    if o.device.type == "cpu":
-        return bvh4_coherent_plain(nodes, tris, o, d, tmin, tmax, stack=stack)[:4]
-    if o.device.type != "cuda":
-        raise ValueError(f"bvh4_coherent runs on cuda or cpu, not {o.device}")
-    _check(nodes, tris, o, d, tmin, tmax)
-    n = o.shape[0]
-    t, prim, b1, b2 = _outputs(o)
-    if n == 0:
-        return t, prim, b1, b2
-    blocks = fill_blocks(o.device.index, False, stack, coherent=True)
-    counter = torch.zeros(1, dtype=torch.int32, device=o.device)
-    lib = _coherent_library()
-    with torch.cuda.device(o.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.grail_bvh4_coherent(nodes.data_ptr(), tris.data_ptr(), o.data_ptr(),
-                                      d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
-                                      t.data_ptr(), prim.data_ptr(), b1.data_ptr(),
-                                      b2.data_ptr(), n, max(stack, 1), blocks,
-                                      counter.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"bvh4_coherent kernel launch failed (CUDA error {err})")
-    LAUNCHES["bvh4_coherent"] += 1
     return t, prim, b1, b2

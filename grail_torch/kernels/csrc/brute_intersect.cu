@@ -9,7 +9,7 @@
 // index wins ties. A miss writes t = tmax, prim = -1, b1 = b2 = 0. The
 // any-hit variant stops at the first hit in index order (occluded =
 // prim >= 0). A lane with tmax <= tmin (the integrator's dead-lane mask)
-// cannot hit and skips the loop.
+// cannot hit.
 //
 // What bounds it on the H100: issue. The work is ~55 FP32 operations per
 // ray-triangle pair against 48 bytes of ray I/O per ray (36 triangles, 1M
@@ -19,33 +19,34 @@
 // instruction, so the ceiling is the FP32 issue rate (132 SMs x 128 lanes a
 // clock), not the FMA rate that the operations bound divides by. Every
 // instruction a pair does not issue is time saved. The design:
-//   - A 48-byte triangle row, float4 v0|-, e1|-, e2|- (the wrapper pads the
-//     (T,9) table on the device; the fourth words are never read), staged in
-//     shared memory: a lane reads a triangle as 3 aligned 16-byte broadcasts.
+//   - A 48-byte triangle row in shared memory, float4 v0|0, e1|0, e2|0: a
+//     lane reads a triangle as 3 aligned 16-byte broadcasts. The block pads
+//     the (T,9) rows as it stages them (the fourth words are never read), so
+//     the padding costs no launch and no host time: a pad in the wrapper
+//     made the wrapper's host time, not the kernel, set the launch rate.
 //   - kRays rays a thread: one triangle's 3 loads and the loop's bookkeeping
-//     serve kRays rays. Fixed at 2 by measurement on the H100 (4 was no
-//     faster: PERF.md).
-//   - A pair stops as soon as the reference would reject it. The hit
-//     predicate is a conjunction, so a pair whose b1 fails skips s2, b2 and
-//     t, and one whose b2 fails skips t. Two tests run before the IEEE
-//     division, on num1 = s . s1 and the divisor (b1 = num1 * (1/divisor)):
-//       * |num1| > RN(|divisor| * 1.0001) rejects: then |b1| > 1. The two
-//         roundings of b1 (reciprocal, product) and the one of the bound
-//         each err by at most 2^-22 relatively, also where 1/divisor is
-//         subnormal (divisor >= 2^126: 2^-149 / 2^-128) or the divisor is
-//         subnormal (then 1/divisor > 2^126 or overflows to inf, and |b1| is
-//         inf or far above 1); 1.0001 leaves a margin of 2^-13. A NaN
-//         compares false and is not rejected; an infinite divisor makes the
-//         bound inf and nothing is rejected.
-//       * opposite signs of num1 and divisor with |num1| * 2^64 > that bound
-//         reject: then b1 < 0 strictly. The product num1 * (1/divisor) is at
-//         least 2^-65 in magnitude, far from underflowing to -0.0 (which
-//         the reference accepts, as -0.0 >= 0.0). Strict > keeps an
-//         infinite divisor (1/divisor = -0.0 or +0.0) out.
-//     A surviving pair computes every value with the reference's expressions
-//     in the reference's order, so it keeps its bits. divisor == 0 is the
-//     reference's first conjunct and rejects at once; past it, the
-//     reference's 1 / (divisor == 0 ? 1 : divisor) is 1 / divisor.
+//     serve kRays rays. Fixed at 2 by measurement on the H100 (4 was slower
+//     on every wave: PERF.md).
+//   - The loop runs while one ray of the warp can still hit. A closest-hit
+//     ray that cannot (t_best <= t_min: a dead lane, or past the end of the
+//     wave) is evaluated with the others rather than tested for: no pair
+//     passes t_min < t < t_best, so it keeps its miss.
+//   - A warp skips the rest of a triangle as soon as the reference rejects
+//     it for every lane. The hit predicate is a conjunction of tests on b1,
+//     b2 and t in that order, so where no lane passes the b1 test the warp
+//     skips s2, b2 and t, and where none passes the b2 tests it skips t.
+//     The skips are warp votes (__any_sync), so the warp never splits: where
+//     one lane goes on, every lane computes the next values and its part of
+//     the predicate, branch free, as the first CUDA kernel did everywhere.
+//     Coherent waves (the camera wave) skip most pairs early; on incoherent
+//     waves, whose lanes disagree, the votes cost 4 instructions a pair.
+//     Measured and dropped (PERF.md): letting each lane stop on its own
+//     (slower than the first kernel on incoherent waves: the warp runs
+//     every path plus the branching), and a test ahead of the IEEE division
+//     that rejects only what the reference rejects (its SASS was as long as
+//     the division it skips).
+//     A pair computes every value with the reference's expressions in the
+//     reference's order, so it keeps its bits.
 // Built with --fmad=false and IEEE division: the result equals the plain
 // PyTorch version (brute_intersect.py) bit for bit.
 #include <cuda_runtime.h>
@@ -55,26 +56,18 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kRays = 2;                       // rays a thread
 constexpr int kRaysPerBlock = kThreads * kRays;
-
-// true only for pairs the reference rejects: divisor == 0, or b1 outside
-// [0, 1] (see the note above)
-__device__ __forceinline__ bool rejected_early(float divisor, float num1) {
-  if (divisor == 0.0f) return true;
-  const float bound = fabsf(divisor) * 1.0001f;
-  const float a = fabsf(num1);
-  if (a > bound) return true;
-  return ((__float_as_int(num1) ^ __float_as_int(divisor)) < 0) && (a * 0x1p64f > bound);
-}
+constexpr unsigned kAll = 0xffffffffu;
 
 template <bool kAnyHit>
 __global__ void __launch_bounds__(kThreads) brute_intersect_kernel(
-    const float4* __restrict__ tris, int n_tris,
+    const float* __restrict__ tris, int n_tris,
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ tmin, const float* __restrict__ tmax,
     float* __restrict__ t_out, int* __restrict__ prim_out,
     float* __restrict__ b1_out, float* __restrict__ b2_out, int n) {
   extern __shared__ float4 s_tris[];
-  for (int i = threadIdx.x; i < 3 * n_tris; i += kThreads) s_tris[i] = tris[i];
+  for (int i = threadIdx.x; i < 3 * n_tris; i += kThreads)
+    s_tris[i] = make_float4(tris[3 * i], tris[3 * i + 1], tris[3 * i + 2], 0.0f);
   __syncthreads();
 
   const int first = blockIdx.x * kRaysPerBlock + threadIdx.x;
@@ -101,38 +94,47 @@ __global__ void __launch_bounds__(kThreads) brute_intersect_kernel(
 #pragma unroll
   for (int j = 0; j < kRays; ++j) any = any || live[j];
 
+  // Every lane of the warp runs the loop (the block has no lanes past its
+  // end), so the votes below see the whole warp.
 #pragma unroll 1
-  for (int k = 0; any && k < n_tris; ++k) {
+  for (int k = 0; k < n_tris && __any_sync(kAll, any); ++k) {
     const float4 v0 = s_tris[3 * k], e1 = s_tris[3 * k + 1], e2 = s_tris[3 * k + 2];
 #pragma unroll
     for (int j = 0; j < kRays; ++j) {
-      if (!live[j]) continue;
       // s1 = d x e2
       const float s1x = dy[j] * e2.z - dz[j] * e2.y;
       const float s1y = dz[j] * e2.x - dx[j] * e2.z;
       const float s1z = dx[j] * e2.y - dy[j] * e2.x;
       const float divisor = s1x * e1.x + s1y * e1.y + s1z * e1.z;
+      const float inv = 1.0f / (divisor == 0.0f ? 1.0f : divisor);
       const float sx = ox[j] - v0.x;
       const float sy = oy[j] - v0.y;
       const float sz = oz[j] - v0.z;
-      const float num1 = sx * s1x + sy * s1y + sz * s1z;
-      if (rejected_early(divisor, num1)) continue;
-      const float inv = 1.0f / divisor;
-      const float b1 = num1 * inv;
-      if (!((b1 >= 0.0f) && (b1 <= 1.0f))) continue;
+      const float b1 = (sx * s1x + sy * s1y + sz * s1z) * inv;
+      // a closest-hit ray with t_best <= t_min (dead, or past the end) can
+      // pass no t test, so only an any-hit ray's liveness is tested. Testing
+      // it for closest hit too, so that a dead lane votes for no later
+      // stage, measured slower on every Cornell wave, also on one with half
+      // its lanes dead at random (1-9%; PERF.md): its SASS loop grew by 12
+      // instructions
+      const bool on_b1 = (!kAnyHit || live[j]) & (divisor != 0.0f) & (b1 >= 0.0f) &
+                         (b1 <= 1.0f);
+      if (!__any_sync(kAll, on_b1)) continue;
       // s2 = s x e1
       const float s2x = sy * e1.z - sz * e1.y;
       const float s2y = sz * e1.x - sx * e1.z;
       const float s2z = sx * e1.y - sy * e1.x;
       const float b2 = (dx[j] * s2x + dy[j] * s2y + dz[j] * s2z) * inv;
-      if (!((b2 >= 0.0f) && (b1 + b2 <= 1.0f))) continue;
+      const bool on_b2 = on_b1 & (b2 >= 0.0f) & (b1 + b2 <= 1.0f);
+      if (!__any_sync(kAll, on_b2)) continue;
       const float t = (e2.x * s2x + e2.y * s2y + e2.z * s2z) * inv;
-      if (!((t > t_min[j]) && (t < t_best[j]))) continue;
-      t_best[j] = t;
-      prim_best[j] = k;
-      b1_best[j] = b1;
-      b2_best[j] = b2;
-      if (kAnyHit) live[j] = false;
+      if (on_b2 & (t > t_min[j]) & (t < t_best[j])) {
+        t_best[j] = t;
+        prim_best[j] = k;
+        b1_best[j] = b1;
+        b2_best[j] = b2;
+        if (kAnyHit) live[j] = false;
+      }
     }
     if (kAnyHit) {
       any = false;
@@ -155,9 +157,9 @@ __global__ void __launch_bounds__(kThreads) brute_intersect_kernel(
 }  // namespace
 
 // Launches on `stream`; returns cudaGetLastError() (0 on success). tris is
-// the (T,12) float4 table [v0|-, e1|-, e2|-], 16-byte aligned. The caller
-// checks shapes, types, devices, alignment and n_tris <= 1024 (48 KB of
-// shared memory, the most a block may take without opting in).
+// the (T,9) table [v0|e1|e2]. The caller checks shapes, types, devices and
+// n_tris <= 1024 (48 KB of shared memory in 48-byte rows, the most a block
+// may take without opting in).
 extern "C" int grail_brute_intersect(const float* tris, int n_tris,
                                      const float* o, const float* d,
                                      const float* tmin, const float* tmax,
@@ -167,14 +169,13 @@ extern "C" int grail_brute_intersect(const float* tris, int n_tris,
   if (n <= 0) return 0;
   const dim3 grid((n + kRaysPerBlock - 1) / kRaysPerBlock);
   const size_t smem = sizeof(float4) * 3 * static_cast<size_t>(n_tris);
-  const float4* tr = reinterpret_cast<const float4*>(tris);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (any_hit) {
     brute_intersect_kernel<true><<<grid, kThreads, smem, s>>>(
-        tr, n_tris, o, d, tmin, tmax, t_out, prim_out, b1_out, b2_out, n);
+        tris, n_tris, o, d, tmin, tmax, t_out, prim_out, b1_out, b2_out, n);
   } else {
     brute_intersect_kernel<false><<<grid, kThreads, smem, s>>>(
-        tr, n_tris, o, d, tmin, tmax, t_out, prim_out, b1_out, b2_out, n);
+        tris, n_tris, o, d, tmin, tmax, t_out, prim_out, b1_out, b2_out, n);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,8 +1,10 @@
 // 4-wide BVH traversal for Hopper (sm_90a): closest hit and any hit.
 //
 // Replaces, on the main path, the TPU kernels of grail/kernels/bvh_stream.py
-//   _make_kernel(False)     (ordered closest hit: every binned closest-hit wave)
-//   _make_skip_kernel(True) (skip-link any hit: every shadow wave)
+//   _make_kernel(False)      (ordered closest hit: every binned closest-hit wave)
+//   _make_skip_kernel(False) (skip-link closest hit: the tile-ordered camera
+//                             wave)
+//   _make_skip_kernel(True)  (skip-link any hit: every shadow wave)
 // whose first CUDA versions (csrc/bvh_stream.cu) walk the reference's
 // 64-byte record stream: one slab test per 64-B record, three float4 loads
 // each, along a depth-19 binary tree in which every step's address comes
@@ -49,6 +51,15 @@
 // little, so L1 load throughput is not it either. Under half of a warp's
 // lanes are busy on average while its slowest lane walks on (chip_smoke.py
 // prints the share).
+//
+// The camera wave: this walk takes it in half the skip kernel's time (0.28
+// against 0.58 ms on the H100, PERF.md). A walk a warp was tried there
+// against it in turns and lost, 0.58 against 0.28 ms: the warp's 32 rays (a
+// 16x2 pixel block) shared one stack of (node, lane mask) entries, but their
+// walks overlap too little on mesh100k at 256x256 (24.6 node fetches a
+// warp, 2.4x a ray's; 44% of the lanes busy in a slab test), and each of
+// its steps costs the warp a whole step while a per-ray warp overlaps its
+// lanes' steps.
 //
 // The slab test and Moller-Trumbore are the record-stream kernel's term for
 // term; built with --fmad=false and IEEE division, the result equals the

@@ -1,7 +1,6 @@
 """Ray-scene intersection (port of grail/kernels/intersect.py): the brute
 route for scenes without a BVH and, for scenes with one, the 4-wide BVH
-route: a walk a warp on unbinned (tile-ordered) closest-hit waves, a walk a
-ray on every other wave.
+route on every wave.
 
 Hit record (dict of (N,) tensors): t, prim (int32, -1 = miss), b1, b2.
 Scenes with instances, a scene-sharded ring or clustered stream tables take
@@ -16,10 +15,15 @@ from ..core.vecmath import cross, dot
 from ..device import check_on, resolve_device
 from .binning import N_RAY_BUCKETS, bin_rays_key, bucket_rank, sort_by_rank, unsort
 from .brute_intersect import brute_intersect
-from .bvh4 import bvh4_coherent, bvh4_traverse
+from .bvh4 import bvh4_traverse
 
 BIG_T = 3.0e37
 SORT_MIN = 8192     # waves of at least this many rays are binned first
+
+# Closest-hit waves that the dispatch hands to the 4-wide walk, by route:
+# binned (sorted first) and unbinned (the tile-ordered camera wave). One
+# kernel takes both; chip_smoke.py splits its launches by these counts.
+CLOSEST_WAVES = {"binned": 0, "unbinned": 0}
 
 
 def moller_trumbore(o, d, v0, e1, e2, tmin, tmax):
@@ -96,10 +100,9 @@ def _stream_bvh(scene, o, d, tmax, tmin, any_hit=False, sort=None):
     """BVH traversal with ray binning (the reference's _stream_bvh without
     clustered tables). Waves of SORT_MIN rays or more are counting-sorted
     into coherence buckets first and their results gathered back;
-    sort=False marks a tile-ordered camera wave. Closest hit takes the
-    warp-coherent 4-wide walk for unsorted waves and the per-ray 4-wide walk
-    for sorted ones; any hit always takes the per-ray walk. Dead lanes
-    (tmax <= tmin, the integrator's mask) are made inert and sorted last."""
+    sort=False marks a tile-ordered camera wave. Every wave, sorted or not,
+    closest or any hit, takes the 4-wide walk. Dead lanes (tmax <= tmin, the
+    integrator's mask) are made inert and sorted last."""
     bvh = scene["bvh"]
     if sort is None:
         sort = o.shape[0] >= SORT_MIN
@@ -115,16 +118,15 @@ def _stream_bvh(scene, o, d, tmax, tmin, any_hit=False, sort=None):
         rank = bucket_rank(key, N_RAY_BUCKETS + 1)
         o, d, tmin, tmax = sort_by_rank(rank, o, d, tmin, tmax)
     rays = (o.contiguous(), d.contiguous(), tmin.contiguous(), tmax.contiguous())
-    tables = (bvh["bvh4_nodes"], bvh["bvh4_tris"])
+    t, prim, b1, b2 = bvh4_traverse(bvh["bvh4_nodes"], bvh["bvh4_tris"], *rays,
+                                    any_hit=any_hit, stack=bvh["bvh4_stack"])
+    if not any_hit and o.shape[0]:
+        CLOSEST_WAVES["binned" if sort else "unbinned"] += 1
     if any_hit:
-        occ = bvh4_traverse(*tables, *rays, any_hit=True,
-                            stack=bvh["bvh4_stack"])[1] >= 0
+        occ = prim >= 0
         return unsort(rank, occ)[0] if sort else occ
     if sort:
-        t, prim, b1, b2 = unsort(rank, *bvh4_traverse(*tables, *rays,
-                                                       stack=bvh["bvh4_stack"]))
-    else:
-        t, prim, b1, b2 = bvh4_coherent(*tables, *rays, stack=bvh["bvh4_stack"])
+        t, prim, b1, b2 = unsort(rank, t, prim, b1, b2)
     return {"t": torch.where(prim >= 0, t, BIG_T), "prim": prim, "b1": b1, "b2": b2}
 
 

@@ -40,7 +40,7 @@ _STAGES = {
     "intersect": (intersect, ("intersect", "intersect_p")),
     "binning": (intersect, ("bin_rays_key", "bucket_rank", "sort_by_rank",
                             "unsort")),                 # inside intersect
-    "traversal": (intersect, ("bvh4_traverse", "bvh4_coherent")),   # inside intersect
+    "traversal": (intersect, ("bvh4_traverse",)),       # inside intersect
     "uv_differentials": (geometry, ("uv_differentials",)),
     "textures": (integrator, ("eval_textures",)),
     "environment": (lights, ("env_pdf", "escaped_radiance")),

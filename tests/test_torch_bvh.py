@@ -160,17 +160,20 @@ def test_binning_matches_reference(terrain):
 
 
 def test_stream_dispatch_sorted_and_unsorted(terrain, monkeypatch):
-    """The dispatch's binned (4-wide walk a ray, bvh4_traverse) and unbinned
-    (4-wide walk a warp, bvh4_coherent) routes give the reference kernel's
-    hits, with dead lanes inert and misses at BIG_T; its any hit (4-wide, a
-    walk a ray) gives the reference's occlusion."""
+    """The dispatch's binned and unbinned routes both take the 4-wide walk
+    (bvh4_traverse; the unbinned one, the camera wave, took the skip kernel
+    on the record stream before) and give the reference skip kernel's hits,
+    with dead lanes inert and misses at BIG_T; its any hit (4-wide) gives
+    the reference's occlusion. Each closest-hit wave is counted under its
+    route in CLOSEST_WAVES, and no any-hit wave is."""
     s = terrain
     routes = []
-    for name in ("bvh4_traverse", "bvh4_coherent"):
-        def call(*a, _name=name, _fn=getattr(tisect, name), **kw):
-            routes.append((_name, kw.get("any_hit", False)))
-            return _fn(*a, **kw)
-        monkeypatch.setattr(tisect, name, call)
+    traverse = tisect.bvh4_traverse
+
+    def recording(*a, **kw):
+        routes.append(("bvh4_traverse", kw.get("any_hit", False)))
+        return traverse(*a, **kw)
+    monkeypatch.setattr(tisect, "bvh4_traverse", recording)
     ts, _ = scene_from_numpy(s["scene_np"], s["meta"], device="cpu")
     args = [torch.tensor(s[k]) for k in ("o", "d", "tmax", "tmin")]
     ref = np.asarray(_run(jnp.asarray(s["scene_np"]["bvh"]["stream"]),
@@ -179,15 +182,20 @@ def test_stream_dispatch_sorted_and_unsorted(terrain, monkeypatch):
     occ_ref = np.asarray(_run(jnp.asarray(s["scene_np"]["bvh"]["stream"]),
                               *(jnp.asarray(s[k]) for k in ("o", "d", "tmin", "tmax")),
                               any_hit=True, interpret=True)[1]) >= 0
-    for sort, route in ((False, "bvh4_coherent"), (True, "bvh4_traverse")):
+    for sort in (False, True):
         routes.clear()
+        waves = dict(tisect.CLOSEST_WAVES)
         hit = tisect.intersect(ts, *args, device="cpu", sort=sort)
-        assert routes == [(route, False)]
+        assert routes == [("bvh4_traverse", False)]
+        waves[("unbinned", "binned")[sort]] += 1
+        assert tisect.CLOSEST_WAVES == waves
         prim = hit["prim"].numpy()
         np.testing.assert_array_equal(prim >= 0, ref >= 0)
         assert (prim == ref).mean() >= 0.999
         assert (hit["t"].numpy()[prim < 0] == np.float32(tisect.BIG_T)).all()
     routes.clear()
+    waves = dict(tisect.CLOSEST_WAVES)
     occ = tisect.intersect_p(ts, *args, device="cpu").numpy()
     np.testing.assert_array_equal(occ, occ_ref)
     assert routes == [("bvh4_traverse", True)]
+    assert tisect.CLOSEST_WAVES == waves

@@ -5,7 +5,8 @@ rays, as tests/test_torch_bvh.py.
 Collapse: every triangle once in the leaves, every child box its binary
 node's box bit for bit, at most 4 children a node, the stack bound. Walk:
 bvh4_traverse_plain against grail's Pallas kernels in interpret mode (ordered
-closest hit and skip any hit, the kernels it replaces on the main path) and
+closest hit, skip any hit and skip closest hit, the kernels it replaces on
+the main path) and
 against the port's record-stream plain versions. The closest hit is unique
 except where two triangles tie on t exactly, which the walks may resolve by
 another visit order: prims must agree on >= 99.9% of rays. Where they do,
@@ -137,13 +138,18 @@ def test_collapse_invariants(terrain):
         b4.bvh4_traverse(*args, stack=b4.STACK_MAX + 1)
 
 
-@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
-def test_plain_matches_pallas_interpret(terrain, any_hit):
+@pytest.mark.parametrize("any_hit, kind", [(False, "ordered"), (True, "skip"),
+                                           (False, "skip")],
+                         ids=["closest", "any_hit", "closest_vs_skip"])
+def test_plain_matches_pallas_interpret(terrain, any_hit, kind):
+    """Against each grail kernel the 4-wide walk replaces on the main path:
+    ordered closest hit (binned waves), skip any hit (shadow waves) and skip
+    closest hit (the tile-ordered camera wave)."""
     s = terrain
     table = s["scene_np"]["bvh"]["stream"]
     ref = [np.asarray(a) for a in _run(
         jnp.asarray(table), *(jnp.asarray(s[k]) for k in RAYS), any_hit=any_hit,
-        interpret=True, kind="skip" if any_hit else "ordered")]
+        interpret=True, kind=kind)]
     before = dict(b4.LAUNCHES)
     t, prim, b1, b2, n_node, n_test, n_tri = _plain(s, any_hit)
     hit, hit_ref = prim >= 0, ref[1] >= 0
@@ -241,113 +247,3 @@ def test_bridged_and_built_tables_equal(terrain):
     for k in ("bvh4_nodes", "bvh4_tris"):
         assert torch.equal(built["bvh"][k].view(torch.int32), bridged[k].view(torch.int32))
 
-
-# --------------------------------------------------------------------------
-# the walk a warp (bvh4_coherent_plain): unbinned closest-hit waves
-# --------------------------------------------------------------------------
-
-def _coherent(s, group=b4.WARP, rows=slice(None)):
-    bvh = s["bvh"]
-    return [a.numpy() for a in b4.bvh4_coherent_plain(
-        bvh["bvh4_nodes"], bvh["bvh4_tris"], *(torch.tensor(s[k][rows]) for k in RAYS),
-        stack=bvh["bvh4_stack"], group=group)]
-
-
-def test_coherent_group_of_one_is_the_per_ray_walk(terrain):
-    """One ray a group walks as the ray walks alone: results and counts bit
-    for bit (node fetches a group are then node fetches a ray)."""
-    got, ref = _coherent(terrain, group=1), _plain(terrain, any_hit=False)
-    for a, r in zip(got, ref):
-        np.testing.assert_array_equal(a.view(np.uint32) if a.dtype == np.float32 else a,
-                                      r.view(np.uint32) if r.dtype == np.float32 else r)
-
-
-def test_coherent_matches_pallas_interpret(terrain):
-    """Against grail's skip-link closest hit, the kernel it replaces on the
-    camera wave: the same hits, prims on >= 99.9% of rays, t, b1, b2 within
-    rtol and atol 1e-4 where prims agree (XLA's CPU backend contracts the
-    Pallas kernel's multiply-adds)."""
-    s = terrain
-    ref = [np.asarray(a) for a in _run(
-        jnp.asarray(s["scene_np"]["bvh"]["stream"]), *(jnp.asarray(s[k]) for k in RAYS),
-        interpret=True, kind="skip")]
-    before = dict(b4.LAUNCHES)
-    t, prim, b1, b2, n_node, n_test, n_tri = _coherent(s)
-    hit = prim >= 0
-    np.testing.assert_array_equal(hit, ref[1] >= 0)
-    same = prim == ref[1]
-    assert same.mean() >= 0.999
-    for a, r in zip((t, b1, b2), ref[0:1] + ref[2:]):
-        np.testing.assert_allclose(a[same], r[same], rtol=1e-4, atol=1e-4)
-    np.testing.assert_array_equal(t[~hit], s["tmax"][~hit])
-    assert not hit[500:600].any() and not b1[~hit].any() and not b2[~hit].any()
-    # a group fetches each node once, for the lanes that entered it
-    assert n_node.shape == (-(-N_RAYS // b4.WARP),) and (n_node >= 1).all()
-    assert (n_test % 4 == 0).all() and (n_test <= 4 * np.repeat(n_node, b4.WARP)[:N_RAYS]).all()
-    # the wrapper takes the plain version on the CPU and launches nothing
-    bvh = s["bvh"]
-    got = b4.bvh4_coherent(bvh["bvh4_nodes"], bvh["bvh4_tris"],
-                           *(torch.tensor(s[k]) for k in RAYS), stack=bvh["bvh4_stack"])
-    np.testing.assert_array_equal(got[1].numpy(), prim)
-    assert b4.LAUNCHES == before
-    with pytest.raises(ValueError, match="stack"):
-        b4.bvh4_coherent(bvh["bvh4_nodes"], bvh["bvh4_tris"],
-                         *(torch.tensor(s[k]) for k in RAYS), stack=b4.STACK_MAX + 1)
-
-
-def test_coherent_matches_per_ray_walk(terrain):
-    """Against the per-ray 4-wide walk on the same rays: prims agree on
-    >= 99.9% (only an exact t tie can go the other way in another visit
-    order), and t, b1, b2 are bitwise equal where they do."""
-    got, ref = _coherent(terrain), _plain(terrain, any_hit=False)
-    same = got[1] == ref[1]
-    assert same.mean() >= 0.999
-    for a, r in zip(got[:4], ref[:4]):
-        np.testing.assert_array_equal(a[same].view(np.uint32), r[same].view(np.uint32))
-    # the camera-like rays (0-199) share their walks: a group's fetches are
-    # far fewer than its lanes' fetches together
-    per_lane = ref[4][:192].reshape(-1, b4.WARP).sum(1)
-    assert (got[4][:6] < per_lane).all()
-
-
-@pytest.mark.parametrize("rows", [slice(480, 517), slice(0, 45)],
-                         ids=["dead_lanes_37", "camera_45"])
-def test_coherent_ragged_wave(terrain, rows):
-    """A wave that is not a multiple of the warp, padded with inactive lanes
-    that nothing reports: every ray's result is the per-ray walk's (bitwise
-    where prims agree); dead lanes (tmax <= tmin) miss with t = tmax,
-    b1 = b2 = 0."""
-    s = terrain
-    got, ref = _coherent(s, rows=rows), _plain(s, any_hit=False)
-    ref = [r[rows] for r in ref[:4]]
-    n = rows.stop - rows.start
-    assert all(a.shape == (n,) for a in got[:4]) and got[4].shape == (2,)
-    same = got[1] == ref[1]
-    assert same.all()
-    for a, r in zip(got[:4], ref):
-        np.testing.assert_array_equal(a.view(np.uint32), r.view(np.uint32))
-    dead = s["tmax"][rows] <= s["tmin"][rows]
-    assert (got[1][dead] == -1).all() and (got[0][dead] == s["tmax"][rows][dead]).all()
-    assert not got[2][dead].any() and not got[3][dead].any()
-
-
-def test_coherent_order_is_the_lowest_lanes(terrain):
-    """The warp visits a node's children in the order of the lowest lane of
-    the node's mask. Four slots hold the same square, so every hit has the
-    same t and a ray reports the first triangle it visits. Ray A (from
-    below) sorts the slots 3, 1, 2, 0; ray B (from the side) enters all four
-    boxes at once and takes slot order. Alone each reports its own first
-    triangle; together both report the lowest lane's."""
-    nodes, tris = _tie_tables((0.2, 0.0, 0.0, -0.5))
-    ray_a = ([0.25, 0.25, -1.0], [0.0, 0.0, 1.0])
-    ray_b = ([-1.0, 0.25, -0.2], [1.0, 0.0, 0.5])
-    tmin, tmax = torch.zeros(2), torch.full((2,), 10.0)
-    for pair, alone, together in (((ray_a, ray_b), [3, 7], [3, 3]),
-                                  ((ray_b, ray_a), [7, 3], [7, 7])):
-        o = torch.tensor([p[0] for p in pair])
-        d = torch.tensor([p[1] for p in pair])
-        for group, want in ((1, alone), (2, together), (32, together)):
-            t, prim, _, _, n_node, n_test, n_tri = b4.bvh4_coherent_plain(
-                nodes, tris, o, d, tmin, tmax, stack=3, group=group)
-            assert prim.tolist() == want, (pair, group, prim)
-            assert (n_node == 1).all() and (n_test == 4).all() and (n_tri == 4).all()

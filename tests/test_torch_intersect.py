@@ -126,6 +126,50 @@ def test_any_hit_is_first_hit_in_index_order(setup):
         assert float(b1_k[0]) == float(b1[r]) and float(b2_k[0]) == float(b2[r])
 
 
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_plain_stage_counts(setup, any_hit):
+    """counts=True leaves the result alone and counts, per ray, the pairs the
+    function needs (a live ray's every triangle; any hit, up to its first
+    hit) that reach each stage of the hit test, against the same stages
+    evaluated pair by pair in numpy."""
+    s = setup
+    args = _torch(s["tris9"], s["o"], s["d"], s["tmin"], s["tmax"])
+    out = tbi.brute_intersect_plain(*args, any_hit=any_hit, counts=True)
+    for a, b in zip(out[:4], tbi.brute_intersect_plain(*args, any_hit=any_hit)):
+        assert torch.equal(a, b)
+    n_b1, n_b2, n_t = (c.numpy() for c in out[4:])
+    prim = out[1].numpy()
+    tris, o, d = s["tris9"], s["o"][:, None], s["d"][:, None]
+    v0, e1, e2 = tris[None, :, 0:3], tris[None, :, 3:6], tris[None, :, 6:9]
+    s1 = np.stack([d[..., 1] * e2[..., 2] - d[..., 2] * e2[..., 1],
+                   d[..., 2] * e2[..., 0] - d[..., 0] * e2[..., 2],
+                   d[..., 0] * e2[..., 1] - d[..., 1] * e2[..., 0]], -1)
+    div = s1[..., 0] * e1[..., 0] + s1[..., 1] * e1[..., 1] + s1[..., 2] * e1[..., 2]
+    inv = np.float32(1.0) / np.where(div == 0.0, np.float32(1.0), div)
+    sv = o - v0
+    b1 = (sv[..., 0] * s1[..., 0] + sv[..., 1] * s1[..., 1] + sv[..., 2] * s1[..., 2]) * inv
+    s2 = np.stack([sv[..., 1] * e1[..., 2] - sv[..., 2] * e1[..., 1],
+                   sv[..., 2] * e1[..., 0] - sv[..., 0] * e1[..., 2],
+                   sv[..., 0] * e1[..., 1] - sv[..., 1] * e1[..., 0]], -1)
+    b2 = (d[..., 0] * s2[..., 0] + d[..., 1] * s2[..., 1] + d[..., 2] * s2[..., 2]) * inv
+    on_b1 = (div != 0.0) & (b1 >= 0.0) & (b1 <= 1.0)
+    on_b2 = on_b1 & (b2 >= 0.0) & (b1 + b2 <= 1.0)
+    n_tris = tris.shape[0]
+    need = np.broadcast_to((s["tmax"] > s["tmin"])[:, None], on_b1.shape)
+    if any_hit:
+        last = np.where(prim >= 0, prim, n_tris - 1)
+        need = need & (np.arange(n_tris)[None] <= last[:, None])
+    np.testing.assert_array_equal(n_b1, need.sum(1))
+    np.testing.assert_array_equal(n_b2, (need & on_b1).sum(1))
+    np.testing.assert_array_equal(n_t, (need & on_b2).sum(1))
+    # dead lanes need no pair; a live closest-hit ray needs every triangle
+    assert not n_b1[400:450].any()
+    if not any_hit:
+        assert (n_b1[:400] == n_tris).all()
+    assert (n_b1 >= n_b2).all() and (n_b2 >= n_t).all() and (n_t >= (prim >= 0)).all()
+    assert n_b2.sum() < n_b1.sum()
+
+
 def test_dispatch_refuses_unported_routes(setup, monkeypatch):
     s = setup
     scene_t, _ = scene_from_numpy(s["scene_np"], s["meta"], device="cpu")
@@ -141,63 +185,18 @@ def test_dispatch_refuses_unported_routes(setup, monkeypatch):
             s["o"][:8], s["d"][:8], s["tmin"][:8], s["tmax"][:8]))
 
 
-def test_padded_table_is_pack_tris_row_for_row(setup):
-    """The kernel's 48-byte rows (v0|-, e1|-, e2|-) hold pack_tris's (T,9)
-    rows word for word, for the reference's packer and the port's; the pad
-    words are zero."""
+def test_pack_tris_matches_reference(setup):
+    """The (T,9) [v0|e1|e2] table the kernel stages (as 48-byte rows) is the
+    reference packer's, word for word, and the wrapper takes nothing else."""
     s = setup
     scene_t, _ = scene_from_numpy(s["scene_np"], s["meta"], device="cpu")
-    for tris9 in (torch.tensor(s["tris9"]), tisect.pack_tris(scene_t)):
-        rows = tbi.pad_tris(tris9)
-        assert rows.shape == (tris9.shape[0], 12) and rows.is_contiguous()
-        words = rows.view(torch.int32).reshape(-1, 3, 4)
-        assert torch.equal(words[:, :, :3].reshape(-1, 9), tris9.view(torch.int32))
-        assert not words[:, :, 3].any()
-    np.testing.assert_array_equal(tisect.pack_tris(scene_t).numpy(), s["tris9"])
+    tris9 = tisect.pack_tris(scene_t)
+    assert tris9.shape == (36, 9) and tris9.is_contiguous()
+    np.testing.assert_array_equal(tris9.numpy().view(np.uint32),
+                                  s["tris9"].view(np.uint32))
+    rays = _torch(s["o"][:8], s["d"][:8], s["tmin"][:8], s["tmax"][:8])
+    with pytest.raises(ValueError, match="shape"):
+        tbi._check(torch.nn.functional.pad(tris9, (0, 3)), *rays)
+    with pytest.raises(ValueError, match="contiguous"):
+        tbi._check(tris9.t().contiguous().t(), *rays)
 
-
-def _rejected_early(divisor, num1):
-    """csrc/brute_intersect.cu's tests ahead of the division, in float32."""
-    with np.errstate(over="ignore", invalid="ignore"):
-        bound = np.abs(divisor) * np.float32(1.0001)
-        a = np.abs(num1)
-        opposite = np.signbit(num1) != np.signbit(divisor)
-        return ((divisor == 0) | (a > bound)
-                | (opposite & (a * np.float32(2.0 ** 64) > bound)))
-
-
-def test_early_rejection_rejects_no_reference_hit():
-    """The kernel rejects a pair on num1 = s . s1 and the divisor before
-    dividing. It may reject only pairs whose b1 = num1 * (1 / divisor)
-    fails the reference's 0 <= b1 <= 1 (or whose divisor is 0), including
-    b1 = -0.0 after an underflowing product, which the reference accepts,
-    and subnormal, huge and infinite operands."""
-    rs = np.random.RandomState(3)
-    n = 200_000
-    mant = rs.rand(2, n) * 2.0 - 1.0
-    expo = rs.randint(-160, 130, size=(2, n))
-    with np.errstate(over="ignore", under="ignore"):
-        divisor, num1 = (mant * 2.0 ** expo).astype(np.float32)
-    # near-equal magnitudes (b1 around +-1) and exactly equal ones
-    num1[: n // 8] = (divisor[: n // 8] * (1 + (rs.rand(n // 8) - 0.5) * 1e-6)).astype(np.float32)
-    num1[n // 8: n // 4] = -divisor[n // 8: n // 4]
-    special = np.array([0.0, -0.0, 1e-45, -1e-45, 1e-38, -1e-38, 3e38, -3e38,
-                        np.inf, -np.inf, np.nan, 1.0, -1.0, 2.0 ** -64, -(2.0 ** -64)],
-                       np.float32)
-    dd, nn = np.meshgrid(special, special)
-    divisor = np.concatenate([divisor, dd.ravel()])
-    num1 = np.concatenate([num1, nn.ravel()])
-    with np.errstate(all="ignore"):
-        inv = np.float32(1.0) / np.where(divisor == 0, np.float32(1.0), divisor)
-        b1 = num1 * inv
-    accepted = (divisor != 0) & (b1 >= 0) & (b1 <= 1)
-    rejected = _rejected_early(divisor, num1)
-    assert not (rejected & accepted).any()
-    # b1 = -0.0 from an underflow is accepted, and not rejected early
-    tiny = np.array([1e-30, -1e-30], np.float32), np.array([-1e20, 1e30], np.float32)
-    with np.errstate(all="ignore"):
-        b1_tiny = tiny[0] * (np.float32(1.0) / tiny[1])
-    assert (b1_tiny == 0).all() and np.signbit(b1_tiny).all()
-    assert not _rejected_early(tiny[1], tiny[0]).any()
-    # and it does reject most of what the reference rejects
-    assert rejected.sum() > 0.5 * (~accepted).sum()

@@ -264,7 +264,7 @@ def test_li_binned_matches_reference_per_lane(mesh, li_ref, monkeypatch):
     """With the binning threshold lowered below this wave's 512 lanes, the
     bounces after the camera wave bin and sort their rays, take the 4-wide
     traversal and gather the results back, as every wave of the bench
-    render does; the camera wave takes the warp-coherent walk. The
+    render does; the camera wave takes the 4-wide traversal unbinned. The
     reference, at its own threshold, bins none of them."""
     kinds = []
 
@@ -275,12 +275,9 @@ def test_li_binned_matches_reference_per_lane(mesh, li_ref, monkeypatch):
         return call
 
     monkeypatch.setattr(tisect, "SORT_MIN", 256)
-    monkeypatch.setattr(tisect, "bvh4_coherent",
-                        recording("coherent", tisect.bvh4_coherent))
     monkeypatch.setattr(tisect, "bvh4_traverse", recording("bvh4", tisect.bvh4_traverse))
     _li_close(mesh, li_ref)
-    assert kinds.count(("bvh4", None, False)) == DEPTH
-    assert kinds.count(("coherent", None, False)) == 1
+    assert kinds.count(("bvh4", None, False)) == DEPTH + 1
     assert {k for k in kinds if k[2]} == {("bvh4", None, True)}
 
 
