@@ -36,10 +36,35 @@ failure ends the run with a non-zero exit code:
      wave (camera, binned);
   9. kernel_time: each traversal kernel's ms per launch beside its plain
      version and its bound; each 4-wide kernel timed in turns with the
-     kernel it replaces, on each wave it takes.
+     kernel it replaces, on each wave it takes, and the 4-wide any hit in
+     turns with the ordered any hit (row 3, reached only by a kind
+     override) on the sorted secondary wave;
+  (the record table, which only the record-stream kernels read, is built
+  on request for phases 6 and 9 and dropped before phases 7 and 8)
+  mesh1m (mesh_scene_1m: 1,001,906 triangles, a thin lens and a moving
+  camera, the 4-wide tables above the card's L2):
+  10. set-up: the host build, the table sizes, and what the record table
+      would cost;
+  11. parity: the 4-wide closest hit on the camera wave (depth of field
+      and motion blur, unbinned) and on a binned secondary wave, the any hit
+      on shadow rays, each against its plain version at 1,048,576 rays,
+      bitwise;
+  12. kernel_time: each of those beside its plain version and its bound;
+  13. main path: the full geometry at 32x32, 2 spp, depth 3, card against
+      CPU;
+  14. bench: bench.py's mesh1m render (256x256, 4 spp: one megawave of
+      262,144 camera rays; depth 5), launches per render by wave;
+  training path:
+  15. grad: the gradient of the mean image (256x256, 1 spp, depth 5) for
+      the Cornell box's albedos, emission and vertices (brute-force kernel)
+      and for mesh100k's texels, MIP pyramid and vertices (4-wide kernels),
+      against the same through the plain versions on the card (bitwise) and
+      against the CPU at 32x32; then optimize_albedo on the Cornell box.
 Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 Needs a CUDA device and nvcc; imports nothing of JAX.
 """
+import contextlib
+import functools
 import json
 import os
 import re
@@ -51,18 +76,21 @@ import time
 import numpy as np
 import torch
 
+from grail_torch.engine.film import develop, new_film
 from grail_torch.engine.integrator import IntegratorConfig
-from grail_torch.engine.render import camera_rays, megawave_lanes, render
+from grail_torch.engine.render import camera_rays, megawave_lanes, render, render_wave
 from grail_torch.kernels import brute_intersect as bi
 from grail_torch.kernels import bvh4 as b4
 from grail_torch.kernels import bvh_stream as bs
 from grail_torch.kernels import build
+from grail_torch.kernels import intersect as isect
 from grail_torch.kernels.binning import (N_RAY_BUCKETS, bin_rays_key, bucket_rank,
                                          sort_by_rank)
 from grail_torch.kernels.intersect import (BIG_T, CLOSEST_WAVES, SORT_MIN,
                                            moller_trumbore, pack_tris)
-from grail_torch.native import build_bvh_native
-from grail_torch.scene.presets import cornell_box, mesh_scene
+from grail_torch.scene.buffers import attach_record_table
+from grail_torch.scene.presets import cornell_box, mesh_scene, mesh_scene_1m
+from grail_torch.tools.optimize import optimize_albedo
 
 N_RAYS = 1 << 20
 MESH_GRID = 224
@@ -91,6 +119,9 @@ STREAM_SOURCE = "grail_torch/kernels/csrc/bvh_stream.cu"
 STREAM_REPLACES = {"ordered": "grail/kernels/bvh_stream.py:269",
                    "skip": "grail/kernels/bvh_stream.py:414"}
 BVH4_SOURCE = "grail_torch/kernels/csrc/bvh4.cu"
+# the wave each record-stream kernel is held and timed on (mesh_ray_cases)
+STREAM_CASES = {"skip_closest": "camera_wave", "ordered_closest": "sorted_secondary",
+                "ordered_any_hit": "sorted_secondary", "skip_any_hit": "shadow"}
 # each 4-wide kernel, the record-stream kernel it replaces on the main path
 # and the dispatch's closest-hit route (intersect.CLOSEST_WAVES), one entry a
 # wave: closest hit on binned secondary waves, any hit on shadow waves,
@@ -98,6 +129,35 @@ BVH4_SOURCE = "grail_torch/kernels/csrc/bvh4.cu"
 BVH4_REPLACES = (("bvh4_closest", "ordered_closest", "binned"),
                  ("bvh4_any_hit", "skip_any_hit", None),
                  ("bvh4_closest", "skip_closest", "unbinned"))
+# row 3: the ordered any hit, which no main-path wave runs (a kind override
+# reaches it), against the 4-wide any hit that is its redesign; timed in
+# turns, not in the kernels line
+BVH4_ROW3 = ("bvh4_any_hit", "ordered_any_hit", None)
+# a mesh render of one megawave at depth 5: the camera wave's closest hit
+# (unbinned), the binned closest hits of bounces 1-5, one shadow wave a
+# bounce, all on the 4-wide kernels
+MESH_EXPECTED = {"skip_closest": 0, "skip_any_hit": 0, "ordered_closest": 0,
+                 "ordered_any_hit": 0, "bvh4_closest": 6, "bvh4_any_hit": 6,
+                 "brute_intersect": 0, "brute_intersect_any_hit": 0}
+MESH_EXPECTED_WAVES = {"binned": 5, "unbinned": 1}
+MESH1M_SPP = 4                  # bench.py's mesh1m render: 256x256, 4 spp
+MESH1M_WAVES = (("bvh4_closest", "camera_wave"), ("bvh4_closest", "sorted_secondary"),
+                ("bvh4_any_hit", "shadow"))
+# the training path: scene, preset, the kernels its render launches, and
+# the leaves differentiated ({name: path in the scene})
+GRAD_SCENES = (("cornell", cornell_box, bi.KERNELS),
+               ("mesh100k", functools.partial(mesh_scene, grid=MESH_GRID), b4.KERNELS))
+GRAD_LEAVES = {"cornell": {"const": ("tex_data", "const"), "emit": ("lights", "emit"),
+                           "verts": ("verts",)},
+               "mesh100k": {"img": ("images", 0), "flat": ("mipmaps", 0, "flat"),
+                            "verts": ("verts",)}}
+# card against CPU gradients: the renders agree to ~1e-6 (relative MAE), but
+# the shading's float32 transcendental functions round differently on the
+# two devices, a vertex sums many lanes' terms in another order, and a
+# texel's bilinear weight is the fraction of a coordinate up to 6 x 256,
+# which a last-bit change of uv moves by up to 1.2e-4 (as in
+# tests/test_torch_grad.py against the reference)
+GRAD_RTOL, GRAD_ATOL = 1e-3, 2e-3     # atol: of the largest CPU entry
 BRUTE_SOURCE = "grail_torch/kernels/csrc/brute_intersect.cu"
 RAGGED = 37                # rays past 1M in the ragged parity case
 NODE_BYTES, TRI_BYTES = 128, 48
@@ -281,43 +341,31 @@ def cornell_phases(dev, gpu, issue_rate, sass):
     t0 = time.perf_counter()
     cfg_e = IntegratorConfig(kind="path", max_depth=3)
     imgs = {}
-    for where in (dev, torch.device("cpu")):
+    for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
         sc, mt, _ = cornell_box(64, 64, 4, device=where)
-        imgs[where.type] = render(sc, mt, cfg_e, spp=4, device=where)[0].cpu().numpy()
-    err = relative_mae(imgs["cuda"], imgs["cpu"])
+        imgs[side] = render(sc, mt, cfg_e, spp=4, device=where)[0].cpu().numpy()
+    err = relative_mae(imgs["card"], imgs["cpu"])
     emit({"phase": "main_path_vs_cpu", "scene": "cornell", "res": 64, "spp": 4,
           "max_depth": 3, "relative_mae": err,
-          "bitwise_equal": bool(np.array_equal(imgs["cuda"], imgs["cpu"])),
+          "bitwise_equal": bool(np.array_equal(imgs["card"], imgs["cpu"])),
           "seconds": time.perf_counter() - t0})
-    check(np.isfinite(imgs["cuda"]).all() and err < RELMAE_MAX,
+    check(np.isfinite(imgs["card"]).all() and err < RELMAE_MAX,
           f"GPU render differs from the CPU render (relative MAE {err})")
 
     # the bench render through the kernel: one warm-up, three timed
     t0 = time.perf_counter()
     cfg = IntegratorConfig(kind="path", max_depth=5)
     spp = meta.sampler.spp
-    render(scene, meta, cfg, spp=spp, device=dev)
-    torch.cuda.synchronize()
-    times, launches = [], []
-    torch.cuda.reset_peak_memory_stats(dev)
-    for _ in range(3):
-        bi.LAUNCHES.update(dict.fromkeys(bi.LAUNCHES, 0))
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        img, _ = render(scene, meta, cfg, spp=spp, device=dev)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t1)
-        launches.append(dict(bi.LAUNCHES))
-    img = img.cpu().numpy()
-    # one closest hit and one shadow ray a bounce
-    expected = dict.fromkeys(bi.KERNELS, cfg.max_depth + 1)
+    times, launches, _, img, peak, _ = bench_render(scene, meta, cfg, spp, dev)
+    # one closest hit and one shadow ray a bounce, no other kernel
+    expected = dict(dict.fromkeys(launches[0], 0),
+                    **dict.fromkeys(bi.KERNELS, cfg.max_depth + 1))
     emit({"phase": "bench", "scene": "cornell", "res": 256, "spp": spp,
           "max_depth": cfg.max_depth, "render_seconds": times,
           "camera_rays_per_sec": meta.xres * meta.yres * spp / statistics.median(times),
           "launches_per_render": launches,
           "expected_launches": expected, "image_mean": float(img.mean()),
-          "isfinite": bool(np.isfinite(img).all()),
-          "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+          "isfinite": bool(np.isfinite(img).all()), "peak_memory_bytes": peak,
           "seconds": time.perf_counter() - t0})
     check(all(n == expected for n in launches),
           f"brute_intersect launched {launches} per render, want {expected}")
@@ -377,21 +425,24 @@ def cornell_phases(dev, gpu, issue_rate, sass):
     return entries
 
 
+
 def mesh_ray_cases(scene, meta, dev):
-    """{kernel: (case, o, d, tmin, tmax)} at N_RAYS rays, each made as the
-    intersect dispatch hands rays to that kernel: the bench camera wave
-    (skip, closest); a secondary wave from the camera wave's hit points in
-    random directions toward the camera's side, binned and sorted with its
-    dead lanes (the misses) inert and last (ordered, closest and any hit);
-    shadow rays from the hit points with random lengths and 1/8 dead lanes
-    (skip, any hit)."""
-    pix, samp, _ = megawave_lanes(meta, 0, meta.sampler.spp, dev)
+    """{wave: (o, d, tmin, tmax)} at N_RAYS rays, each made as the intersect
+    dispatch hands rays to the traversal: "camera_wave", the camera rays of
+    N_RAYS // pixels samples a pixel in tile order (unbinned);
+    "sorted_secondary", rays from the camera wave's hit points (found by the
+    4-wide walk) in random directions toward the camera's side, binned and
+    sorted with their dead lanes (the misses) inert and last; "shadow", rays
+    from the hit points with random lengths and 1/8 dead lanes."""
+    pix, samp, _ = megawave_lanes(meta, 0, N_RAYS // (meta.xres * meta.yres), dev)
     rays = camera_rays(scene, meta, pix, samp)[0]
     o, d = rays["o"].contiguous(), rays["d"].contiguous()
-    check(o.shape[0] == N_RAYS, "bench megawave is 1M rays")
+    check(o.shape[0] == N_RAYS, "the camera wave is 1M rays")
     zeros = torch.zeros(N_RAYS, device=dev)
     big = torch.full((N_RAYS,), 1.0e7, device=dev)
-    t, prim, _, _ = bs.stream_traverse(scene["bvh"]["stream"], o, d, zeros, big)
+    bvh = scene["bvh"]
+    t, prim, _, _ = b4.bvh4_traverse(bvh["bvh4_nodes"], bvh["bvh4_tris"], o, d, zeros,
+                                     big, stack=bvh["bvh4_stack"])
     hit = prim >= 0
     p = o + (t * (1.0 - 1e-4))[:, None] * d
     p = torch.where(hit[:, None], p, o)
@@ -410,41 +461,99 @@ def mesh_ray_cases(scene, meta, dev):
     dead[: N_RAYS // 8] = True
     shadow = (p.contiguous(), w.flip(0).contiguous(), torch.where(dead, BIG_T, 0.0),
               torch.where(dead, -BIG_T, shadow_t))
-    return {"skip_closest": ("camera_wave", o, d, zeros, big),
-            "ordered_closest": ("sorted_secondary", *secondary),
-            "ordered_any_hit": ("sorted_secondary", *secondary),
-            "skip_any_hit": ("shadow", *shadow)}
+    return {"camera_wave": (o, d, zeros, big), "sorted_secondary": secondary,
+            "shadow": shadow}
 
 
 def _kind(name):
     return name.split("_", 1)[0], name.endswith("any_hit")
 
 
+def bvh4_parity(scene_name, name, wave, args, bvh):
+    """One 4-wide kernel against its plain version on the card, bitwise; emits
+    the parity line and returns the plain walk's outputs and counts."""
+    any_hit = name == "bvh4_any_hit"
+    nodes, tris4, stack = (bvh[k] for k in ("bvh4_nodes", "bvh4_tris", "bvh4_stack"))
+    with torch.no_grad():
+        kern = b4.bvh4_traverse(nodes, tris4, *args, any_hit=any_hit, stack=stack)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        plain = b4.bvh4_traverse_plain(nodes, tris4, *args, any_hit=any_hit, stack=stack)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t1
+    n_bad, errs, bitwise = compare(kern, plain, any_hit)
+    counts = tuple(int(x.sum()) for x in plain[4:])
+    # items (node fetches + triangle tests) per ray, over warps of 32
+    # consecutive rays: the share of lanes busy while the warp walks
+    items = (plain[4] + plain[6]).view(-1, 32).double()
+    line = {"phase": "parity", "scene": scene_name, "kernel": name, "case": wave,
+            "rays": N_RAYS, "live_rays": int((args[3] > args[2]).sum()),
+            "hits": int((kern[1] >= 0).sum()), "prim_mismatch": n_bad,
+            "occlusion_mismatch": int(((kern[1] >= 0) != (plain[1] >= 0)).sum()),
+            "max_abs_diff": errs, "bitwise_equal": bitwise, "node_fetches": counts[0],
+            "box_tests": counts[1], "tri_tests": counts[2],
+            "max_node_fetches_per_ray": int(plain[4].max()),
+            "warp_lane_use": float(items.mean(1).sum() / items.amax(1).sum()),
+            "plain_seconds": plain_s}
+    check(bitwise, f"{name} is not bitwise equal to its plain version "
+                   f"({scene_name}, {wave})")
+    return kern, line, {"errs": errs, "counts": counts, "live": line["live_rays"]}
+
+
+def bvh4_bound(counts, table4_bytes):
+    """(bound ms, by) of a 4-wide walk: the ray bytes and the tables once, 26
+    operations a slab test and 55 a triangle test."""
+    _, n_test, n_tri = counts
+    t_bytes = (N_RAYS * RAY_BYTES + table4_bytes) / PEAK_BYTES * 1e3
+    t_ops = (OPS_PER_BOX * n_test + OPS_PER_PAIR * n_tri) / PEAK_FP32_OPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes > t_ops else "operations"
+
+
+def bench_render(scene, meta, cfg, spp, dev):
+    """One warm-up and three timed bench renders; returns (seconds, launches
+    and closest-hit waves per render, image, peak and held bytes)."""
+    render(scene, meta, cfg, spp=spp, device=dev)
+    torch.cuda.synchronize()
+    times, launches, waves = [], [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    for _ in range(3):
+        for counts in (bs.LAUNCHES, b4.LAUNCHES, bi.LAUNCHES, CLOSEST_WAVES):
+            counts.update(dict.fromkeys(counts, 0))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        img, _ = render(scene, meta, cfg, spp=spp, device=dev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        launches.append(dict(bs.LAUNCHES, **b4.LAUNCHES, **bi.LAUNCHES))
+        waves.append(dict(CLOSEST_WAVES))
+    return (times, launches, waves, img.cpu().numpy(),
+            torch.cuda.max_memory_allocated(dev), held)
+
+
 def mesh_phases(dev, gpu):
     """Phases 6-9; returns the entries of the kernels line: the four
-    bvh_stream kernels, and the two bvh4 kernels on each wave they take."""
+    bvh_stream kernels, and the two bvh4 kernels on each main-path wave."""
     t0 = time.perf_counter()
     scene, meta, _ = mesh_scene(256, 256, 16, grid=MESH_GRID, device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    table, depth = scene["bvh"]["stream"], scene["bvh"]["depth"]
-    nodes, tris4, stack = (scene["bvh"][k] for k in ("bvh4_nodes", "bvh4_tris",
-                                                      "bvh4_stack"))
-    # the record table's share of the set-up: its host packing and upload,
-    # timed again on the same tree (no main-path kernel reads it)
-    verts_np, idx_np = scene["verts"].cpu().numpy(), scene["tri_idx"].cpu().numpy()
-    b_np = build_bvh_native(verts_np, idx_np, max_prims=4, force_leaf=4)
+    bvh = scene["bvh"]
+    nodes, tris4, stack = (bvh[k] for k in ("bvh4_nodes", "bvh4_tris", "bvh4_stack"))
+    # the record table, which only the record-stream kernels (the baselines)
+    # read, built on request (the binary tree again, the records packed and
+    # uploaded) and dropped before the main path runs
     t1 = time.perf_counter()
-    again = torch.as_tensor(bs.build_stream_table(b_np, verts_np, idx_np), device=dev)
+    attach_record_table(scene)
     torch.cuda.synchronize()
     record_s = time.perf_counter() - t1
-    check(torch.equal(again, table), "record table rebuilt differs from the scene's")
-    del again
-    emit({"phase": "mesh_scene", "grid": MESH_GRID, "triangles": meta.n_tris,
-          "records": table.shape[0] * bs.RECS_PER_ROW, "table_bytes": table.numel() * 4,
-          "record_table_host_seconds": record_s,
-          "tree_depth": depth, "bvh4_nodes": nodes.shape[0],
-          "bvh4_table_bytes": (nodes.numel() + tris4.numel()) * 4,
+    table, depth = bvh.pop("stream"), bvh.pop("depth")
+    table4_bytes = (nodes.numel() + tris4.numel()) * 4
+    emit({"phase": "mesh_scene", "scene": "mesh100k", "grid": MESH_GRID,
+          "triangles": meta.n_tris, "records": table.shape[0] * bs.RECS_PER_ROW,
+          "record_table_bytes": table.numel() * 4,
+          "record_table_host_seconds": record_s, "tree_depth": depth,
+          "bvh4_nodes": nodes.shape[0], "bvh4_table_bytes": table4_bytes,
           "bvh4_stack_bound": stack, "host_build_seconds": build_s})
 
     t0 = time.perf_counter()
@@ -453,7 +562,8 @@ def mesh_phases(dev, gpu):
     results = {}
     for name in bs.KERNELS:
         kind, any_hit = _kind(name)
-        case, *args = cases[name]
+        case = STREAM_CASES[name]
+        args = cases[case]
         with torch.no_grad():
             kern = bs.stream_traverse(table, *args, any_hit=any_hit, kind=kind,
                                       depth=depth)
@@ -477,36 +587,14 @@ def mesh_phases(dev, gpu):
               "plain_seconds": plain_s})
     # the 4-wide kernels on the rays of the kernels they replace
     results4 = {}
-    for name, old, _ in BVH4_REPLACES:
-        any_hit = name == "bvh4_any_hit"
+    for name, old, _ in BVH4_REPLACES + (BVH4_ROW3,):
         r = results[old]
+        kern, line, results4[old] = bvh4_parity("mesh100k", name, r["case"], r["args"],
+                                                bvh)
         with torch.no_grad():
-            kern = b4.bvh4_traverse(nodes, tris4, *r["args"], any_hit=any_hit,
-                                    stack=stack)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            plain = b4.bvh4_traverse_plain(nodes, tris4, *r["args"], any_hit=any_hit,
-                                           stack=stack)
-            torch.cuda.synchronize()
-            plain_s = time.perf_counter() - t1
-            n_bad, errs, bitwise = compare(kern, plain, any_hit)
-            vs_old = against_replaced(kern, r["kern"], r["args"], any_hit, scene)
-        counts = tuple(int(x.sum()) for x in plain[4:])
-        results4[old] = {"errs": errs, "counts": counts}
-        # items (node fetches + triangle tests) per ray, over warps of 32
-        # consecutive rays: the share of lanes busy while the warp walks
-        items = (plain[4] + plain[6]).view(-1, 32).double()
-        lane_use = float(items.mean(1).sum() / items.amax(1).sum())
-        emit({"phase": "parity", "scene": "mesh100k", "kernel": name, "case": r["case"],
-              "rays": N_RAYS, "live_rays": r["live"], "hits": int((kern[1] >= 0).sum()),
-              "prim_mismatch": n_bad,
-              "occlusion_mismatch": int(((kern[1] >= 0) != (plain[1] >= 0)).sum()),
-              "max_abs_diff": errs, "bitwise_equal": bitwise,
-              f"vs_bvh_stream_{old}": vs_old, "node_fetches": counts[0],
-              "box_tests": counts[1], "tri_tests": counts[2],
-              "max_node_fetches_per_ray": int(plain[4].max()),
-              "warp_lane_use": lane_use, "plain_seconds": plain_s})
-        check(bitwise, f"{name} is not bitwise equal to its plain version ({r['case']})")
+            line[f"vs_bvh_stream_{old}"] = against_replaced(
+                kern, r["kern"], r["args"], name == "bvh4_any_hit", scene)
+        emit(line)
     # keep only the rays and counts: the outputs would count in the bench
     # render's peak memory
     del kern, plain
@@ -514,83 +602,9 @@ def mesh_phases(dev, gpu):
         del r["kern"]
     emit({"phase": "parity", "scene": "mesh100k", "seconds": time.perf_counter() - t0})
 
-    # the main path on the card against the same render on the CPU, at
-    # 16,384 lanes: above the dispatch's binning threshold (SORT_MIN) at
-    # every bounce, also after the pre-RR split halves the wave, so the
-    # comparison bins every wave after the camera wave as the bench render
-    # does
-    t0 = time.perf_counter()
-    cfg_e = IntegratorConfig(kind="path", max_depth=3)
-    res_e, spp_e = 64, 4
-    imgs = {}
-    for where in (dev, torch.device("cpu")):
-        sc, mt, _ = mesh_scene(res_e, res_e, spp_e, grid=MESH_GRID, device=where)
-        for counts in (bs.LAUNCHES, b4.LAUNCHES):
-            counts.update(dict.fromkeys(counts, 0))
-        imgs[where.type] = render(sc, mt, cfg_e, spp=spp_e,
-                                  device=where)[0].cpu().numpy()
-        if where.type == "cuda":
-            gpu_launches = dict(bs.LAUNCHES, **b4.LAUNCHES)
-    err = relative_mae(imgs["cuda"], imgs["cpu"])
-    emit({"phase": "main_path_vs_cpu", "scene": "mesh100k", "res": res_e,
-          "spp": spp_e, "max_depth": 3, "lanes": res_e * res_e * spp_e,
-          "sort_min": SORT_MIN, "gpu_launches": gpu_launches, "relative_mae": err,
-          "bitwise_equal": bool(np.array_equal(imgs["cuda"], imgs["cpu"])),
-          "seconds": time.perf_counter() - t0})
-    check(res_e * res_e * spp_e // 2 >= SORT_MIN, "comparison wave below SORT_MIN")
-    check(gpu_launches == {"skip_closest": 0, "skip_any_hit": 0, "ordered_closest": 0,
-                           "ordered_any_hit": 0, "bvh4_closest": cfg_e.max_depth + 1,
-                           "bvh4_any_hit": cfg_e.max_depth + 1},
-          f"GPU mesh render took {gpu_launches}, not the 4-wide route")
-    check(np.isfinite(imgs["cuda"]).all() and err < RELMAE_MAX,
-          f"GPU mesh render differs from the CPU render (relative MAE {err})")
-
-    # the bench render through the kernels: one warm-up, three timed
-    t0 = time.perf_counter()
-    cfg = IntegratorConfig(kind="path", max_depth=5)
-    spp = meta.sampler.spp
-    render(scene, meta, cfg, spp=spp, device=dev)
-    torch.cuda.synchronize()
-    times, launches, waves = [], [], []
-    torch.cuda.reset_peak_memory_stats(dev)
-    held = torch.cuda.memory_allocated(dev)
-    for _ in range(3):
-        for counts in (bs.LAUNCHES, b4.LAUNCHES, bi.LAUNCHES, CLOSEST_WAVES):
-            counts.update(dict.fromkeys(counts, 0))
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        img, _ = render(scene, meta, cfg, spp=spp, device=dev)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t1)
-        launches.append(dict(bs.LAUNCHES, **b4.LAUNCHES, **bi.LAUNCHES))
-        waves.append(dict(CLOSEST_WAVES))
-    img = img.cpu().numpy()
-    # one megawave of 1M rays, every wave on the 4-wide kernels: the camera
-    # wave's closest hit (unbinned), the binned closest hits of bounces 1-5,
-    # one shadow wave a bounce
-    expected = {"skip_closest": 0, "skip_any_hit": 0, "ordered_closest": 0,
-                "ordered_any_hit": 0, "bvh4_closest": cfg.max_depth + 1,
-                "bvh4_any_hit": cfg.max_depth + 1, **dict.fromkeys(bi.KERNELS, 0)}
-    expected_waves = {"binned": cfg.max_depth, "unbinned": 1}
-    emit({"phase": "bench", "scene": "mesh100k", "res": 256, "spp": spp,
-          "max_depth": cfg.max_depth, "grid": MESH_GRID, "render_seconds": times,
-          "camera_rays_per_sec": meta.xres * meta.yres * spp / statistics.median(times),
-          "launches_per_render": launches, "expected_launches": expected,
-          "bvh4_closest_by_wave": waves, "expected_by_wave": expected_waves,
-          "host_build_seconds": build_s, "image_mean": float(img.mean()),
-          "isfinite": bool(np.isfinite(img).all()),
-          "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
-          "held_before_render_bytes": held, "seconds": time.perf_counter() - t0})
-    check(all(n == expected for n in launches),
-          f"traversal kernels launched {launches} per render, want {expected}")
-    check(all(w == expected_waves for w in waves),
-          f"bvh4_closest took waves {waves} per render, want {expected_waves}")
-    check(np.isfinite(img).all() and img.shape == (256, 256, 3) and img.mean() > 0.0,
-          "bench image is not finite and positive")
-
     # each kernel's time, its plain version's and its bound at 1M rays
     t0 = time.perf_counter()
-    entries = []
+    timed = {}
     for name in bs.KERNELS:
         kind, any_hit = _kind(name)
         r = results[name]
@@ -610,22 +624,19 @@ def mesh_phases(dev, gpu):
               "record_bytes_read": (n_box + n_tri) * bs.FIELDS * 4,
               "bytes": bytes_moved, "operations": ops, "bytes_ms": t_bytes,
               "operations_ms": t_ops, "gpu": gpu})
-        entries.append({
+        timed[name] = {
             "name": f"bvh_stream_{name}", "case": r["case"], "route": "cuda",
-            "source": STREAM_SOURCE,
-            "replaces": STREAM_REPLACES[kind], "launches": launches[0][name],
+            "source": STREAM_SOURCE, "replaces": STREAM_REPLACES[kind],
             "max_abs_err": max(r["errs"].values()), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
-            "library_ms": None})
+            "library_ms": None}
     # each 4-wide kernel in turns with the kernel it replaces (old, new,
-    # new, old) on each wave; its bound counts its own walk on these rays:
-    # the ray bytes and the 4-wide tables once, 26 operations a slab test
-    # and 55 a triangle test. The bound of the replaced kernel's walk on
-    # these rays (the record table, the records it visits) is printed beside
-    # it as bound_ms_record_walk.
-    table4_bytes = (nodes.numel() + tris4.numel()) * 4
-    for name, old, wave in BVH4_REPLACES:
+    # new, old) on each wave, row 3's ordered any hit too; its bound counts
+    # its own walk on these rays (bvh4_bound). The bound of the replaced
+    # kernel's walk on these rays (the record table, the records it visits)
+    # is printed beside it as bound_ms_record_walk.
+    for name, old, wave in BVH4_REPLACES + (BVH4_ROW3,):
         any_hit = name == "bvh4_any_hit"
         r = results[old]
         args = r["args"]
@@ -641,33 +652,314 @@ def mesh_phases(dev, gpu):
             plain_ms = cuda_ms(lambda: b4.bvh4_traverse_plain(
                 nodes, tris4, *args, any_hit=any_hit, stack=stack), 1, warmup=0)
         ms = statistics.mean(turns["new"])
-        n_node, n_test, n_tri4 = results4[old]["counts"]
-        ops = OPS_PER_BOX * n_test + OPS_PER_PAIR * n_tri4
-        bytes_moved = N_RAYS * RAY_BYTES + table4_bytes
-        t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_FP32_OPS * 1e3
+        counts = results4[old]["counts"]
+        bound, by = bvh4_bound(counts, table4_bytes)
         n_box, n_tri = r["visits"]
         rec_bound = max((N_RAYS * RAY_BYTES + table.numel() * 4) / PEAK_BYTES,
                         (OPS_PER_BOX * n_box + OPS_PER_PAIR * n_tri) / PEAK_FP32_OPS) * 1e3
-        emit({"phase": "kernel_time", "kernel": name, "case": r["case"], "rays": N_RAYS,
-              "live_rays": r["live"], "ms": ms, "ms_turns": turns, "plain_ms": plain_ms,
+        emit({"phase": "kernel_time", "scene": "mesh100k", "kernel": name,
+              "case": r["case"], "rays": N_RAYS, "live_rays": r["live"], "ms": ms,
+              "ms_turns": turns, "plain_ms": plain_ms,
               "fill_blocks": b4.fill_blocks(dev.index, any_hit, stack),
-              "node_fetches": n_node, "box_tests": n_test, "tri_tests": n_tri4,
-              "bytes_read": n_node * NODE_BYTES + n_tri4 * TRI_BYTES,
-              "bytes": bytes_moved, "operations": ops, "bytes_ms": t_bytes,
-              "operations_ms": t_ops, "bound_ms": max(t_bytes, t_ops),
-              "replaced": f"bvh_stream_{old}", "replaced_ms": statistics.mean(turns["old"]),
+              "node_fetches": counts[0], "box_tests": counts[1], "tri_tests": counts[2],
+              "bytes_read": counts[0] * NODE_BYTES + counts[2] * TRI_BYTES,
+              "bound_ms": bound, "bound_by": by, "replaced": f"bvh_stream_{old}",
+              "replaced_ms": statistics.mean(turns["old"]),
               "replaced_box_visits": n_box, "replaced_tri_visits": n_tri,
               "bound_ms_record_walk": rec_bound, "gpu": gpu})
-        entries.append({
+        timed[(name, old)] = {
             "name": name, "case": r["case"], "route": "cuda", "source": BVH4_SOURCE,
             "replaces": STREAM_REPLACES[old_kind],
-            "launches": waves[0][wave] if wave else launches[0][name],
             "max_abs_err": max(results4[old]["errs"].values()), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes > t_ops else "operations",
-            "bound_ms_record_walk": rec_bound, "library_ms": None})
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "bound_ms_record_walk": rec_bound, "library_ms": None}
     emit({"phase": "kernel_time", "scene": "mesh100k", "seconds": time.perf_counter() - t0})
+    del cases, results, table
+
+    # the main path on the card against the same render on the CPU, at
+    # 16,384 lanes: above the dispatch's binning threshold (SORT_MIN) at
+    # every bounce, also after the pre-RR split halves the wave, so the
+    # comparison bins every wave after the camera wave as the bench render
+    # does
+    t0 = time.perf_counter()
+    cfg_e = IntegratorConfig(kind="path", max_depth=3)
+    res_e, spp_e = 64, 4
+    imgs = {}
+    for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        sc, mt, _ = mesh_scene(res_e, res_e, spp_e, grid=MESH_GRID, device=where)
+        for counts in (bs.LAUNCHES, b4.LAUNCHES):
+            counts.update(dict.fromkeys(counts, 0))
+        imgs[side] = render(sc, mt, cfg_e, spp=spp_e,
+                                  device=where)[0].cpu().numpy()
+        if side == "card":
+            gpu_launches = dict(bs.LAUNCHES, **b4.LAUNCHES)
+    err = relative_mae(imgs["card"], imgs["cpu"])
+    emit({"phase": "main_path_vs_cpu", "scene": "mesh100k", "res": res_e,
+          "spp": spp_e, "max_depth": 3, "lanes": res_e * res_e * spp_e,
+          "sort_min": SORT_MIN, "gpu_launches": gpu_launches, "relative_mae": err,
+          "bitwise_equal": bool(np.array_equal(imgs["card"], imgs["cpu"])),
+          "seconds": time.perf_counter() - t0})
+    check(res_e * res_e * spp_e // 2 >= SORT_MIN, "comparison wave below SORT_MIN")
+    check(gpu_launches == {"skip_closest": 0, "skip_any_hit": 0, "ordered_closest": 0,
+                           "ordered_any_hit": 0, "bvh4_closest": cfg_e.max_depth + 1,
+                           "bvh4_any_hit": cfg_e.max_depth + 1},
+          f"GPU mesh render took {gpu_launches}, not the 4-wide route")
+    check(np.isfinite(imgs["card"]).all() and err < RELMAE_MAX,
+          f"GPU mesh render differs from the CPU render (relative MAE {err})")
+
+    # the bench render through the kernels: one warm-up, three timed
+    t0 = time.perf_counter()
+    cfg = IntegratorConfig(kind="path", max_depth=5)
+    spp = meta.sampler.spp
+    times, launches, waves, img, peak, held = bench_render(scene, meta, cfg, spp, dev)
+    emit({"phase": "bench", "scene": "mesh100k", "res": 256, "spp": spp,
+          "max_depth": cfg.max_depth, "grid": MESH_GRID, "render_seconds": times,
+          "camera_rays_per_sec": meta.xres * meta.yres * spp / statistics.median(times),
+          "launches_per_render": launches, "expected_launches": MESH_EXPECTED,
+          "bvh4_closest_by_wave": waves, "expected_by_wave": MESH_EXPECTED_WAVES,
+          "host_build_seconds": build_s, "image_mean": float(img.mean()),
+          "isfinite": bool(np.isfinite(img).all()), "peak_memory_bytes": peak,
+          "held_before_render_bytes": held, "seconds": time.perf_counter() - t0})
+    check(all(n == MESH_EXPECTED for n in launches),
+          f"traversal kernels launched {launches} per render, want {MESH_EXPECTED}")
+    check(all(w == MESH_EXPECTED_WAVES for w in waves),
+          f"bvh4_closest took waves {waves} per render, want {MESH_EXPECTED_WAVES}")
+    check(np.isfinite(img).all() and img.shape == (256, 256, 3) and img.mean() > 0.0,
+          "bench image is not finite and positive")
+
+    entries = [dict(timed[name], launches=launches[0][name]) for name in bs.KERNELS]
+    for name, old, wave in BVH4_REPLACES:
+        entries.append(dict(timed[(name, old)],
+                            launches=waves[0][wave] if wave else launches[0][name]))
     return entries
+
+
+def mesh1m_phases(dev, gpu):
+    """Phases 10-14 (mesh1m: the 1M-triangle terrain seen through a thin lens
+    by a moving camera, bench.py's third scene). Its kernels are the 4-wide
+    ones of mesh100k: their entries in the kernels line stay mesh100k's."""
+    t0 = time.perf_counter()
+    scene, meta, _ = mesh_scene_1m(256, 256, MESH1M_SPP, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    bvh = scene["bvh"]
+    nodes, tris4, stack = (bvh[k] for k in ("bvh4_nodes", "bvh4_tris", "bvh4_stack"))
+    table4_bytes = (nodes.numel() + tris4.numel()) * 4
+    # what the record table would cost here, on request, then dropped
+    t1 = time.perf_counter()
+    attach_record_table(scene)
+    torch.cuda.synchronize()
+    record_s = time.perf_counter() - t1
+    record_bytes = bvh.pop("stream").numel() * 4
+    del bvh["depth"]
+    cam = scene["camera"]
+    emit({"phase": "mesh_scene", "scene": "mesh1m", "grid": 708,
+          "triangles": meta.n_tris, "bvh4_nodes": nodes.shape[0],
+          "bvh4_node_bytes": nodes.numel() * 4, "bvh4_tri_bytes": tris4.numel() * 4,
+          "bvh4_table_bytes": table4_bytes, "bvh4_stack_bound": stack,
+          "host_build_seconds": build_s, "record_table_bytes": record_bytes,
+          "record_table_host_seconds": record_s,
+          "lens_radius": float(cam["lens_radius"]),
+          "focal_distance": float(cam["focal_distance"]),
+          "camera_moves": bool(cam["c2w"]["animated"])})
+    check(meta.n_tris == 1_001_906 and stack <= b4.STACK_MAX
+          and float(cam["lens_radius"]) > 0 and bool(cam["c2w"]["animated"]),
+          "mesh1m is not the 1M-triangle DOF and motion-blur scene")
+
+    # parity: each 4-wide kernel on each mesh1m wave it takes
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cases = mesh_ray_cases(scene, meta, dev)
+    results = {}
+    for name, wave in MESH1M_WAVES:
+        _, line, results[(name, wave)] = bvh4_parity("mesh1m", name, wave, cases[wave], bvh)
+        emit(line)
+    emit({"phase": "parity", "scene": "mesh1m", "seconds": time.perf_counter() - t0})
+
+    # each 4-wide kernel's time on each wave, its plain version's, its bound
+    t0 = time.perf_counter()
+    for name, wave in MESH1M_WAVES:
+        any_hit = name == "bvh4_any_hit"
+        args = cases[wave]
+        with torch.no_grad():
+            ms = cuda_ms(lambda: b4.bvh4_traverse(nodes, tris4, *args, any_hit=any_hit,
+                                                  stack=stack), 20)
+            plain_ms = cuda_ms(lambda: b4.bvh4_traverse_plain(
+                nodes, tris4, *args, any_hit=any_hit, stack=stack), 1, warmup=0)
+        counts = results[(name, wave)]["counts"]
+        bound, by = bvh4_bound(counts, table4_bytes)
+        emit({"phase": "kernel_time", "scene": "mesh1m", "kernel": name, "case": wave,
+              "rays": N_RAYS, "live_rays": results[(name, wave)]["live"], "ms": ms,
+              "plain_ms": plain_ms, "node_fetches": counts[0], "box_tests": counts[1],
+              "tri_tests": counts[2],
+              "bytes_read": counts[0] * NODE_BYTES + counts[2] * TRI_BYTES,
+              "table_bytes": table4_bytes, "bound_ms": bound, "bound_by": by,
+              "percent_of_bound": 100.0 * bound / ms, "gpu": gpu})
+    emit({"phase": "kernel_time", "scene": "mesh1m", "seconds": time.perf_counter() - t0})
+    del cases
+
+    # the main path on the card against the CPU, the full geometry at 32x32
+    t0 = time.perf_counter()
+    cfg_e = IntegratorConfig(kind="path", max_depth=3)
+    res_e, spp_e = 32, 2
+    imgs = {}
+    for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        sc, mt, _ = mesh_scene_1m(res_e, res_e, spp_e, device=where)
+        b4.LAUNCHES.update(dict.fromkeys(b4.LAUNCHES, 0))
+        imgs[side] = render(sc, mt, cfg_e, spp=spp_e,
+                                  device=where)[0].cpu().numpy()
+        if side == "card":
+            gpu_launches = dict(b4.LAUNCHES)
+        del sc
+    err = relative_mae(imgs["card"], imgs["cpu"])
+    emit({"phase": "main_path_vs_cpu", "scene": "mesh1m", "res": res_e, "spp": spp_e,
+          "max_depth": 3, "gpu_launches": gpu_launches, "relative_mae": err,
+          "bitwise_equal": bool(np.array_equal(imgs["card"], imgs["cpu"])),
+          "seconds": time.perf_counter() - t0})
+    check(gpu_launches == dict.fromkeys(b4.KERNELS, cfg_e.max_depth + 1),
+          f"GPU mesh1m render took {gpu_launches}, not the 4-wide route")
+    check(np.isfinite(imgs["card"]).all() and err < RELMAE_MAX,
+          f"GPU mesh1m render differs from the CPU render (relative MAE {err})")
+
+    # bench.py's mesh1m render: 256x256, 4 spp (one megawave), depth 5
+    t0 = time.perf_counter()
+    cfg = IntegratorConfig(kind="path", max_depth=5)
+    times, launches, waves, img, peak, held = bench_render(scene, meta, cfg,
+                                                           MESH1M_SPP, dev)
+    emit({"phase": "bench", "scene": "mesh1m", "res": 256, "spp": MESH1M_SPP,
+          "max_depth": cfg.max_depth, "grid": 708, "render_seconds": times,
+          "camera_rays_per_sec": meta.xres * meta.yres * MESH1M_SPP
+          / statistics.median(times),
+          "launches_per_render": launches, "expected_launches": MESH_EXPECTED,
+          "bvh4_closest_by_wave": waves, "expected_by_wave": MESH_EXPECTED_WAVES,
+          "host_build_seconds": build_s, "image_mean": float(img.mean()),
+          "isfinite": bool(np.isfinite(img).all()), "peak_memory_bytes": peak,
+          "held_before_render_bytes": held, "seconds": time.perf_counter() - t0})
+    check(all(n == MESH_EXPECTED for n in launches),
+          f"traversal kernels launched {launches} per mesh1m render, want {MESH_EXPECTED}")
+    check(all(w == MESH_EXPECTED_WAVES for w in waves),
+          f"bvh4_closest took waves {waves} per mesh1m render")
+    check(np.isfinite(img).all() and img.shape == (256, 256, 3) and img.mean() > 0.0,
+          "mesh1m bench image is not finite and positive")
+
+
+def _get(tree, path):
+    return functools.reduce(lambda t, k: t[k], path, tree)
+
+
+def _with_leaf(tree, path, value):
+    """A copy of the scene's containers along `path` with that leaf replaced."""
+    if not path:
+        return value
+    k, rest = path[0], path[1:]
+    if isinstance(tree, tuple):
+        return tree[:k] + (_with_leaf(tree[k], rest, value),) + tree[k + 1:]
+    return dict(tree, **{k: _with_leaf(tree[k], rest, value)})
+
+
+def scene_grads(scene, meta, leaves, cfg, dev):
+    """Gradients of the mean image of one wave (1 spp) for the scene leaves
+    at `leaves` ({name: path}): (loss, {name: grad}, forward s, backward s)."""
+    params = {k: _get(scene, p).detach().clone().requires_grad_(True)
+              for k, p in leaves.items()}
+    for k, p in leaves.items():
+        scene = _with_leaf(scene, p, params[k])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    film = render_wave(scene, meta, cfg, new_film(meta.xres, meta.yres, dev), 0,
+                       device=dev)
+    loss = develop(film).mean()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss.backward()
+    torch.cuda.synchronize()
+    return (loss.item(), {k: v.grad for k, v in params.items()}, t1 - t0,
+            time.perf_counter() - t1)
+
+
+@contextlib.contextmanager
+def plain_traversal():
+    """The intersect dispatch calls the plain versions on the card: a
+    comparison only (the wrappers take them only for CPU tensors)."""
+    saved = isect.brute_intersect, isect.bvh4_traverse
+    isect.brute_intersect = bi.brute_intersect_plain
+    isect.bvh4_traverse = lambda *args, **kw: b4.bvh4_traverse_plain(*args, **kw)[:4]
+    try:
+        yield
+    finally:
+        isect.brute_intersect, isect.bvh4_traverse = saved
+
+
+def grad_phases(dev, gpu):
+    """Phase 15: gradients through the render (the training path) on both
+    routes, then inverse rendering of the Cornell albedo."""
+    cfg = IntegratorConfig(kind="path", max_depth=5)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    for name, make, kernels in GRAD_SCENES:
+        t0 = time.perf_counter()
+        scene, meta, _ = make(256, 256, 1, device=dev)
+        leaves = GRAD_LEAVES[name]
+        for counts in (bi.LAUNCHES, b4.LAUNCHES):
+            counts.update(dict.fromkeys(counts, 0))
+        torch.cuda.reset_peak_memory_stats(dev)
+        loss, grads, fwd_s, bwd_s = scene_grads(scene, meta, leaves, cfg, dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches = {k: n for c in (bi.LAUNCHES, b4.LAUNCHES) for k, n in c.items()
+                    if k in kernels}
+        with plain_traversal():
+            loss_p, grads_p, _, _ = scene_grads(scene, meta, leaves, cfg, dev)
+        bitwise = {k: torch.equal(grads[k], grads_p[k]) for k in leaves}
+        emit({"phase": "grad", "scene": name, "res": 256, "spp": 1,
+              "max_depth": cfg.max_depth, "loss": loss, "loss_plain": loss_p,
+              "launches": launches, "forward_seconds": fwd_s, "backward_seconds": bwd_s,
+              "peak_memory_bytes": peak,
+              "grad_abs_sum": {k: float(g.abs().sum()) for k, g in grads.items()},
+              "nonzero": {k: int((g != 0).sum()) for k, g in grads.items()},
+              "max_abs_diff_vs_plain": {k: float((grads[k] - grads_p[k]).abs().max())
+                                        for k in leaves},
+              "bitwise_equal_vs_plain": bitwise, "gpu": gpu})
+        check(all(n > 0 for n in launches.values()) and set(launches) == set(kernels),
+              f"the {name} gradient took the kernels {launches}")
+        check(all(bool(torch.isfinite(g).all()) and bool((g != 0).any())
+                  for g in grads.values()), f"{name} gradients not finite and nonzero")
+        check(all(bitwise.values()),
+              f"{name} gradients through the kernel differ from the plain version's")
+        del scene, grads, grads_p
+
+        # the card against the CPU at 32x32
+        got = {}
+        for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            sc, mt, _ = make(32, 32, 1, device=where)
+            got[side] = {k: g.cpu() for k, g in
+                               scene_grads(sc, mt, leaves, cfg, where)[1].items()}
+        diffs = {}
+        for k in leaves:
+            a, b = got["card"][k], got["cpu"][k]
+            tol = GRAD_ATOL * float(b.abs().max())
+            diffs[k] = float((a - b).abs().max())
+            check(bool(torch.allclose(a, b, rtol=GRAD_RTOL, atol=tol)),
+                  f"{name} {k} gradient on the card differs from the CPU's "
+                  f"(max |diff| {diffs[k]}, atol {tol})")
+        emit({"phase": "grad_vs_cpu", "scene": name, "res": 32, "spp": 1,
+              "max_depth": cfg.max_depth, "max_abs_diff": diffs, "rtol": GRAD_RTOL,
+              "atol_of_max": GRAD_ATOL, "seconds": time.perf_counter() - t0})
+    torch.use_deterministic_algorithms(False)
+
+    # inverse rendering: the white walls' albedo from a target image
+    t0 = time.perf_counter()
+    scene, meta, _ = cornell_box(128, 128, 1, device=dev)
+    cfg1 = IntegratorConfig(kind="path", max_depth=1)
+    target, _ = render(scene, meta, cfg1, spp=1, device=dev)
+    rec, losses = optimize_albedo(scene, meta, cfg1, target, steps=25, lr=0.1, spp=1,
+                                  param_rows=(0,), device=dev)
+    true = scene["tex_data"]["const"][0]
+    err0 = float((true - 0.5).abs().mean())
+    err1 = float((true - rec[0]).abs().mean())
+    emit({"phase": "optimize_albedo", "scene": "cornell", "res": 128, "spp": 1,
+          "max_depth": 1, "steps": 25, "losses": losses, "albedo_error_start": err0,
+          "albedo_error_end": err1, "seconds": time.perf_counter() - t0})
+    check(losses[-1] < 0.3 * losses[0] and err1 < 0.5 * err0,
+          "inverse rendering did not recover the albedo")
 
 
 def main():
@@ -701,6 +993,8 @@ def main():
     issue_rate = sms * LANES_PER_SM * clock_mhz * 1e6
 
     kernels = cornell_phases(dev, gpu, issue_rate, sass) + mesh_phases(dev, gpu)
+    mesh1m_phases(dev, gpu)
+    grad_phases(dev, gpu)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(gpu, flush=True)
     emit({"kernels": kernels})

@@ -41,9 +41,11 @@ def uniform_sample_triangle(u1, u2):
 
 
 def power_heuristic(nf, f_pdf, ng, g_pdf):
-    """beta=2 power heuristic (pbrt PowerHeuristic)."""
-    f = nf * f_pdf
-    g = ng * g_pdf
+    """beta=2 power heuristic (pbrt PowerHeuristic). Weights above 1e18,
+    whose squares would overflow to a NaN weight (and a NaN gradient even on
+    a masked lane), are clamped first; below that the result is unchanged."""
+    f = torch.clamp_max(nf * f_pdf, 1e18)
+    g = torch.clamp_max(ng * g_pdf, 1e18)
     return (f * f) / torch.clamp_min(f * f + g * g, 1e-12)
 
 

@@ -32,6 +32,27 @@ def length_sq(v):
     return dot(v, v)
 
 
+class _SqrtClamped(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.sqrt(torch.clamp_min(x, 0.0))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        y, = ctx.saved_tensors
+        pos = y > 0.0
+        return torch.where(pos, g / (2.0 * torch.where(pos, y, 1.0)), 0.0)
+
+
+def safe_sqrt(x):
+    """sqrt(max(x, 0)), whose gradient where the result is 0 is 0, not the
+    infinite slope of sqrt at 0 (which, times a masked lane's zero
+    cotangent, makes a NaN)."""
+    return _SqrtClamped.apply(x)
+
+
 def normalize(v):
     return v * torch.rsqrt(torch.clamp_min(length_sq(v), 1e-30))[..., None]
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from . import filters as flt
 
@@ -50,12 +51,13 @@ def _untile(x, yres, xres):
 
 
 def _add_shifted(acc, a, dy, dx):
-    """acc[y, x] += a[y-dy, x-dx] where the source lies inside the image (in
-    place: the reference adds a zero-padded shifted copy, which leaves the
-    other pixels as they were)."""
+    """acc[y, x] + a[y-dy, x-dx], with a zero where the source lies outside
+    the image: the reference's add of a zero-padded shifted copy. Out of
+    place, so gradients flow back through the film."""
     h, w = a.shape[0], a.shape[1]
-    acc[max(dy, 0):h + min(dy, 0), max(dx, 0):w + min(dx, 0)] += \
-        a[max(-dy, 0):h - max(dy, 0), max(-dx, 0):w - max(dx, 0)]
+    src = a[max(-dy, 0):h - max(dy, 0), max(-dx, 0):w - max(dx, 0)]
+    pad = (0, 0) * (a.dim() - 2) + (max(dx, 0), max(-dx, 0), max(dy, 0), max(-dy, 0))
+    return acc + F.pad(src, pad)
 
 
 def add_samples_grid(film, fcfg: flt.FilterConfig, sx, sy, L, chunk,
@@ -79,16 +81,15 @@ def add_samples_grid(film, fcfg: flt.FilterConfig, sx, sy, L, chunk,
             return _untile(x, yres, xres)
         return x.reshape(yres, xres, *x.shape[1:])
 
-    rgb = film["rgb"].clone()
-    wsum = film["weight"].clone()
+    rgb, wsum = film["rgb"], film["weight"]
     for c in range(chunk):
         sl = slice(c * yres * xres, (c + 1) * yres * xres)
         for dy in range(-ry, ry + 1):
             for dx in range(-rx, rx + 1):
                 w = flt.evaluate(fcfg, px[sl] + dx - dimx[sl],
                                  py[sl] + dy - dimy[sl]) * weight[sl]
-                _add_shifted(rgb, to_image(w[..., None] * L[sl]), dy, dx)
-                _add_shifted(wsum, to_image(w), dy, dx)
+                rgb = _add_shifted(rgb, to_image(w[..., None] * L[sl]), dy, dx)
+                wsum = _add_shifted(wsum, to_image(w), dy, dx)
     return {"rgb": rgb, "weight": wsum, "splat": film["splat"]}
 
 

@@ -101,6 +101,14 @@ def _shade_context(scene, meta, hit, o, d, camdiff=None):
     return sg, lobes, wo_local
 
 
+def _detach(x):
+    """The reference's stop-gradient on what divides the estimator or decides
+    a path (sampling pdfs, the light pmf, the partner pdf of MIS, Russian
+    roulette): the gradient is that of the estimator with the samples held
+    fixed."""
+    return x.detach()
+
+
 def estimate_direct(scene, meta, sg, lobes, wo_local, light_idx, light_pmf,
                     u_light, u_tri, active):
     """One-light direct lighting, light-sampling branch with the power
@@ -127,9 +135,9 @@ def estimate_direct(scene, meta, sg, lobes, wo_local, light_idx, light_pmf,
     Ld = torch.where(
         (contrib_possible & ~occluded)[..., None],
         f_l * ls["radiance"]
-        * (cos_l * w_l / torch.clamp_min(ls["pdf"], 1e-12))[..., None],
+        * (cos_l * w_l / _detach(torch.clamp_min(ls["pdf"], 1e-12)))[..., None],
         0.0)
-    return Ld / torch.clamp_min(light_pmf, 1e-12)[..., None]
+    return Ld / _detach(torch.clamp_min(light_pmf, 1e-12))[..., None]
 
 
 def _pick_light(meta, pix, samp, bounce):
@@ -171,9 +179,12 @@ def _make_bounce_body(scene, meta, cfg, pix, samp, camdiff=None):
         # MIS-weighted by the light strategy's per-point pdf at this hit
         if lt.AREA in meta.light_types:
             cos_at = dot(sg["ng"], -d)
-            lp = lt.area_light_pdf_dir(scene, torch.clamp_min(sg["light"], 0),
-                                       o, d, hit["t"], cos_at)
             on_light = sg["light"] >= 0
+            # the pdf is read on light hits only; elsewhere t may be the miss
+            # sentinel, whose square overflows and would turn the gradient
+            # into NaN (the reference's fault, ROADMAP C.4)
+            lp = lt.area_light_pdf_dir(scene, torch.clamp_min(sg["light"], 0), o, d,
+                                       torch.where(on_light, hit["t"], 0.0), cos_at)
             w_em = torch.where(spec_bounce | ~on_light, 1.0,
                                mc.power_heuristic(1.0, pdf_prev, 1.0, lp))
             L = L + torch.where(active[..., None],
@@ -197,7 +208,8 @@ def _make_bounce_body(scene, meta, cfg, pix, samp, camdiff=None):
                             meta.lobe_types, include_specular=True)
         wi_w = geom.local_to_world(sg, bs["wi"])
         cos_c = absdot(wi_w, sg["ns"])
-        contrib = bs["f"] * (cos_c / torch.clamp_min(bs["pdf"], 1e-12))[..., None]
+        contrib = bs["f"] * (cos_c
+                             / _detach(torch.clamp_min(bs["pdf"], 1e-12)))[..., None]
         cont_ok = bs["valid"] & torch.any(bs["f"] != 0.0, dim=-1)
         throughput = torch.where(cont_ok[..., None], throughput * contrib, throughput)
         active = active & cont_ok
@@ -205,17 +217,17 @@ def _make_bounce_body(scene, meta, cfg, pix, samp, camdiff=None):
         # the light strategy's partner pdf for the next hit's emission
         pdf_prev = torch.where(
             bs["specular"], 0.0,
-            bx.bsdf_pdf(lobes, wo_local, geom.world_to_local(sg, wi_w),
-                        meta.lobe_types, include_specular=False))
+            _detach(bx.bsdf_pdf(lobes, wo_local, geom.world_to_local(sg, wi_w),
+                                meta.lobe_types, include_specular=False)))
 
         # Russian roulette (path.cpp: after rr_depth bounces)
         if bounce >= cfg.rr_depth:
-            q = torch.clamp_max(luminance(throughput), 0.5)
+            q = torch.clamp_max(luminance(_detach(throughput)), 0.5)
         else:
             q = torch.ones_like(pdf_prev)
         u_rr = _sample_1d(meta, pix, samp, bounce, _D_RR)
         active = active & (u_rr < q)
-        throughput = throughput / torch.clamp_min(q, 1e-6)[..., None]
+        throughput = throughput / _detach(torch.clamp_min(q, 1e-6))[..., None]
 
         o = sg["p"] + wi_w * sg["ray_eps"][..., None]
         return (o, wi_w, L, throughput, active, spec_bounce, pdf_prev)
@@ -297,10 +309,9 @@ def li(scene, meta, cfg: IntegratorConfig, rays, pix, samp):
         sub = sub[:4] + (sub[4] & live,) + sub[5:]
         subL = tail(sub, pix_t[gidx], samp_t[gidx], cap, sb, splits[1:])
         # only the first `count` take entries name live lanes; the rest would
-        # fall outside the wave (the reference drops them in its scatter)
-        out = st[2].clone()
-        out[take[:count]] = subL[:count]
-        return out
+        # fall outside the wave (the reference drops them in its scatter).
+        # Out of place, so gradients reach both waves.
+        return st[2].index_put((take[:count],), subL[:count])
 
     L = tail(state, pix, samp, n, 1, splits)
     return L * rays["weight"][..., None]

@@ -5,7 +5,9 @@ A megawave is every pixel times `chunk` consecutive sample indices; the
 render is a Python loop over megawaves. Counter-based sampling makes every
 wave a pure function of (pixel, sample) ids, and the film accumulates wave by
 wave in sample order, so the image is bitwise the same however the chunks
-fall. Runs under torch.no_grad(): this is the serving path.
+fall. `render` is the serving path and runs under torch.no_grad();
+`render_wave` records gradients when a scene leaf requires them, as the
+reference's render_wave is differentiated (tools/optimize.py).
 """
 from __future__ import annotations
 
@@ -49,10 +51,10 @@ def camera_rays(scene, meta, pix, samp):
     return rays, px, py, ufx, ufy
 
 
-@torch.no_grad()
 def render_wave(scene, meta, cfg, film, samp_idx, pix=None, grid_chunk=None,
                 tiled=False, device=None):
-    """One megawave: raygen -> Li -> film accumulate; returns the new film.
+    """One megawave: raygen -> Li -> film accumulate; returns the new film,
+    differentiable to the scene's leaves that require grad.
 
     pix: (N,) pixel ids (defaults to the full grid, one sample each);
     samp_idx: a scalar sample index or (N,) per-lane indices. grid_chunk:

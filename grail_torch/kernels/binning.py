@@ -21,13 +21,9 @@ def bucket_rank(key, n_buckets):
 
 
 def sort_by_rank(rank, *arrays):
-    """Scatter each array into bucket-sorted order (rank is a permutation)."""
-    out = []
-    for a in arrays:
-        z = torch.empty_like(a)
-        z[rank] = a
-        out.append(z)
-    return tuple(out)
+    """Scatter each array into bucket-sorted order (rank is a permutation);
+    out of place, so gradients flow back through it."""
+    return tuple(torch.empty_like(a).index_put((rank,), a) for a in arrays)
 
 
 def unsort(rank, *arrays):

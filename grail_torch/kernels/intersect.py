@@ -3,9 +3,11 @@ route for scenes without a BVH and, for scenes with one, the 4-wide BVH
 route on every wave.
 
 Hit record (dict of (N,) tensors): t, prim (int32, -1 = miss), b1, b2.
-Scenes with instances, a scene-sharded ring or clustered stream tables take
-routes that are not ported yet: the dispatch raises for them rather than
-picking something else.
+Closest hit is differentiable on both routes (ClosestHit: the traversal
+finds the hit, the backward differentiates Möller-Trumbore at the hit
+triangle); any hit returns booleans and has no gradient. Scenes with
+instances or a scene-sharded ring take routes that are not ported yet: the
+dispatch raises for them rather than picking something else.
 """
 from __future__ import annotations
 
@@ -54,6 +56,51 @@ def pack_tris(scene):
     return torch.cat(_tri_edges(scene), dim=-1).contiguous()
 
 
+class ClosestHit(torch.autograd.Function):
+    """Closest hit with the reference's frozen-prim backward (the custom VJPs
+    of grail/kernels/bvh_stream.py `_make_intersect` and pallas_intersect.py
+    `brute_intersect_pallas`). Forward: `traverse(o, d, tmin, tmax)`, a
+    kernel on the card or its plain version on the CPU, gives (t, prim, b1,
+    b2). Backward: with each ray's hit triangle held fixed, (t, b1, b2) are
+    Möller-Trumbore's closed form at prim, from the rows of the unordered
+    (T,9) table pack_tris(scene) (gathered here at prim, so gradients reach
+    `verts`); a miss gives t = tmax and b1 = b2 = 0, and no gradient to
+    its ray or the triangles. prim gets no cotangent. Use:
+    ClosestHit.apply(traverse, verts, tri_idx, o, d, tmin, tmax)."""
+
+    @staticmethod
+    def forward(ctx, traverse, verts, tri_idx, o, d, tmin, tmax):
+        t, prim, b1, b2 = traverse(o, d, tmin, tmax)
+        ctx.mark_non_differentiable(prim)
+        ctx.save_for_backward(verts, tri_idx, o, d, tmin, tmax, prim)
+        return t, prim, b1, b2
+
+    @staticmethod
+    def backward(ctx, g_t, _g_prim, g_b1, g_b2):
+        verts, tri_idx, o, d, tmin, tmax, prim = ctx.saved_tensors
+        wanted = ctx.needs_input_grad[1:2] + ctx.needs_input_grad[3:]
+        ok = prim >= 0
+        with torch.enable_grad():
+            leaves = [a.detach().requires_grad_(w)
+                      for a, w in zip((verts, o, d, tmin, tmax), wanted)]
+            v, o, d, tmin, tmax = leaves
+            idx = tri_idx[prim.clamp_min(0).long()]
+            v0 = v[idx[:, 0]]
+            # a miss tests triangle 0 with a zero direction: its divisor is
+            # exactly 0, so the safe divide keeps every slope finite (a tiny
+            # divisor would make the masked lane's zero cotangent a NaN)
+            _, t, b1, b2 = moller_trumbore(o, torch.where(ok[:, None], d, 0.0), v0,
+                                           v[idx[:, 1]] - v0, v[idx[:, 2]] - v0,
+                                           tmin, tmax)
+            outs = (torch.where(ok, t, tmax), torch.where(ok, b1, 0.0),
+                    torch.where(ok, b2, 0.0))
+            need = [a for a in leaves if a.requires_grad]
+            got = iter(torch.autograd.grad(outs, need, (g_t, g_b1, g_b2),
+                                           allow_unused=True))
+        g_v, g_o, g_d, g_tmin, g_tmax = (next(got) if w else None for w in wanted)
+        return None, g_v, None, g_o, g_d, g_tmin, g_tmax
+
+
 def intersect_brute(scene, o, d, tmax, tmin=None):
     """All-pairs rays x triangles with moller_trumbore (the reference's
     small-scene oracle). Memory O(N*T)."""
@@ -90,9 +137,9 @@ def _check_routes(scene, o, device):
                 f"scene has a {key!r} table: that intersection route is not "
                 "ported yet")
     bvh = scene.get("bvh")
-    if bvh is not None and "stream" not in bvh:
-        raise NotImplementedError("only the single-table stream route of a "
-                                  "BVH scene is ported (no clustered tables)")
+    if bvh is not None and "bvh4_nodes" not in bvh:
+        raise NotImplementedError("a BVH scene needs its 4-wide tables "
+                                  "(bvh4_nodes): the only BVH route ported")
     return bvh
 
 
@@ -118,23 +165,29 @@ def _stream_bvh(scene, o, d, tmax, tmin, any_hit=False, sort=None):
         rank = bucket_rank(key, N_RAY_BUCKETS + 1)
         o, d, tmin, tmax = sort_by_rank(rank, o, d, tmin, tmax)
     rays = (o.contiguous(), d.contiguous(), tmin.contiguous(), tmax.contiguous())
-    t, prim, b1, b2 = bvh4_traverse(bvh["bvh4_nodes"], bvh["bvh4_tris"], *rays,
-                                    any_hit=any_hit, stack=bvh["bvh4_stack"])
-    if not any_hit and o.shape[0]:
-        CLOSEST_WAVES["binned" if sort else "unbinned"] += 1
     if any_hit:
-        occ = prim >= 0
+        with torch.no_grad():
+            occ = bvh4_traverse(bvh["bvh4_nodes"], bvh["bvh4_tris"], *rays,
+                                any_hit=True, stack=bvh["bvh4_stack"])[1] >= 0
         return unsort(rank, occ)[0] if sort else occ
+
+    def traverse(*rays):
+        return bvh4_traverse(bvh["bvh4_nodes"], bvh["bvh4_tris"], *rays,
+                             stack=bvh["bvh4_stack"])
+
+    t, prim, b1, b2 = ClosestHit.apply(traverse, scene["verts"], scene["tri_idx"],
+                                       *rays)
+    if o.shape[0]:
+        CLOSEST_WAVES["binned" if sort else "unbinned"] += 1
     if sort:
         t, prim, b1, b2 = unsort(rank, t, prim, b1, b2)
     return {"t": torch.where(prim >= 0, t, BIG_T), "prim": prim, "b1": b1, "b2": b2}
 
 
-def _brute_args(scene, o, d, tmax, tmin):
+def _brute_rays(o, d, tmax, tmin):
     if tmin is None:
         tmin = torch.zeros_like(tmax)
-    return (pack_tris(scene), o.contiguous(), d.contiguous(), tmin.contiguous(),
-            tmax.contiguous())
+    return o.contiguous(), d.contiguous(), tmin.contiguous(), tmax.contiguous()
 
 
 def intersect(scene, o, d, tmax, tmin=None, device=None, sort=None):
@@ -143,7 +196,9 @@ def intersect(scene, o, d, tmax, tmin=None, device=None, sort=None):
     which arrive in tile order)."""
     if _check_routes(scene, o, device) is not None:
         return _stream_bvh(scene, o, d, tmax, tmin, sort=sort)
-    t, prim, b1, b2 = brute_intersect(*_brute_args(scene, o, d, tmax, tmin))
+    t, prim, b1, b2 = ClosestHit.apply(
+        lambda *rays: brute_intersect(pack_tris(scene), *rays), scene["verts"],
+        scene["tri_idx"], *_brute_rays(o, d, tmax, tmin))
     return {"t": torch.where(prim >= 0, t, BIG_T), "prim": prim, "b1": b1, "b2": b2}
 
 
@@ -151,6 +206,7 @@ def intersect_p(scene, o, d, tmax, tmin=None, device=None):
     """Occlusion test (Scene::IntersectP analog): occluded (N,) bool."""
     if _check_routes(scene, o, device) is not None:
         return _stream_bvh(scene, o, d, tmax, tmin, any_hit=True)
-    _, prim, _, _ = brute_intersect(*_brute_args(scene, o, d, tmax, tmin),
-                                    any_hit=True)
+    with torch.no_grad():
+        _, prim, _, _ = brute_intersect(pack_tris(scene),
+                                        *_brute_rays(o, d, tmax, tmin), any_hit=True)
     return prim >= 0

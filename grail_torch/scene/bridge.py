@@ -5,10 +5,12 @@ converted to numpy (e.g. `jax.tree_util.tree_map(np.asarray, scene)`) and its
 SceneMeta, read by attribute name only, and returns the port's scene dict and
 SceneMeta on `device`: geometry, materials, textures with their images and
 MIP pyramids, lights with the environment map and its distribution, the
-camera, the BVH's stream table and the 4-wide tables built from the
-reference's own binary tree. Leaves the port does not read are
-dropped; a scene that needs a route the port lacks raises. This module imports nothing of the
-reference: everything arrives as numpy arrays and plain attributes.
+camera, and the 4-wide tables built from the reference's own binary tree
+(for a single record table and for clustered tables alike; the record
+table is the port's own, on request: buffers.attach_record_table). Leaves
+the port does not read are dropped; a scene that needs a route the port
+lacks raises. This module imports nothing of the reference: everything
+arrives as numpy arrays and plain attributes.
 """
 from __future__ import annotations
 
@@ -18,7 +20,6 @@ from ..core.rng import SamplerConfig
 from ..device import resolve_device
 from ..engine.filters import FilterConfig
 from ..kernels.bvh4 import build_bvh4_tables
-from ..kernels.bvh_stream import tree_depth
 from ..shade.lights import INFINITE
 from ..shade.materials import MAT_FIELDS
 from ..shade.textures import TexSpec
@@ -87,14 +88,10 @@ def scene_from_numpy(scene_np, meta, device=None):
     scene["camera"] = {k: scene_np["camera"][k] for k in _CAMERA}
     bvh = scene_np.get("bvh")
     if bvh is not None:
-        if "stream" not in bvh:
-            raise NotImplementedError("scene has clustered stream tables: not "
-                                      "ported yet (single table only)")
+        # one 4-wide table from the binary tree, whether the reference packed
+        # one record table ("stream") or, above the TPU's VMEM budget,
+        # clustered ones ("cstream"): the card has no such wall
         nodes, tris4, stack = build_bvh4_tables(bvh, scene_np["verts"],
                                                 scene_np["tri_idx"])
-        scene["bvh"] = {"stream": bvh["stream"], "bvh4_nodes": nodes,
-                        "bvh4_tris": tris4, "bvh4_stack": stack}
-    scene = to_torch(scene, device)
-    if bvh is not None:
-        scene["bvh"]["depth"] = tree_depth(bvh)
-    return scene, meta_from(meta)
+        scene["bvh"] = {"bvh4_nodes": nodes, "bvh4_tris": tris4, "bvh4_stack": stack}
+    return to_torch(scene, device), meta_from(meta)

@@ -5,11 +5,11 @@ The scene compiles to structure-of-arrays tensors: one world-space triangle
 soup, a material lobe table, a texture table with its images and MIP
 pyramids, a light table with per-light area CDFs, pre-gathered
 light-triangle vertices and light transforms, the environment map and its
-Distribution2D, the camera pack and, above 64 triangles, the BVH's stream
-record table and its 4-wide node and triangle tables. Host-side work is numpy, as in the reference, so both packages
-hold the same bits. Instances, media, the other light types and the
-power-weighted light distribution are not ported yet; a scene that would
-need them raises.
+Distribution2D, the camera pack and, above 64 triangles, the BVH's 4-wide
+node and triangle tables (its record table on request). Host-side work is
+numpy, as in the reference, so both packages hold the same bits. Instances,
+media, the other light types and the power-weighted light distribution are
+not ported yet; a scene that would need them raises.
 """
 from __future__ import annotations
 
@@ -35,6 +35,27 @@ from ..shade.mipmap import build_pyramid, pack_pyramid
 from ..shade.textures import TexSpec
 
 BRUTE_MAX_TRIS = 64   # the reference builds a BVH above this many triangles
+
+
+def binary_bvh(verts, tri_idx):
+    """The binary SAH tree that a scene's BVH tables are built from (numpy
+    arrays in the native builder's layout). force_leaf=4: a box record costs
+    the record-stream traversal as much as a triangle record."""
+    return build_bvh_native(verts, tri_idx, max_prims=4, force_leaf=4)
+
+
+def attach_record_table(scene):
+    """Add the 64-byte record table of the BVH ("stream") and the binary
+    tree's depth ("depth") to a BVH scene, on the scene's device: the tables
+    of the record-stream kernels (kernels/bvh_stream.py), which no main-path
+    wave runs. Built from the same binary tree as the scene's 4-wide tables.
+    Returns the scene."""
+    verts, tri_idx = (scene[k].detach().cpu().numpy() for k in ("verts", "tri_idx"))
+    tree = binary_bvh(verts, tri_idx)
+    scene["bvh"]["stream"] = torch.as_tensor(build_stream_table(tree, verts, tri_idx),
+                                             device=scene["verts"].device)
+    scene["bvh"]["depth"] = tree_depth(tree)
+    return scene
 
 
 @dataclasses.dataclass(frozen=True)
@@ -297,16 +318,13 @@ class SceneBuilder:
                 scene["env_map"] = self.env_map
         scene["camera"] = self.camera
 
-        # ---- BVH stream table (force_leaf=4: a box record costs the stream
-        # traversal as much as a triangle record) and the 4-wide tables
-        depth = None
+        # ---- the BVH's 4-wide tables (the record table only on request:
+        # attach_record_table)
         if n_tris > BRUTE_MAX_TRIS:
-            b_np = build_bvh_native(verts, tri_idx, max_prims=4, force_leaf=4)
-            nodes, tris4, stack = build_bvh4_tables(b_np, verts, tri_idx)
-            scene["bvh"] = {"stream": build_stream_table(b_np, verts, tri_idx),
-                            "bvh4_nodes": nodes, "bvh4_tris": tris4,
+            nodes, tris4, stack = build_bvh4_tables(binary_bvh(verts, tri_idx),
+                                                    verts, tri_idx)
+            scene["bvh"] = {"bvh4_nodes": nodes, "bvh4_tris": tris4,
                             "bvh4_stack": stack}
-            depth = tree_depth(b_np)
 
         meta = SceneMeta(
             tex_specs=tuple(self.tex_specs),
@@ -322,7 +340,4 @@ class SceneBuilder:
             has_env_map=self.env_map is not None,
             n_images=len(self.images),
         )
-        scene = to_torch(scene, device)
-        if depth is not None:
-            scene["bvh"]["depth"] = depth
-        return scene, meta
+        return to_torch(scene, device), meta

@@ -1,5 +1,5 @@
 """Built-in scenes (port of grail/scene/presets.py: the Cornell box and the
-textured terrain under a sky, mesh_scene)."""
+textured terrains under a sky, mesh_scene and mesh_scene_1m)."""
 from __future__ import annotations
 
 import numpy as np
@@ -150,23 +150,8 @@ def _checker_image(n=256, c0=(0.9, 0.85, 0.75), c1=(0.25, 0.3, 0.35), k=16):
     return (np.asarray(c0) * (1 - m) + np.asarray(c1) * m).astype(np.float32)
 
 
-def mesh_scene(xres=256, yres=256, spp=16, grid=224, sampler_kind=ZERO_TWO,
-               device=None):
-    """The ~100k-triangle textured terrain (2(grid-1)^2 triangles of a
-    displaced height field, image-mapped checker texture) with a glossy
-    sphere of 2,208 triangles, lit by a procedural sky environment map with a
-    sun disk. Tensors go to `device` (CUDA unless the caller passes another).
-    Returns (scene, meta, builder)."""
-    b = SceneBuilder()
-    b.xres, b.yres = xres, yres
-    b.sampler = SamplerConfig(kind=sampler_kind, spp=spp)
-    b.filter = FilterConfig.from_name("box")
-
-    # displaced terrain: a few fixed-frequency sines + value noise
-    n = grid
-    xs = np.linspace(-4.0, 4.0, n, dtype=np.float32)
-    zs = np.linspace(-4.0, 4.0, n, dtype=np.float32)
-    X, Z = np.meshgrid(xs, zs)
+def _lattice_noise(X, Z):
+    """Smoothstep-interpolated value noise on a fixed 17x17 lattice (seed 7)."""
     rng = np.random.RandomState(7)
     gsz = 17
     lattice = rng.rand(gsz, gsz).astype(np.float32)
@@ -180,11 +165,23 @@ def mesh_scene(xres=256, yres=256, spp=16, grid=224, sampler_kind=ZERO_TWO,
     n10 = lattice[iv, np.minimum(iu + 1, gsz - 1)]
     n01 = lattice[np.minimum(iv + 1, gsz - 1), iu]
     n11 = lattice[np.minimum(iv + 1, gsz - 1), np.minimum(iu + 1, gsz - 1)]
-    noise = (n00 * (1 - fu) * (1 - fv) + n10 * fu * (1 - fv)
-             + n01 * (1 - fu) * fv + n11 * fu * fv)
+    return (n00 * (1 - fu) * (1 - fv) + n10 * fu * (1 - fv)
+            + n01 * (1 - fu) * fv + n11 * fu * fv)
+
+
+def _terrain(grid, lattice_noise):
+    """The displaced terrain of both mesh presets over [-4,4]^2: a grid x grid
+    height field of a few fixed-frequency sines (plus value noise for
+    mesh_scene), 2(grid-1)^2 triangles. Returns (verts, uvs, tri_idx)."""
+    n = grid
+    xs = np.linspace(-4.0, 4.0, n, dtype=np.float32)
+    zs = np.linspace(-4.0, 4.0, n, dtype=np.float32)
+    X, Z = np.meshgrid(xs, zs)
     Y = (0.35 * np.sin(1.7 * X) * np.cos(1.3 * Z)
-         + 0.18 * np.sin(4.1 * X + 1.0) * np.sin(3.7 * Z)
-         + 0.9 * noise).astype(np.float32)
+         + 0.18 * np.sin(4.1 * X + 1.0) * np.sin(3.7 * Z))
+    if lattice_noise:
+        Y = Y + 0.9 * _lattice_noise(X, Z)
+    Y = Y.astype(np.float32)
     verts = np.stack([X, Y, Z], -1).reshape(-1, 3)
     uvs = np.stack([(X + 4.0) / 8.0, (Z + 4.0) / 8.0], -1).reshape(-1, 2)
     ii, jj = np.meshgrid(np.arange(n - 1), np.arange(n - 1))
@@ -192,7 +189,22 @@ def mesh_scene(xres=256, yres=256, spp=16, grid=224, sampler_kind=ZERO_TWO,
     idx = np.concatenate([
         np.stack([a, a + n, a + 1], -1),
         np.stack([a + 1, a + n, a + n + 1], -1)], 0).astype(np.int64)
+    return verts, uvs, idx
 
+
+def mesh_scene(xres=256, yres=256, spp=16, grid=224, sampler_kind=ZERO_TWO,
+               device=None):
+    """The ~100k-triangle textured terrain (2(grid-1)^2 triangles of a
+    displaced height field, image-mapped checker texture) with a glossy
+    sphere of 2,208 triangles, lit by a procedural sky environment map with a
+    sun disk. Tensors go to `device` (CUDA unless the caller passes another).
+    Returns (scene, meta, builder)."""
+    b = SceneBuilder()
+    b.xres, b.yres = xres, yres
+    b.sampler = SamplerConfig(kind=sampler_kind, spp=spp)
+    b.filter = FilterConfig.from_name("box")
+
+    verts, uvs, idx = _terrain(grid, lattice_noise=True)
     img_id = b.add_image(_checker_image())
     tex = b.add_texture(TexSpec(kind="image", image_id=img_id, su=6.0, sv=6.0))
     terrain_mat = b.matte(kd_tex=tex)
@@ -215,5 +227,37 @@ def mesh_scene(xres=256, yres=256, spp=16, grid=224, sampler_kind=ZERO_TWO,
 
     c2w = tr.look_at([0.0, 3.2, 7.5], [0.0, 0.6, 0.0], [0.0, 1.0, 0.0])
     b.camera = cam.build_camera(cam.PERSPECTIVE, c2w, c2w, xres, yres, fov=42.0)
+    scene, meta = b.finalize(device)
+    return scene, meta, b
+
+
+def mesh_scene_1m(xres=256, yres=256, spp=16, grid=708, sampler_kind=ZERO_TWO,
+                  device=None):
+    """The 1M-triangle scene: the terrain without value noise at grid=708
+    (2(grid-1)^2 = 999,698 triangles, image-mapped checker texture) with a
+    matte sphere of 2,208 triangles under the sky environment light, seen
+    through a thin lens (radius 0.04, focused at 7.6) by a camera that moves
+    over the shutter (motion blur). Tensors go to `device` (CUDA unless the
+    caller passes another). Returns (scene, meta, builder)."""
+    b = SceneBuilder()
+    b.xres, b.yres = xres, yres
+    b.sampler = SamplerConfig(kind=sampler_kind, spp=spp)
+    b.filter = FilterConfig.from_name("box")
+
+    verts, uvs, idx = _terrain(grid, lattice_noise=False)
+    img_id = b.add_image(_checker_image())
+    tex = b.add_texture(TexSpec(kind="image", image_id=img_id, su=6.0, sv=6.0))
+    b.add_mesh(verts, idx, b.matte(kd_tex=tex), uvs=uvs)
+
+    sp_v, sp_i = tessellate_sphere(center=(0.0, 1.2, 0.0), radius=0.7, nu=48, nv=24)
+    b.add_mesh(sp_v, sp_i, b.matte(kd=(0.3, 0.1, 0.08)))
+    b.add_infinite_light(env_map=_sky_env_map())
+
+    # depth of field (a thin lens focused near the sphere) and motion blur
+    # (the camera-to-world moves between shutter open and close)
+    c2w0 = tr.look_at([0.0, 3.2, 7.5], [0.0, 0.6, 0.0], [0.0, 1.0, 0.0])
+    c2w1 = tr.look_at([0.12, 3.2, 7.44], [0.0, 0.6, 0.0], [0.0, 1.0, 0.0])
+    b.camera = cam.build_camera(cam.PERSPECTIVE, c2w0, c2w1, xres, yres, fov=42.0,
+                                lens_radius=0.04, focal_distance=7.6)
     scene, meta = b.finalize(device)
     return scene, meta, b

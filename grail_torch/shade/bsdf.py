@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.vecmath import INV_PI, INV_TWOPI, PI, dot, normalize
+from ..core.vecmath import INV_PI, INV_TWOPI, PI, dot, normalize, safe_sqrt
 from ..core import montecarlo as mc
 
 # lobe type tags (same values as grail)
@@ -61,8 +61,8 @@ def fr_dielectric(cosi, eta_i, eta_t):
     entering = cosi > 0.0
     ei = torch.where(entering, eta_i, eta_t)
     et = torch.where(entering, eta_t, eta_i)
-    sint = ei / et * torch.sqrt(torch.clamp_min(1.0 - cosi * cosi, 0.0))
-    cost = torch.sqrt(torch.clamp_min(1.0 - sint * sint, 0.0))
+    sint = ei / et * safe_sqrt(1.0 - cosi * cosi)
+    cost = safe_sqrt(1.0 - sint * sint)
     aci = torch.abs(cosi)
     rparl = (et * aci - ei * cost) / torch.clamp_min(et * aci + ei * cost, 1e-12)
     rperp = (ei * aci - et * cost) / torch.clamp_min(ei * aci + et * cost, 1e-12)
@@ -100,7 +100,7 @@ def blinn_d(wh, exponent):
 def blinn_sample_wh(wo, u1, u2, exponent):
     """Half vector distributed as the Blinn D (pbrt Blinn::Sample_f)."""
     costheta = torch.pow(torch.clamp_min(u1, 1e-12), 1.0 / (exponent + 1.0))
-    sintheta = torch.sqrt(torch.clamp_min(1.0 - costheta * costheta, 0.0))
+    sintheta = safe_sqrt(1.0 - costheta * costheta)
     phi = u2 * 2.0 * PI
     wh = torch.stack([sintheta * torch.cos(phi), sintheta * torch.sin(phi),
                       costheta], dim=-1)

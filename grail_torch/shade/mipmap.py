@@ -12,6 +12,8 @@ import math
 import numpy as np
 import torch
 
+from ..core.vecmath import safe_sqrt
+
 
 def lanczos(x, tau=2.0):
     x = np.abs(x)
@@ -115,8 +117,8 @@ def lookup_ewa(pyr, s, t, ds0, dt0, ds1, dt1, maxaniso=8.0):
     level comes from the minor axis after the maxaniso clamp; weights are the
     Gaussian falloff (alpha 2), normalized."""
     n_levels = pyr["n_levels"]
-    len0 = torch.sqrt(ds0 * ds0 + dt0 * dt0)
-    len1 = torch.sqrt(ds1 * ds1 + dt1 * dt1)
+    len0 = safe_sqrt(ds0 * ds0 + dt0 * dt0)
+    len1 = safe_sqrt(ds1 * ds1 + dt1 * dt1)
     major = torch.maximum(len0, len1)
     minor = torch.minimum(len0, len1)
     scale = torch.where(minor * maxaniso < major,
@@ -130,11 +132,16 @@ def lookup_ewa(pyr, s, t, ds0, dt0, ds1, dt1, maxaniso=8.0):
     A = dt0 * dt0 + dt1 * dt1 + 1e-10
     B = -2.0 * (ds0 * dt0 + ds1 * dt1)
     C = ds0 * ds0 + ds1 * ds1 + 1e-10
-    invF = 1.0 / (A * C - B * B * 0.25)
+    F = A * C - B * B * 0.25
+    # a degenerate ellipse (1/F overflows: F is 0 by cancellation) has
+    # infinite coefficients, so no tap weight, and would have a NaN gradient:
+    # it takes the fallback with finite stand-in coefficients
+    proper = torch.isfinite(1.0 / F.detach())
+    invF = 1.0 / torch.where(proper, F, 1.0)
     A_, B_, C_ = A * invF, B * invF, C * invF
     det = -B_ * B_ + 4.0 * A_ * C_
-    u_r = torch.sqrt(torch.clamp_min(C_ * 4.0 / torch.clamp_min(det, 1e-12), 0.0))
-    v_r = torch.sqrt(torch.clamp_min(A_ * 4.0 / torch.clamp_min(det, 1e-12), 0.0))
+    u_r = safe_sqrt(C_ * 4.0 / torch.clamp_min(det, 1e-12))
+    v_r = safe_sqrt(A_ * 4.0 / torch.clamp_min(det, 1e-12))
     u_r = torch.clamp_max(u_r, 0.5)
     v_r = torch.clamp_max(v_r, 0.5)
 
@@ -146,7 +153,8 @@ def lookup_ewa(pyr, s, t, ds0, dt0, ds1, dt1, maxaniso=8.0):
             du = tu * u_r
             dv = tv * v_r
             r2 = A_ * du * du + B_ * du * dv + C_ * dv * dv
-            w = torch.where(r2 < 1.0, torch.exp(-2.0 * r2) - math.exp(-2.0), 0.0)
+            w = torch.where(proper & (r2 < 1.0),
+                            torch.exp(-2.0 * r2) - math.exp(-2.0), 0.0)
             val = _bilinear_level(pyr, li, torch.remainder(s + du, 1.0),
                                   torch.remainder(t + dv, 1.0))
             w = torch.clamp_min(w, 0.0)[..., None]

@@ -1,11 +1,13 @@
 """Where the device time of one render goes, on the card.
 
-    python3 -m grail_torch.tools.profile_render [--scene cornell|mesh]
-        [--res 256] [--spp 16] [--depth 5] [--grid 224]
+    python3 -m grail_torch.tools.profile_render [--scene cornell|mesh|mesh1m]
+        [--res 256] [--spp 16] [--depth 5] [--grid N]
 
 Renders the Cornell box (or mesh_scene, the textured terrain of
-2(grid-1)^2 triangles under an environment light) once to warm up, once
-timed, then once under
+2(grid-1)^2 triangles under an environment light, grid 224 unless given; or
+mesh_scene_1m, the terrain at grid 708 seen through a thin lens by a moving
+camera: bench.py's mesh1m is --spp 4) once to warm up, once timed, then once
+under
 torch.profiler, and prints JSON lines: the render's wall time (unprofiled and
 profiled), the summed kernel time and the device's busy share (kernel time
 over the unprofiled wall time), the number of kernel launches; for each stage
@@ -30,7 +32,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from ..core import rng
 from ..engine import camera, film, integrator, render as rnd
 from ..kernels import intersect
-from ..scene.presets import cornell_box, mesh_scene
+from ..scene.presets import cornell_box, mesh_scene, mesh_scene_1m
 from ..shade import bsdf, geometry, lights, materials
 
 # stage name -> (module, function names) wrapped in a profiler range
@@ -77,8 +79,8 @@ def _instrument():
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("cornell", "mesh"), default="cornell")
-    ap.add_argument("--grid", type=int, default=224, help="mesh terrain grid")
+    ap.add_argument("--scene", choices=("cornell", "mesh", "mesh1m"), default="cornell")
+    ap.add_argument("--grid", type=int, help="terrain grid (default: the preset's)")
     ap.add_argument("--res", type=int, default=256)
     ap.add_argument("--spp", type=int, default=16)
     ap.add_argument("--depth", type=int, default=5)
@@ -87,9 +89,10 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_render: no CUDA device")
     dev = torch.device("cuda", 0)
-    if args.scene == "mesh":
-        scene, meta, _ = mesh_scene(args.res, args.res, args.spp, grid=args.grid,
-                                    device=dev)
+    if args.scene != "cornell":
+        preset = mesh_scene if args.scene == "mesh" else mesh_scene_1m
+        grid = {} if args.grid is None else {"grid": args.grid}
+        scene, meta, _ = preset(args.res, args.res, args.spp, device=dev, **grid)
     else:
         scene, meta, _ = cornell_box(args.res, args.res, args.spp, device=dev)
     cfg = integrator.IntegratorConfig(kind="path", max_depth=args.depth)

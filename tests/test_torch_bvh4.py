@@ -139,12 +139,14 @@ def test_collapse_invariants(terrain):
 
 
 @pytest.mark.parametrize("any_hit, kind", [(False, "ordered"), (True, "skip"),
-                                           (False, "skip")],
-                         ids=["closest", "any_hit", "closest_vs_skip"])
+                                           (False, "skip"), (True, "ordered")],
+                         ids=["closest", "any_hit", "closest_vs_skip",
+                              "any_hit_vs_ordered"])
 def test_plain_matches_pallas_interpret(terrain, any_hit, kind):
-    """Against each grail kernel the 4-wide walk replaces on the main path:
-    ordered closest hit (binned waves), skip any hit (shadow waves) and skip
-    closest hit (the tile-ordered camera wave)."""
+    """Against each grail kernel the 4-wide walk replaces: ordered closest
+    hit (binned waves), skip any hit (shadow waves) and skip closest hit (the
+    tile-ordered camera wave) on the main path, and ordered any hit (reached
+    only by a kind override), whose redesign the 4-wide any hit is."""
     s = terrain
     table = s["scene_np"]["bvh"]["stream"]
     ref = [np.asarray(a) for a in _run(
@@ -186,8 +188,9 @@ def test_plain_matches_stream_plain(terrain, any_hit):
     """Against the record-stream walk it replaces: fewer items visited, the
     same hits (bitwise where prims agree), the same occlusion."""
     s = terrain
+    table = torch.tensor(s["scene_np"]["bvh"]["stream"])
     ref = [a.numpy() for a in tbs.stream_traverse_plain(
-        s["bvh"]["stream"], *(torch.tensor(s[k]) for k in RAYS), any_hit=any_hit,
+        table, *(torch.tensor(s[k]) for k in RAYS), any_hit=any_hit,
         kind="skip" if any_hit else "ordered")]
     got = _plain(s, any_hit)
     np.testing.assert_array_equal(got[1] >= 0, ref[1] >= 0)

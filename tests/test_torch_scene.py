@@ -1,7 +1,8 @@
 """The port's Cornell box against the reference's, carried across by
 scene_from_numpy: integer leaves exactly equal, float leaves to rtol 1e-6
 (both packages build on the host in numpy, so they should hold the same
-bits), and the same SceneMeta."""
+bits), and the same SceneMeta. A reference scene with clustered record
+tables carries across with one 4-wide table; unported routes raise."""
 import dataclasses
 
 import numpy as np
@@ -10,10 +11,12 @@ import torch
 
 import jax
 
+import grail.kernels.bvh_stream as jbs
 from grail.scene.presets import cornell_box as jax_cornell
+from grail.scene.presets import mesh_scene_1m as jax_mesh_scene_1m
 from grail_torch.scene.bridge import scene_from_numpy
-from grail_torch.scene.buffers import SceneBuilder
-from grail_torch.scene.presets import cornell_box
+from grail_torch.scene.buffers import SceneBuilder, attach_record_table
+from grail_torch.scene.presets import cornell_box, mesh_scene_1m
 
 torch.set_num_threads(2)
 
@@ -66,21 +69,40 @@ def test_scene_meta_matches(both):
             assert got == ref, field.name
 
 
+def test_clustered_scene_carries(monkeypatch):
+    """A reference scene above its (here cut) VMEM budget holds clustered
+    record tables; it carries across with the one 4-wide table of its binary
+    tree, equal to the port's own build of the same scene, and neither
+    record table."""
+    monkeypatch.setattr(jbs, "VMEM_TABLE_BUDGET", 4096)
+    monkeypatch.setattr(jbs, "CLUSTER_TARGET_TRIS", 1000)
+    js, jm, _ = jax_mesh_scene_1m(8, 8, 1, grid=12)
+    assert js["bvh"]["cstream"].shape[0] >= 3 and "stream" not in js["bvh"]
+    bridged, _ = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js), jm,
+                                  device="cpu")
+    own, _, _ = mesh_scene_1m(8, 8, 1, grid=12, device="cpu")
+    assert set(bridged["bvh"]) == {"bvh4_nodes", "bvh4_tris", "bvh4_stack"}
+    for k in ("bvh4_nodes", "bvh4_tris"):
+        assert torch.equal(bridged["bvh"][k].view(torch.int32),
+                           own["bvh"][k].view(torch.int32)), k
+    assert int(bridged["bvh"]["bvh4_stack"]) == int(own["bvh"]["bvh4_stack"])
+
+
 def test_unported_scenes_raise(both):
     scene_np, jm, _, _ = both
-    with pytest.raises(NotImplementedError, match="clustered"):
-        scene_from_numpy(dict(scene_np, bvh={"cstream": np.zeros((2, 4, 128))}), jm,
-                         device="cpu")
     with pytest.raises(NotImplementedError, match="inst"):
         scene_from_numpy(dict(scene_np, inst={"m0": np.zeros((1, 4, 4))}), jm,
                          device="cpu")
     with pytest.raises(NotImplementedError, match="has_bump"):
         scene_from_numpy(scene_np, dataclasses.replace(jm, has_bump=True),
                          device="cpu")
-    # above 64 triangles a scene gets the BVH's stream table, as the reference
+    # above 64 triangles a scene gets a BVH, as the reference: its 4-wide
+    # tables, and its record table only on request
     b = SceneBuilder()
     verts = np.random.RandomState(0).rand(65 * 3, 3)
     b.add_mesh(verts, np.arange(65 * 3).reshape(65, 3), b.matte())
     b.camera = cornell_box(16, 16, 1, device="cpu")[2].camera
     scene, _ = b.finalize(device="cpu")
+    assert set(scene["bvh"]) == {"bvh4_nodes", "bvh4_tris", "bvh4_stack"}
+    attach_record_table(scene)
     assert scene["bvh"]["stream"].shape[1] == 128 and scene["bvh"]["depth"] >= 1
