@@ -54,8 +54,26 @@ failure ends the run with a non-zero exit code:
       CPU;
   14. bench: bench.py's mesh1m render (256x256, 4 spp: one megawave of
       262,144 camera rays; depth 5), launches per render by wave;
+  instanced (tools/instbench.py: 100 instances of a 50,176-triangle sphere
+  over a floor under a point light, and the same field flattened into
+  5,017,600 world-space triangles):
+  15. set-up: both scenes' host build, table sizes, instance count, stack
+      bound;
+  16. parity: the 4-wide walk with per-ray roots (the instanced BLAS walk),
+      closest and any hit, against its plain version at 1,048,576
+      object-space rays of a sweep's first round (the camera wave at
+      16 samples a pixel; shadow rays from its hits toward the light) and at
+      a ragged count, bitwise;
+  17. main path: the instanced scene at 32x32, 2 spp, depth 3, card against
+      CPU; a small scene with a moving and a mirrored instance, card against
+      CPU, the moving one smeared across the shutter on both;
+  18. bench: instbench's render of both scenes (256x256, 4 spp, depth 3):
+      rates, launches per render (base walk and roots walk apart), the sweep
+      rounds of each wave, peak memory, the ratio of the two rates;
+  19. kernel_time: the walk with roots beside its plain version and its
+      bound;
   training path:
-  15. grad: the gradient of the mean image (256x256, 1 spp, depth 5) for
+  20. grad: the gradient of the mean image (256x256, 1 spp, depth 5) for
       the Cornell box's albedos, emission and vertices (brute-force kernel)
       and for mesh100k's texels, MIP pyramid and vertices (4-wide kernels),
       against the same through the plain versions on the card (bitwise) and
@@ -76,6 +94,8 @@ import time
 import numpy as np
 import torch
 
+from grail_torch.core import transform as tr
+from grail_torch.engine import camera
 from grail_torch.engine.film import develop, new_film
 from grail_torch.engine.integrator import IntegratorConfig
 from grail_torch.engine.render import camera_rays, megawave_lanes, render, render_wave
@@ -83,13 +103,18 @@ from grail_torch.kernels import brute_intersect as bi
 from grail_torch.kernels import bvh4 as b4
 from grail_torch.kernels import bvh_stream as bs
 from grail_torch.kernels import build
+from grail_torch.kernels import instanced
 from grail_torch.kernels import intersect as isect
 from grail_torch.kernels.binning import (N_RAY_BUCKETS, bin_rays_key, bucket_rank,
                                          sort_by_rank)
 from grail_torch.kernels.intersect import (BIG_T, CLOSEST_WAVES, SORT_MIN,
                                            moller_trumbore, pack_tris)
-from grail_torch.scene.buffers import attach_record_table
+from grail_torch.scene.buffers import SceneBuilder, attach_record_table
 from grail_torch.scene.presets import cornell_box, mesh_scene, mesh_scene_1m
+from grail_torch.scene.shapes import sphere
+from grail_torch.tools import instbench
+from grail_torch.tools.instbench import (N_INST, SPHERE_NU, SPHERE_NV, build_flattened,
+                                         build_instanced)
 from grail_torch.tools.optimize import optimize_albedo
 
 N_RAYS = 1 << 20
@@ -138,11 +163,20 @@ BVH4_ROW3 = ("bvh4_any_hit", "ordered_any_hit", None)
 # bounce, all on the 4-wide kernels
 MESH_EXPECTED = {"skip_closest": 0, "skip_any_hit": 0, "ordered_closest": 0,
                  "ordered_any_hit": 0, "bvh4_closest": 6, "bvh4_any_hit": 6,
+                 "bvh4_closest_roots": 0, "bvh4_any_hit_roots": 0,
                  "brute_intersect": 0, "brute_intersect_any_hit": 0}
 MESH_EXPECTED_WAVES = {"binned": 5, "unbinned": 1}
 MESH1M_SPP = 4                  # bench.py's mesh1m render: 256x256, 4 spp
 MESH1M_WAVES = (("bvh4_closest", "camera_wave"), ("bvh4_closest", "sorted_secondary"),
                 ("bvh4_any_hit", "shadow"))
+# instbench's render (benchmarks/instbench.py: 256x256, 4 spp, depth 3), and
+# the walk with roots on each wave of a sweep's first round it takes; row 6
+# of PERF.md, the per-stream start records of the two stream kernels that
+# the reference's instanced route runs (ordered closest hit, skip any hit)
+INST_SPP, INST_DEPTH = 4, 3
+INST_WAVES = (("bvh4_closest_roots", "camera_wave"), ("bvh4_any_hit_roots", "shadow"))
+ROOTS_REPLACES = {"bvh4_closest_roots": "grail/kernels/bvh_stream.py:270",
+                  "bvh4_any_hit_roots": "grail/kernels/bvh_stream.py:424"}
 # the training path: scene, preset, the kernels its render launches, and
 # the leaves differentiated ({name: path in the scene})
 GRAD_SCENES = (("cornell", cornell_box, bi.KERNELS),
@@ -702,7 +736,8 @@ def mesh_phases(dev, gpu):
     check(res_e * res_e * spp_e // 2 >= SORT_MIN, "comparison wave below SORT_MIN")
     check(gpu_launches == {"skip_closest": 0, "skip_any_hit": 0, "ordered_closest": 0,
                            "ordered_any_hit": 0, "bvh4_closest": cfg_e.max_depth + 1,
-                           "bvh4_any_hit": cfg_e.max_depth + 1},
+                           "bvh4_any_hit": cfg_e.max_depth + 1,
+                           "bvh4_closest_roots": 0, "bvh4_any_hit_roots": 0},
           f"GPU mesh render took {gpu_launches}, not the 4-wide route")
     check(np.isfinite(imgs["card"]).all() and err < RELMAE_MAX,
           f"GPU mesh render differs from the CPU render (relative MAE {err})")
@@ -816,7 +851,8 @@ def mesh1m_phases(dev, gpu):
           "max_depth": 3, "gpu_launches": gpu_launches, "relative_mae": err,
           "bitwise_equal": bool(np.array_equal(imgs["card"], imgs["cpu"])),
           "seconds": time.perf_counter() - t0})
-    check(gpu_launches == dict.fromkeys(b4.KERNELS, cfg_e.max_depth + 1),
+    check(gpu_launches == dict(dict.fromkeys(b4.ROOT_KERNELS, 0),
+                               **dict.fromkeys(b4.KERNELS, cfg_e.max_depth + 1)),
           f"GPU mesh1m render took {gpu_launches}, not the 4-wide route")
     check(np.isfinite(imgs["card"]).all() and err < RELMAE_MAX,
           f"GPU mesh1m render differs from the CPU render (relative MAE {err})")
@@ -841,6 +877,242 @@ def mesh1m_phases(dev, gpu):
           f"bvh4_closest took waves {waves} per mesh1m render")
     check(np.isfinite(img).all() and img.shape == (256, 256, 3) and img.mean() > 0.0,
           "mesh1m bench image is not finite and positive")
+
+
+def small_instanced(animated, device):
+    """A floor under a point light with one instance of a sphere moving
+    from x = -0.8 to 0.8 across the shutter (or standing at -0.8), and a
+    mirrored instance (negative scale: its handedness swaps), at 48x48 (the
+    shape of tests/test_instances.py's motion-blur scene)."""
+    b = SceneBuilder()
+    b.xres = b.yres = 48
+    b.matte(kd=(0.6, 0.6, 0.6))
+    b.add_mesh(np.array([[-5, 0, -5], [5, 0, -5], [5, 0, 5], [-5, 0, 5]], np.float32),
+               np.array([[0, 1, 2], [0, 2, 3]], np.int64), 0)
+    b.add_point_light((0.0, 4.0, 0.0), (30.0, 30.0, 30.0))
+    c2w = tr.look_at((0, 1.5, 4.0), (0, 0.5, 0), (0, 1, 0))
+    b.camera = camera.build_camera(camera.PERSPECTIVE, c2w, c2w, 48, 48, fov=50.0)
+    v, i, n, uv = sphere(radius=0.4, nu=24, nv=12)
+    oid = b.add_object()
+    b.add_object_mesh(oid, v, i, 0, normals=n, uvs=uv)
+    b.add_instance(oid, tr.translate((-0.8, 0.5, 0.0)),
+                   tr.translate((0.8 if animated else -0.8, 0.5, 0.0)))
+    b.add_instance(oid, tr.translate((0.4, 1.2, -0.8)) @ tr.scale(-1.0, 1.0, 1.0))
+    return b.finalize(device)
+
+
+def first_round(inst, o, d, tmin, tmax, time, any_hit):
+    """The BLAS walk's rays of a sweep's first round (instanced.py): each
+    ray's nearest candidate instance, its ray in object space and its root.
+    Returns ((o, d, tmin, tmax), roots, rays with a candidate)."""
+    n = o.shape[0]
+    last_near = torch.full((n,), -BIG_T, device=o.device)
+    last_id = torch.full((n,), -1, dtype=torch.int32, device=o.device)
+    occ = torch.zeros(n, dtype=torch.bool, device=o.device) if any_hit else None
+    sel, _, act = instanced.next_candidates(inst, o, d, tmin, tmax, last_near, last_id,
+                                            occ)
+    o_obj, d_obj, sub_tmax, roots = instanced.object_rays(inst, sel, act, o, d, time,
+                                                          tmax)
+    return (o_obj, d_obj, tmin, sub_tmax), roots, int(act.sum())
+
+
+def inst_ray_cases(scene, meta, dev):
+    """{wave: (rays, roots, live)} at N_RAYS object-space rays: the first
+    sweep round of instbench's camera wave (16 samples a pixel, tile order,
+    each ray at its shutter time, t cut at the floor's hit as the dispatch
+    does) and of shadow rays from its hits toward the point light."""
+    pix, samp, _ = megawave_lanes(meta, 0, N_RAYS // (meta.xres * meta.yres), dev)
+    rays = camera_rays(scene, meta, pix, samp)[0]
+    o, d, time = rays["o"].contiguous(), rays["d"].contiguous(), rays["time"]
+    check(o.shape[0] == N_RAYS, "the camera wave is 1M rays")
+    zeros = torch.zeros(N_RAYS, device=dev)
+    bvh, inst = scene["bvh"], scene["inst"]
+    t_base = b4.bvh4_traverse(bvh["bvh4_nodes"], bvh["bvh4_tris"], o, d, zeros,
+                              torch.full((N_RAYS,), 1.0e7, device=dev),
+                              stack=bvh["bvh4_stack"])[0]
+    camera_case = first_round(inst, o, d, zeros, t_base, time, False)
+    hit = isect.intersect(scene, o, d, torch.full((N_RAYS,), 1.0e7, device=dev),
+                          device=dev, sort=False, time=time)
+    p = o + (torch.clamp_max(hit["t"], 1.0e7) * (1.0 - 1e-4))[:, None] * d
+    to_light = scene["lights"]["l2w"][0, :3, 3] - p
+    dist = torch.linalg.vector_norm(to_light, dim=1)
+    w = (to_light / dist[:, None]).contiguous()
+    tmax = torch.where(hit["prim"] >= 0, dist * (1.0 - 1e-3), 0.0)
+    shadow_case = first_round(inst, p.contiguous(), w, zeros, tmax, time, True)
+    return {"camera_wave": camera_case, "shadow": shadow_case}
+
+
+def inst_phases(dev, gpu):
+    """Phases 15-19 (instbench's instanced scene); returns the entries of the
+    kernels line of the 4-wide walk with per-ray roots (row 6)."""
+    # 15. set-up: both scenes built by the port's builder
+    built = {}
+    for name, make in (("instanced", build_instanced), ("flattened", build_flattened)):
+        t0 = time.perf_counter()
+        scene, meta = make(256, dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        tables = scene["inst"] if name == "instanced" else scene["bvh"]
+        line = {"phase": "inst_scene", "scene": name, "host_build_seconds": build_s,
+                "triangles": (int(scene["tri_idx"].shape[0]) - meta.n_tris
+                              if name == "instanced" else meta.n_tris),
+                "bvh4_nodes": tables["bvh4_nodes"].shape[0],
+                "bvh4_node_bytes": tables["bvh4_nodes"].numel() * 4,
+                "bvh4_tri_bytes": tables["bvh4_tris"].numel() * 4,
+                "bvh4_stack_bound": tables["bvh4_stack"]}
+        if name == "instanced":
+            line.update(instances=int(scene["inst"]["root"].shape[0]),
+                        objects=len(set(scene["inst"]["obj"].tolist())),
+                        base_triangles=meta.n_tris)
+        emit(line)
+        built[name] = (scene, meta)
+    scene, meta = built["instanced"]
+    inst = scene["inst"]
+    nodes, tris4, stack = (inst[k] for k in ("bvh4_nodes", "bvh4_tris", "bvh4_stack"))
+    table4_bytes = (nodes.numel() + tris4.numel()) * 4
+    check(inst["root"].shape[0] == N_INST and stack <= b4.STACK_MAX
+          and tris4.shape[0] == 2 * SPHERE_NU * SPHERE_NV,
+          "instbench's scene is not 100 instances of the 50,176-triangle sphere")
+
+    # 16. parity: the walk with roots against its plain version, bitwise
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cases = inst_ray_cases(scene, meta, dev)
+    results = {}
+    for name, wave in INST_WAVES:
+        any_hit = name == "bvh4_any_hit_roots"
+        args, roots, live = cases[wave]
+        for n in (N_RAYS, N_RAYS + RAGGED):
+            a = tuple(torch.cat([x, x[:n - N_RAYS]]).contiguous() for x in args)
+            r = torch.cat([roots, roots[:n - N_RAYS]]).contiguous()
+            with torch.no_grad():
+                kern = b4.bvh4_traverse(nodes, tris4, *a, any_hit=any_hit, stack=stack,
+                                        roots=r)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                plain = b4.bvh4_traverse_plain(nodes, tris4, *a, any_hit=any_hit,
+                                               stack=stack, roots=r)
+                torch.cuda.synchronize()
+                plain_s = time.perf_counter() - t1
+            n_bad, errs, bitwise = compare(kern, plain, any_hit)
+            counts = tuple(int(x.sum()) for x in plain[4:])
+            emit({"phase": "parity", "scene": "instbench", "kernel": name, "case": wave,
+                  "rays": n, "live_rays": live, "hits": int((kern[1] >= 0).sum()),
+                  "prim_mismatch": n_bad, "max_abs_diff": errs, "bitwise_equal": bitwise,
+                  "node_fetches": counts[0], "box_tests": counts[1],
+                  "tri_tests": counts[2], "plain_seconds": plain_s})
+            check(bitwise, f"{name} is not bitwise equal to its plain version "
+                           f"({wave}, {n} rays)")
+            if n == N_RAYS:
+                results[name] = {"errs": errs, "counts": counts, "live": live}
+    del kern, plain
+    emit({"phase": "parity", "scene": "instbench", "seconds": time.perf_counter() - t0})
+
+    # 17. the main path on the card against the CPU: instbench's scene at
+    # 32x32, then the small scene with a moving and a mirrored instance,
+    # which must smear the moving sphere across the shutter on both devices
+    t0 = time.perf_counter()
+    cfg_e = IntegratorConfig(kind="path", max_depth=3)
+    imgs = {}
+    for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        sc, mt = build_instanced(32, where)
+        b4.LAUNCHES.update(dict.fromkeys(b4.LAUNCHES, 0))
+        imgs[side] = render(sc, mt, cfg_e, spp=2, device=where)[0].cpu().numpy()
+        if side == "card":
+            gpu_launches = dict(b4.LAUNCHES)
+        del sc
+    err = relative_mae(imgs["card"], imgs["cpu"])
+    emit({"phase": "main_path_vs_cpu", "scene": "instbench", "res": 32, "spp": 2,
+          "max_depth": 3, "gpu_launches": gpu_launches, "relative_mae": err,
+          "bitwise_equal": bool(np.array_equal(imgs["card"], imgs["cpu"])),
+          "seconds": time.perf_counter() - t0})
+    check(all(gpu_launches[k] > 0 for k in b4.ROOT_KERNELS)
+          and all(gpu_launches[k] == cfg_e.max_depth + 1 for k in b4.KERNELS),
+          f"GPU instanced render took {gpu_launches}")
+    check(np.isfinite(imgs["card"]).all() and err < RELMAE_MAX,
+          f"GPU instanced render differs from the CPU render (relative MAE {err})")
+    t0 = time.perf_counter()
+    imgs = {}
+    for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        for animated in (False, True):
+            sc, mt = small_instanced(animated, where)
+            imgs[side, animated] = render(sc, mt, cfg_e, spp=16,
+                                          device=where)[0].cpu().numpy()
+    errs = {a: relative_mae(imgs["card", a], imgs["cpu", a]) for a in (False, True)}
+    smear = {side: int((np.abs(imgs[side, True] - imgs[side, False]).sum(-1) > 1e-3).sum())
+             for side in ("card", "cpu")}
+    emit({"phase": "main_path_vs_cpu", "scene": "moving_and_mirrored", "res": 48,
+          "spp": 16, "max_depth": 3, "relative_mae": {"still": errs[False],
+                                                       "moving": errs[True]},
+          "pixels_moved": smear, "seconds": time.perf_counter() - t0})
+    check(all(e < RELMAE_MAX for e in errs.values())
+          and all(np.isfinite(im).all() for im in imgs.values()),
+          f"GPU moving/mirrored renders differ from the CPU's (relative MAE {errs})")
+    check(all(v > 50 for v in smear.values()), f"the moving instance does not smear: {smear}")
+
+    # 18. bench: instbench's two renders (256x256, 4 spp, depth 3)
+    t0 = time.perf_counter()
+    rates = {}
+    for name in ("instanced", "flattened"):
+        for counts in (bs.LAUNCHES, bi.LAUNCHES, CLOSEST_WAVES):
+            counts.update(dict.fromkeys(counts, 0))
+        r = instbench.bench(lambda res, device, s=built[name]: s, 256, INST_SPP,
+                            INST_DEPTH, dev)
+        del r["build_seconds"]                  # built in phase 15
+        other = dict(bs.LAUNCHES, **bi.LAUNCHES)
+        rounds = [[s[2] for s in sw] for sw in r["sweeps_per_render"]]
+        rates[name] = r["camera_rays_per_sec"]
+        emit(dict({"phase": "bench", "scene": f"instbench_{name}", "res": 256,
+                   "spp": INST_SPP, "max_depth": INST_DEPTH,
+                   "sweep_rounds_per_wave": rounds, "other_launches": other,
+                   "seconds": time.perf_counter() - t0, "gpu": gpu}, **r))
+        expected_base = dict.fromkeys(b4.KERNELS, INST_DEPTH + 1)
+        check(all(v == 0 for v in other.values()),
+              f"{name}: a record-stream or brute-force kernel launched: {other}")
+        check(all({k: n[k] for k in b4.KERNELS} == expected_base
+                  for n in r["launches_per_render"]),
+              f"{name}: base walk launches {r['launches_per_render']}")
+        roots_ok = [all(n[k] > 0 for k in b4.ROOT_KERNELS) if name == "instanced"
+                    else all(n[k] == 0 for k in b4.ROOT_KERNELS)
+                    for n in r["launches_per_render"]]
+        check(all(roots_ok), f"{name}: roots walk launches {r['launches_per_render']}")
+        check(np.isfinite(r["image_mean"]) and r["image_mean"] > 0.0,
+              f"{name}: bench image mean {r['image_mean']}")
+        if name == "instanced":
+            launches = r["launches_per_render"][0]
+    emit({"phase": "bench", "scene": "instbench", "instanced_over_flattened":
+          rates["instanced"] / rates["flattened"], "gpu": gpu})
+    del built
+
+    # 19. kernel_time: row 6 beside its plain version and its bound; the
+    # bound counts the 4-byte root a ray besides the ray bytes
+    t0 = time.perf_counter()
+    entries = []
+    for name, wave in INST_WAVES:
+        any_hit = name == "bvh4_any_hit_roots"
+        args, roots, live = cases[wave]
+        with torch.no_grad():
+            ms = cuda_ms(lambda: b4.bvh4_traverse(nodes, tris4, *args, any_hit=any_hit,
+                                                  stack=stack, roots=roots), 20)
+            plain_ms = cuda_ms(lambda: b4.bvh4_traverse_plain(
+                nodes, tris4, *args, any_hit=any_hit, stack=stack, roots=roots), 1,
+                warmup=0)
+        counts = results[name]["counts"]
+        bound, by = bvh4_bound(counts, table4_bytes + 4 * N_RAYS)
+        emit({"phase": "kernel_time", "scene": "instbench", "kernel": name, "case": wave,
+              "rays": N_RAYS, "live_rays": live, "ms": ms, "plain_ms": plain_ms,
+              "node_fetches": counts[0], "box_tests": counts[1], "tri_tests": counts[2],
+              "bytes_read": counts[0] * NODE_BYTES + counts[2] * TRI_BYTES,
+              "table_bytes": table4_bytes, "bound_ms": bound, "bound_by": by,
+              "percent_of_bound": 100.0 * bound / ms,
+              "fill_blocks": b4.fill_blocks(dev.index, any_hit, stack), "gpu": gpu})
+        entries.append({"name": name, "case": wave, "route": "cuda", "source": BVH4_SOURCE,
+                        "replaces": ROOTS_REPLACES[name], "launches": launches[name],
+                        "max_abs_err": max(results[name]["errs"].values()), "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                        "library_ms": None})
+    emit({"phase": "kernel_time", "scene": "instbench", "seconds": time.perf_counter() - t0})
+    return entries
 
 
 def _get(tree, path):
@@ -891,7 +1163,7 @@ def plain_traversal():
 
 
 def grad_phases(dev, gpu):
-    """Phase 15: gradients through the render (the training path) on both
+    """Phase 20: gradients through the render (the training path) on both
     routes, then inverse rendering of the Cornell albedo."""
     cfg = IntegratorConfig(kind="path", max_depth=5)
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -994,6 +1266,7 @@ def main():
 
     kernels = cornell_phases(dev, gpu, issue_rate, sass) + mesh_phases(dev, gpu)
     mesh1m_phases(dev, gpu)
+    kernels += inst_phases(dev, gpu)
     grad_phases(dev, gpu)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(gpu, flush=True)

@@ -27,6 +27,22 @@ def scale(sx, sy, sz):
     return np.diag([sx, sy, sz, 1.0]).astype(np.float32)
 
 
+def rotate_x(deg):
+    t = np.radians(deg)
+    c, s = np.cos(t), np.sin(t)
+    m = np.eye(4, dtype=np.float32)
+    m[1, 1], m[1, 2], m[2, 1], m[2, 2] = c, -s, s, c
+    return m
+
+
+def rotate_y(deg):
+    t = np.radians(deg)
+    c, s = np.cos(t), np.sin(t)
+    m = np.eye(4, dtype=np.float32)
+    m[0, 0], m[0, 2], m[2, 0], m[2, 2] = c, s, -s, c
+    return m
+
+
 def look_at(pos, look, up):
     """world-from-camera matrix (pbrt transform.cpp LookAt)."""
     pos = np.asarray(pos, np.float64)
@@ -61,6 +77,19 @@ def perspective(fov_deg, n, f):
 
 def inverse(m):
     return np.linalg.inv(np.asarray(m, np.float64)).astype(np.float32)
+
+
+def swaps_handedness(m):
+    return np.linalg.det(np.asarray(m)[:3, :3]) < 0.0
+
+
+def xform_p_np(m, p):
+    """Host: apply a 4x4 to points (...,3) in numpy (scene build)."""
+    m = np.asarray(m, np.float64)
+    p = np.asarray(p, np.float64)
+    r = p @ m[:3, :3].T + m[:3, 3]
+    w = p @ m[3, :3].T + m[3, 3]
+    return (r / w[..., None]).astype(np.float32)
 
 
 # ------------------------------------------------------------------ device application

@@ -10,7 +10,10 @@ differentials (texture filtering) and its camera wave skips ray binning.
 Survivors are repacked into narrower waves at static split points
 (multi-split compaction), exactly as the reference does. The bounce loop is
 a Python loop; the reference's `lax.cond` on the survivor count is a Python
-`if` on the count read back from the device.
+`if` on the count read back from the device. On a scene with instances the
+camera rays' time rides along with every lane (secondary and shadow rays
+keep their camera ray's time), to pick the animated instance transforms;
+elsewhere no stage reads it and it is not carried.
 
 Not ported yet: the other integrator kinds, light_strategy "power"/"all",
 alpha cutouts, bump mapping, media and material-sorted shading.
@@ -77,21 +80,22 @@ def _sample_1d(meta, pix, samp, bounce, off):
                             traced=bounce > 0)
 
 
-def scene_intersect(scene, meta, o, d, tmax, sort=None):
+def scene_intersect(scene, meta, o, d, tmax, sort=None, time=None):
     """Scene::Intersect (no alpha cutouts in the ported scenes). sort: the
-    ray-binning hint (False for camera waves, already in tile order)."""
-    return isect.intersect(scene, o, d, tmax, device=o.device, sort=sort)
+    ray-binning hint (False for camera waves, already in tile order); time:
+    the rays' times (animated instances)."""
+    return isect.intersect(scene, o, d, tmax, device=o.device, sort=sort, time=time)
 
 
-def scene_intersect_p(scene, meta, o, d, tmax):
+def scene_intersect_p(scene, meta, o, d, tmax, time=None):
     """Scene::IntersectP."""
-    return isect.intersect_p(scene, o, d, tmax, device=o.device)
+    return isect.intersect_p(scene, o, d, tmax, device=o.device, time=time)
 
 
-def _shade_context(scene, meta, hit, o, d, camdiff=None):
+def _shade_context(scene, meta, hit, o, d, camdiff=None, time=None):
     """Post-hit work: shading geometry (with uv screen derivatives from the
     camera differential rays when given), textures, lobes, local wo."""
-    sg = geom.shading_geometry(scene, hit, o, d)
+    sg = geom.shading_geometry(scene, hit, o, d, time=time)
     if camdiff is not None:
         sg["duvdx"], sg["duvdy"] = geom.uv_differentials(sg, *camdiff)
     tex_values = eval_textures(meta.tex_specs, scene["tex_data"], sg,
@@ -110,7 +114,7 @@ def _detach(x):
 
 
 def estimate_direct(scene, meta, sg, lobes, wo_local, light_idx, light_pmf,
-                    u_light, u_tri, active):
+                    u_light, u_tri, active, time=None):
     """One-light direct lighting, light-sampling branch with the power
     heuristic against the BSDF pdf (pbrt EstimateDirect part 1). The BSDF
     branch is the next bounce's continuation ray (path-vertex reuse), which
@@ -128,7 +132,7 @@ def estimate_direct(scene, meta, sg, lobes, wo_local, light_idx, light_pmf,
                         & torch.any(f_l > 0.0, dim=-1))
     occluded = scene_intersect_p(
         scene, meta, p + ls["wi"] * eps[..., None], ls["wi"],
-        torch.where(contrib_possible, ls["dist"] - 2.0 * eps, 0.0))
+        torch.where(contrib_possible, ls["dist"] - 2.0 * eps, 0.0), time=time)
     bsdf_pdf_l = bx.bsdf_pdf(lobes, wo_local, wi_l, present, include_specular=False)
     w_l = torch.where(ls["delta"], 1.0,
                       mc.power_heuristic(1.0, ls["pdf"], 1.0, bsdf_pdf_l))
@@ -149,16 +153,17 @@ def _pick_light(meta, pix, samp, bounce):
     return idx, pmf
 
 
-def _make_bounce_body(scene, meta, cfg, pix, samp, camdiff=None):
+def _make_bounce_body(scene, meta, cfg, pix, samp, camdiff=None, time=None):
     """The per-bounce stage over the lanes of `pix`/`samp` (the compacted
     tail instantiates it again at a narrower width). camdiff: the camera
-    differential rays, passed to the peeled bounce 0 only."""
+    differential rays, passed to the peeled bounce 0 only; time: the lanes'
+    ray times, or None."""
 
     def bounce_body(bounce, state):
         o, d, L, throughput, active, spec_bounce, pdf_prev = state
         # the camera wave arrives in tile order: no ray binning for it
         hit = scene_intersect(scene, meta, o, d, torch.where(active, BIG, 0.0),
-                              sort=False if bounce == 0 else None)
+                              sort=False if bounce == 0 else None, time=time)
         miss = hit["prim"] < 0
         # escaped rays take the environment's radiance: camera and specular
         # rays unweighted, other continuations MIS-weighted against the
@@ -173,7 +178,7 @@ def _make_bounce_body(scene, meta, cfg, pix, samp, camdiff=None):
                                 0.0)
         active = active & ~miss
 
-        sg, lobes, wo_local = _shade_context(scene, meta, hit, o, d, camdiff)
+        sg, lobes, wo_local = _shade_context(scene, meta, hit, o, d, camdiff, time)
 
         # emitted at hit: camera/specular vertices unweighted, other vertices
         # MIS-weighted by the light strategy's per-point pdf at this hit
@@ -197,7 +202,7 @@ def _make_bounce_body(scene, meta, cfg, pix, samp, camdiff=None):
                 scene, meta, sg, lobes, wo_local, lidx, pmf,
                 rngmod.sample_2d(meta.sampler, pix, samp, _bdim(bounce, _D_LIGHT_POS)),
                 _sample_1d(meta, pix, samp, bounce, _D_LIGHT_TRI),
-                active)
+                active, time)
             L = L + torch.where(active[..., None], throughput * Ld, 0.0)
 
         # continuation: sample the BSDF (dead work on the final bounce, as in
@@ -264,8 +269,10 @@ def li(scene, meta, cfg: IntegratorConfig, rays, pix, samp):
     spec_bounce = active                       # bounce-0 emission counts
     pdf_prev = torch.ones(n, dtype=torch.float32, device=o.device)
     state = (o, d, L, throughput, active, spec_bounce, pdf_prev)
+    # only instances read the time (a moving camera has used it already)
+    time = rays.get("time") if scene.get("inst") is not None else None
     state = _make_bounce_body(scene, meta, cfg, pix, samp,
-                              rays.get("camdiff"))(0, state)
+                              rays.get("camdiff"), time)(0, state)
 
     # multi-split compaction: the tail repacks survivors at static split
     # points, each with an overflow guard (a wave whose live count exceeds a
@@ -284,8 +291,8 @@ def li(scene, meta, cfg: IntegratorConfig, rays, pix, samp):
             if cap >= 1024:
                 splits.append((k, cap))
 
-    def tail(st, pix_t, samp_t, width, from_b, splits):
-        bodyw = _make_bounce_body(scene, meta, cfg, pix_t, samp_t)
+    def tail(st, pix_t, samp_t, time_t, width, from_b, splits):
+        bodyw = _make_bounce_body(scene, meta, cfg, pix_t, samp_t, time=time_t)
 
         def run(st, b0, b1):
             for b in range(b0, b1):
@@ -302,16 +309,17 @@ def li(scene, meta, cfg: IntegratorConfig, rays, pix, samp):
         take, count = _compaction_take(st[4], cap)
         count = int(count)
         if count > cap:
-            return tail(st, pix_t, samp_t, width, sb, splits[1:])
+            return tail(st, pix_t, samp_t, time_t, width, sb, splits[1:])
         gidx = torch.clamp_max(take, width - 1)
         live = torch.arange(cap, device=take.device) < count
         sub = tuple(a[gidx] for a in st)
         sub = sub[:4] + (sub[4] & live,) + sub[5:]
-        subL = tail(sub, pix_t[gidx], samp_t[gidx], cap, sb, splits[1:])
+        subL = tail(sub, pix_t[gidx], samp_t[gidx],
+                    None if time_t is None else time_t[gidx], cap, sb, splits[1:])
         # only the first `count` take entries name live lanes; the rest would
         # fall outside the wave (the reference drops them in its scatter).
         # Out of place, so gradients reach both waves.
         return st[2].index_put((take[:count],), subL[:count])
 
-    L = tail(state, pix, samp, n, 1, splits)
+    L = tail(state, pix, samp, time, n, 1, splits)
     return L * rays["weight"][..., None]

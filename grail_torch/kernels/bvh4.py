@@ -6,7 +6,11 @@ On the main path these replace the TPU kernels of grail/kernels/bvh_stream.py
 `_make_skip_kernel(False)` (skip-link closest hit, the tile-ordered camera
 wave) and `_make_skip_kernel(True)` (skip-link any hit, every shadow wave);
 the note in the CUDA source says what bounds them on the H100 and what the
-design does about it.
+design does about it. Given a root per ray (`roots`), the same walk is the
+instanced BLAS walk (kernels/instanced.py): the Hopper form of those
+kernels' per-stream start records (`starts_ref`, bvh_stream.py:270, :424),
+a root per 128-ray stream there, a root per ray into one table that holds
+every object's BLAS here (build_bvh4_blas).
 
 Tables, built on the host from the binary SAH tree (native.collapse_bvh4):
   nodes (N4, 32) float32, 128 B a node, SoA over 4 slots: lo.x lo.y lo.z
@@ -20,10 +24,11 @@ Tables, built on the host from the binary SAH tree (native.collapse_bvh4):
         leaf;
   stack the most entries a walk's stack holds (STACK_MAX at most).
 
-The walk, per ray: the item in hand is a node (ref >= 0) or a leaf whose
-first triangle is ~ref. A node's hit children are taken near first, sorted
-on (entry distance, slot), so ties go in slot order; the nearest is the next
-item and the others are pushed farthest first. A leaf's triangles are tested
+The walk, per ray, from node 0 or the ray's root: the item in hand is a
+node (ref >= 0) or a leaf whose first triangle is ~ref. A node's hit
+children are taken near first, sorted on (entry distance, slot), so ties go
+in slot order; the nearest is the next item and the others are pushed
+farthest first. A leaf's triangles are tested
 in order up to the one without `more`. An exhausted item pops the stack; an
 empty stack ends the walk, and so does any hit's first hit. `bvh4_traverse`
 takes the plain version only for tensors that lie on the CPU; for CUDA
@@ -49,15 +54,17 @@ BIG_T = 3.0e37
 _NETWORK = ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2))
 
 KERNELS = ("bvh4_closest", "bvh4_any_hit")
+# the same kernels given a root per ray (the instanced BLAS walk), counted
+# apart so that a render's counts show the two walks apart
+ROOT_KERNELS = ("bvh4_closest_roots", "bvh4_any_hit_roots")
 
 # Launches of each CUDA kernel in this process (plain-version calls excluded).
-LAUNCHES = dict.fromkeys(KERNELS, 0)
+LAUNCHES = dict.fromkeys(KERNELS + ROOT_KERNELS, 0)
 
 
-def build_bvh4_tables(bvh, verts, tri_idx):
-    """(nodes (N4, 32), tris (T, 12), stack) numpy tables from a binary BVH
-    (the native builder's layout, or the reference's) and its geometry."""
-    nodes, stack = collapse_bvh4(bvh)
+def _tri_rows(bvh, verts, tri_idx):
+    """The (T, 12) triangle table of a binary BVH in leaf order; its prim ids
+    are the tree's prim_ids, rows of tri_idx."""
     verts = np.asarray(verts, np.float32)
     prim = np.asarray(bvh["prim_ids"], np.int64)
     idx = np.asarray(tri_idx, np.int64)[prim]
@@ -72,7 +79,47 @@ def build_bvh4_tables(bvh, verts, tri_idx):
     tris[:, 4:7] = verts[idx[:, 1]] - v0
     tris[:, 8:11] = verts[idx[:, 2]] - v0
     tris[:, 11] = more.view(np.float32)
-    return nodes, tris, stack
+    return tris
+
+
+def build_bvh4_tables(bvh, verts, tri_idx):
+    """(nodes (N4, 32), tris (T, 12), stack) numpy tables from a binary BVH
+    (the native builder's layout, or the reference's) and its geometry."""
+    nodes, stack = collapse_bvh4(bvh)
+    return nodes, _tri_rows(bvh, verts, tri_idx), stack
+
+
+def build_bvh4_blas(trees, verts, tri_idx):
+    """One node table and one triangle table that hold the 4-wide BLAS of
+    every object, each collapsed from its own binary tree (whose prim_ids are
+    rows of the global tri_idx, so the triangle rows carry global prim ids).
+
+    Returns (nodes, tris, roots, stack): roots[k] is object k's first item
+    for the walk's `roots` argument: its root node, or the leaf ref ~first
+    where its tree is a single leaf (no node is stored for it); stack is the
+    largest stack bound of the objects. Child refs are rebased by the
+    object's node offset, leaf refs by its triangle offset."""
+    all_nodes, all_tris, roots = [], [], []
+    n_nodes = n_tris = stack = 0
+    for tree in trees:
+        nodes, tris, st = build_bvh4_tables(tree, verts, tri_idx)
+        child = nodes[:, 24:28].view(np.int32)
+        count = nodes[:, 28:32].view(np.int32)
+        leaf = count > 0
+        child[:] = np.where(leaf, child - n_tris,
+                            np.where(child >= 0, child + n_nodes, child))
+        if len(nodes) == 1 and leaf[0].sum() == 1:
+            roots.append(int(child[0, 0]))       # a single leaf: ~first
+        else:
+            roots.append(n_nodes)
+            all_nodes.append(nodes)
+            n_nodes += len(nodes)
+        all_tris.append(tris)
+        n_tris += len(tris)
+        stack = max(stack, st)
+    nodes = (np.concatenate(all_nodes) if all_nodes
+             else np.zeros((0, NODE_WORDS), np.float32))
+    return nodes, np.concatenate(all_tris), np.asarray(roots, np.int32), stack
 
 
 # --------------------------------------------------------------------------
@@ -85,12 +132,14 @@ def _inv_dir(d):
                              torch.where(d < 0, -1e-20, 1e-20), d)
 
 
-def bvh4_traverse_plain(nodes, tris, o, d, tmin, tmax, any_hit=False, *, stack):
+def bvh4_traverse_plain(nodes, tris, o, d, tmin, tmax, any_hit=False, *, stack,
+                        roots=None):
     """The kernel's per-ray walk, vectorized over the rays still walking:
     each step takes one item per live ray (one node, or one triangle of a
     leaf) with the kernel's arithmetic, conditions and visit order, and
     drops rays that finish. Raises if a walk needs more than `stack`
-    entries.
+    entries. roots: optional (N,) int32, each ray's first item (a node
+    index, or ~first triangle of a leaf) in place of node 0.
 
     Returns (t, prim, b1, b2, n_node, n_box_test, n_tri): t = tmax,
     prim = -1, b1 = b2 = 0 on a miss; an any-hit ray stops at its first hit
@@ -108,7 +157,8 @@ def bvh4_traverse_plain(nodes, tris, o, d, tmin, tmax, any_hit=False, *, stack):
     node_out = torch.zeros(n, dtype=torch.int64, device=dev)
     tri_out = torch.zeros_like(node_out)
     zero = torch.zeros(n, dtype=torch.int64, device=dev)
-    st = {"lane": torch.arange(n, device=dev), "ref": zero, "sp": zero,
+    first = zero if roots is None else roots.to(torch.int64)
+    st = {"lane": torch.arange(n, device=dev), "ref": first, "sp": zero,
           "stack": torch.zeros((n, max(stack, 1)), dtype=torch.int64, device=dev),
           "o": o, "d": d, "inv": _inv_dir(d), "tmin": tmin, "t": tmax.clone(),
           "prim": prim_out.clone(), "b1": b1_out.clone(), "b2": b2_out.clone(),
@@ -211,7 +261,7 @@ def _library():
     """The built library with its C signatures declared (pointers and the
     stream as c_void_p, so none is cut to 32 bits)."""
     lib = build.load("bvh4")
-    lib.grail_bvh4.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+    lib.grail_bvh4.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
                                + [ctypes.c_void_p, ctypes.c_void_p])
     lib.grail_bvh4.restype = ctypes.c_int
     lib.grail_bvh4_fill_blocks.argtypes = [ctypes.c_int, ctypes.c_int,
@@ -233,12 +283,17 @@ def fill_blocks(device_index, any_hit, stack):
     return blocks.value
 
 
-def _check(nodes, tris, o, d, tmin, tmax):
+def _check(nodes, tris, o, d, tmin, tmax, roots):
     n = o.shape[0]
     build.check_operands({"nodes": (nodes, (nodes.shape[0], NODE_WORDS)),
                           "tris": (tris, (tris.shape[0], TRI_WORDS)),
                           "o": (o, (n, 3)), "d": (d, (n, 3)), "tmin": (tmin, (n,)),
                           "tmax": (tmax, (n,))}, o.device)
+    if roots is not None and (roots.device != o.device or roots.dtype != torch.int32
+                              or tuple(roots.shape) != (n,) or not roots.is_contiguous()):
+        raise ValueError(f"roots must be a contiguous int32 ({n},) tensor on "
+                         f"{o.device}, got {roots.dtype} {tuple(roots.shape)} on "
+                         f"{roots.device}")
     if nodes.data_ptr() % 128 or tris.data_ptr() % 16:
         raise ValueError("nodes must be 128-byte and tris 16-byte aligned "
                          "(the kernel reads one 128-byte line a node, in float4)")
@@ -246,20 +301,22 @@ def _check(nodes, tris, o, d, tmin, tmax):
         raise ValueError("ray batch too large for one launch")
 
 
-def bvh4_traverse(nodes, tris, o, d, tmin, tmax, any_hit=False, *, stack):
+def bvh4_traverse(nodes, tris, o, d, tmin, tmax, any_hit=False, *, stack,
+                  roots=None):
     """Closest hit (or any hit) of each ray through the 4-wide tables.
     stack: the tables' stack bound (build_bvh4_tables), at most STACK_MAX.
-    Returns (t, prim, b1, b2) as bvh4_traverse_plain. On the card, one
-    launch of fill_blocks blocks of persistent warps."""
+    roots: optional (N,) int32 first item of each ray (build_bvh4_blas),
+    node 0 without. Returns (t, prim, b1, b2) as bvh4_traverse_plain. On the
+    card, one launch of fill_blocks blocks of persistent warps."""
     if not 0 <= stack <= STACK_MAX:
         raise ValueError(f"the tree's stack bound {stack} does not fit the "
                          f"kernel's {STACK_MAX}-entry stack")
     if o.device.type == "cpu":
         return bvh4_traverse_plain(nodes, tris, o, d, tmin, tmax, any_hit,
-                                   stack=stack)[:4]
+                                   stack=stack, roots=roots)[:4]
     if o.device.type != "cuda":
         raise ValueError(f"bvh4_traverse runs on cuda or cpu, not {o.device}")
-    _check(nodes, tris, o, d, tmin, tmax)
+    _check(nodes, tris, o, d, tmin, tmax, roots)
     n = o.shape[0]
     t = torch.empty(n, dtype=torch.float32, device=o.device)
     prim = torch.empty(n, dtype=torch.int32, device=o.device)
@@ -274,10 +331,11 @@ def bvh4_traverse(nodes, tris, o, d, tmin, tmax, any_hit=False, *, stack):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.grail_bvh4(nodes.data_ptr(), tris.data_ptr(), o.data_ptr(),
                              d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
+                             None if roots is None else roots.data_ptr(),
                              t.data_ptr(), prim.data_ptr(), b1.data_ptr(),
                              b2.data_ptr(), n, int(any_hit), max(stack, 1), blocks,
                              counter.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"bvh4 kernel launch failed (CUDA error {err})")
-    LAUNCHES[KERNELS[int(any_hit)]] += 1
+    LAUNCHES[(KERNELS if roots is None else ROOT_KERNELS)[int(any_hit)]] += 1
     return t, prim, b1, b2

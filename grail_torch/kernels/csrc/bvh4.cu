@@ -38,6 +38,13 @@
 //   - Any hit uses the same loop and ends at the first hit, writing
 //     t = -3e37 with that hit's prim, b1, b2. A miss writes t = tmax,
 //     prim = -1, b1 = b2 = 0.
+//   - A root per ray (optional `roots`): a ray's first item is roots[i], a
+//     node or a leaf ref, instead of node 0. This is the Hopper form of the
+//     stream kernels' per-stream start records (`starts_ref`): the instanced
+//     BLAS walk (kernels/instanced.py) gives each object-space ray its
+//     object's root in one table that holds every object's BLAS, so rays
+//     need no grouping by object, no sort and no lane masking. Without
+//     roots (nullptr) every ray starts at node 0.
 //
 // What bounds it on the H100 (measured, PERF.md): not the bytes per visit
 // nor the length of the load chain. The walk fetches a third of the records
@@ -115,9 +122,9 @@ __global__ void __launch_bounds__(kThreads) bvh4_kernel(
     const float4* __restrict__ nodes, const float4* __restrict__ tris,
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ tmin, const float* __restrict__ tmax,
-    float* __restrict__ t_out, int* __restrict__ prim_out,
-    float* __restrict__ b1_out, float* __restrict__ b2_out, int n, int stack,
-    int* __restrict__ counter) {
+    const int* __restrict__ roots, float* __restrict__ t_out,
+    int* __restrict__ prim_out, float* __restrict__ b1_out,
+    float* __restrict__ b2_out, int n, int stack, int* __restrict__ counter) {
   extern __shared__ int smem[];
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -136,7 +143,7 @@ __global__ void __launch_bounds__(kThreads) bvh4_kernel(
       float b1_best = 0.0f, b2_best = 0.0f;
       // the item in hand: node `ref` (ref >= 0) or the leaf whose first
       // triangle is ~ref (ref < 0)
-      int ref = 0, sp = 0;
+      int ref = roots != nullptr ? __ldg(roots + r) : 0, sp = 0;
       while (true) {
         if (ref >= 0) {
           const float4* nd = nodes + 8 * ref;
@@ -244,10 +251,11 @@ extern "C" int grail_bvh4_fill_blocks(int any_hit, int stack, int* blocks) {
 // returns cudaGetLastError() (0 on success). The caller checks shapes,
 // types, devices and alignment, that
 // 1 <= stack <= kStackMax holds the tree's bound, and passes a zeroed int
-// counter.
+// counter. roots: n first items (node index or ~first triangle), or
+// nullptr to start every ray at node 0.
 extern "C" int grail_bvh4(const float* nodes, const float* tris, const float* o,
                           const float* d, const float* tmin, const float* tmax,
-                          float* t_out, int* prim_out, float* b1_out,
+                          const int* roots, float* t_out, int* prim_out, float* b1_out,
                           float* b2_out, int n, int any_hit, int stack,
                           int blocks, int* counter, void* stream) {
   if (n <= 0) return 0;
@@ -258,10 +266,12 @@ extern "C" int grail_bvh4(const float* nodes, const float* tris, const float* o,
   const float4* tr = reinterpret_cast<const float4*>(tris);
   if (any_hit) {
     bvh4_kernel<true><<<blocks, kThreads, smem_bytes(stack), s>>>(
-        nd, tr, o, d, tmin, tmax, t_out, prim_out, b1_out, b2_out, n, stack, counter);
+        nd, tr, o, d, tmin, tmax, roots, t_out, prim_out, b1_out, b2_out, n, stack,
+        counter);
   } else {
     bvh4_kernel<false><<<blocks, kThreads, smem_bytes(stack), s>>>(
-        nd, tr, o, d, tmin, tmax, t_out, prim_out, b1_out, b2_out, n, stack, counter);
+        nd, tr, o, d, tmin, tmax, roots, t_out, prim_out, b1_out, b2_out, n, stack,
+        counter);
   }
   return static_cast<int>(cudaGetLastError());
 }

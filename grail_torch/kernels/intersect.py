@@ -1,13 +1,18 @@
 """Ray-scene intersection (port of grail/kernels/intersect.py): the brute
 route for scenes without a BVH and, for scenes with one, the 4-wide BVH
-route on every wave.
+route on every wave; scenes with instances add the instanced sweep
+(kernels/instanced.py) after the base geometry.
 
-Hit record (dict of (N,) tensors): t, prim (int32, -1 = miss), b1, b2.
-Closest hit is differentiable on both routes (ClosestHit: the traversal
-finds the hit, the backward differentiates Möller-Trumbore at the hit
-triangle); any hit returns booleans and has no gradient. Scenes with
-instances or a scene-sharded ring take routes that are not ported yet: the
-dispatch raises for them rather than picking something else.
+Hit record (dict of (N,) tensors): t, prim (int32, -1 = miss), b1, b2, and
+on instanced scenes inst (int32, -1 = not an instance hit). Closest hit is
+differentiable on both base routes (ClosestHit: the traversal finds the hit,
+the backward differentiates Möller-Trumbore at the hit triangle) and, to
+the rays, on instance hits (the same backward in the instance's object
+space); any hit returns booleans and has no gradient. Gradients to the
+instanced geometry or the instance transforms are not ported: the sweep
+raises where one is asked of it. Scenes with a scene-sharded ring take a
+route that is not ported yet: the dispatch raises for them rather than
+picking something else.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from ..device import check_on, resolve_device
 from .binning import N_RAY_BUCKETS, bin_rays_key, bucket_rank, sort_by_rank, unsort
 from .brute_intersect import brute_intersect
 from .bvh4 import bvh4_traverse
+from .instanced import gather_pack, instances_intersect, w2o_ray
 
 BIG_T = 3.0e37
 SORT_MIN = 8192     # waves of at least this many rays are binned first
@@ -131,11 +137,9 @@ def intersect_p_brute(scene, o, d, tmax, tmin=None):
 
 def _check_routes(scene, o, device):
     check_on(o, resolve_device(device), "the rays")
-    for key in ("inst", "ring"):
-        if scene.get(key) is not None:
-            raise NotImplementedError(
-                f"scene has a {key!r} table: that intersection route is not "
-                "ported yet")
+    if scene.get("ring") is not None:
+        raise NotImplementedError("scene has a 'ring' table: that intersection "
+                                  "route is not ported yet")
     bvh = scene.get("bvh")
     if bvh is not None and "bvh4_nodes" not in bvh:
         raise NotImplementedError("a BVH scene needs its 4-wide tables "
@@ -159,8 +163,13 @@ def _stream_bvh(scene, o, d, tmax, tmin, any_hit=False, sort=None):
     tmin = torch.where(dead, BIG_T, tmin)
     tmax = torch.where(dead, -BIG_T, tmax)
     if sort:
-        key = bin_rays_key(o, d, torch.amin(scene["verts"], dim=0),
-                           torch.amax(scene["verts"], dim=0))
+        # an instanced scene's verts hold object-space rows (and maybe a
+        # far sentinel): it carries its world bounds
+        if "world_bounds" in scene:
+            lo, hi = scene["world_bounds"]
+        else:
+            lo, hi = torch.amin(scene["verts"], dim=0), torch.amax(scene["verts"], dim=0)
+        key = bin_rays_key(o, d, lo, hi)
         key = torch.where(dead, N_RAY_BUCKETS, key)          # dead lanes last
         rank = bucket_rank(key, N_RAY_BUCKETS + 1)
         o, d, tmin, tmax = sort_by_rank(rank, o, d, tmin, tmax)
@@ -190,23 +199,63 @@ def _brute_rays(o, d, tmax, tmin):
     return o.contiguous(), d.contiguous(), tmin.contiguous(), tmax.contiguous()
 
 
-def intersect(scene, o, d, tmax, tmin=None, device=None, sort=None):
+def intersect(scene, o, d, tmax, tmin=None, device=None, sort=None, time=None):
     """Closest hit (Scene::Intersect analog). A miss has t = BIG_T.
     sort: ray-binning hint for the stream route (False for camera waves,
-    which arrive in tile order)."""
+    which arrive in tile order). time (N,): the rays' times, which pick the
+    animated instance transforms (None: shutter open)."""
     if _check_routes(scene, o, device) is not None:
-        return _stream_bvh(scene, o, d, tmax, tmin, sort=sort)
-    t, prim, b1, b2 = ClosestHit.apply(
-        lambda *rays: brute_intersect(pack_tris(scene), *rays), scene["verts"],
-        scene["tri_idx"], *_brute_rays(o, d, tmax, tmin))
-    return {"t": torch.where(prim >= 0, t, BIG_T), "prim": prim, "b1": b1, "b2": b2}
+        hit = _stream_bvh(scene, o, d, tmax, tmin, sort=sort)
+    else:
+        t, prim, b1, b2 = ClosestHit.apply(
+            lambda *rays: brute_intersect(pack_tris(scene), *rays), scene["verts"],
+            scene["tri_idx"], *_brute_rays(o, d, tmax, tmin))
+        hit = {"t": torch.where(prim >= 0, t, BIG_T), "prim": prim, "b1": b1, "b2": b2}
+    if scene.get("inst") is None:
+        return hit
+    # an instanced hit strictly inside the base hit's t wins
+    ih = _instance_hit(scene, o, d, torch.minimum(tmax, hit["t"]), tmin, time)
+    closer = ih["prim"] >= 0
+    out = {k: torch.where(closer, ih[k], hit[k]) for k in ("t", "prim", "b1", "b2")}
+    out["inst"] = torch.where(closer, ih["inst"], -1)
+    return out
 
 
-def intersect_p(scene, o, d, tmax, tmin=None, device=None):
+def intersect_p(scene, o, d, tmax, tmin=None, device=None, time=None):
     """Occlusion test (Scene::IntersectP analog): occluded (N,) bool."""
     if _check_routes(scene, o, device) is not None:
-        return _stream_bvh(scene, o, d, tmax, tmin, any_hit=True)
-    with torch.no_grad():
-        _, prim, _, _ = brute_intersect(pack_tris(scene),
-                                        *_brute_rays(o, d, tmax, tmin), any_hit=True)
-    return prim >= 0
+        occ = _stream_bvh(scene, o, d, tmax, tmin, any_hit=True)
+    else:
+        with torch.no_grad():
+            _, prim, _, _ = brute_intersect(pack_tris(scene),
+                                            *_brute_rays(o, d, tmax, tmin), any_hit=True)
+        occ = prim >= 0
+    if scene.get("inst") is None:
+        return occ
+    # rays the base geometry occludes need no instanced walk
+    rays = _detached(o, d, torch.where(occ, -BIG_T, tmax), tmin)
+    return occ | instances_intersect(scene, *rays, time, any_hit=True)["occluded"]
+
+
+def _detached(*tensors):
+    return tuple(None if a is None else a.detach() for a in tensors)
+
+
+def _instance_hit(scene, o, d, tmax, tmin, time):
+    """The instanced closest hit, with ClosestHit's backward for the rays:
+    the sweep finds each ray's instance and triangle on the detached rays;
+    the backward differentiates Möller-Trumbore at that triangle on the ray
+    taken to the instance's object space (w2o_ray at the ray's time), whose
+    t is the world t. The values are the sweep's."""
+    ih = instances_intersect(scene, *_detached(o, d, tmax, tmin), time)
+    if not (torch.is_grad_enabled() and (o.requires_grad or d.requires_grad)):
+        return ih
+    zeros = torch.zeros_like(tmax)
+    o_obj, d_obj = w2o_ray(gather_pack(scene["inst"], ih["inst"].clamp_min(0)),
+                           zeros if time is None else time, o, d)
+    found = [ih[k] for k in ("t", "prim", "b1", "b2")]
+    t, _, b1, b2 = ClosestHit.apply(lambda *_: tuple(a.clone() for a in found),
+                                    scene["verts"], scene["tri_idx"], o_obj, d_obj,
+                                    zeros if tmin is None else tmin.detach(),
+                                    tmax.detach())
+    return dict(ih, t=t, b1=b1, b2=b2)

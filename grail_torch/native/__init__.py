@@ -1,6 +1,8 @@
 """Host-side C++ components of the port, loaded with ctypes: the SAH BVH
 builder (bvh_builder.cpp), which builds the same tree as the reference's
-numpy builder (grail/scene/bvh.py build_bvh), and its collapse into the
+numpy builder (grail/scene/bvh.py build_bvh) on the meshes the tests hold it
+to (not on every mesh: on spheres of 100 triangles or fewer the two split
+otherwise), and its collapse into the
 4-wide node table of the bvh4 kernels (bvh4_collapse.cpp). The builder
 flattens the tree depth-first into structure-of-arrays tables:
 

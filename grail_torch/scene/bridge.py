@@ -5,33 +5,37 @@ converted to numpy (e.g. `jax.tree_util.tree_map(np.asarray, scene)`) and its
 SceneMeta, read by attribute name only, and returns the port's scene dict and
 SceneMeta on `device`: geometry, materials, textures with their images and
 MIP pyramids, lights with the environment map and its distribution, the
-camera, and the 4-wide tables built from the reference's own binary tree
+camera, the 4-wide tables built from the reference's own binary tree
 (for a single record table and for clustered tables alike; the record
-table is the port's own, on request: buffers.attach_record_table). Leaves
-the port does not read are dropped; a scene that needs a route the port
-lacks raises. This module imports nothing of the reference: everything
+table is the port's own, on request: buffers.attach_record_table), and the
+instance table, whose BLAS table is collapsed from the reference's own
+per-object binary trees. Leaves the port does not read are dropped; a scene
+that needs a route the port lacks raises. This module imports nothing of the reference: everything
 arrives as numpy arrays and plain attributes.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+
 from ..core.rng import SamplerConfig
 from ..device import resolve_device
 from ..engine.filters import FilterConfig
-from ..kernels.bvh4 import build_bvh4_tables
+from ..kernels.bvh4 import build_bvh4_blas, build_bvh4_tables
 from ..shade.lights import INFINITE
 from ..shade.materials import MAT_FIELDS
 from ..shade.textures import TexSpec
-from .buffers import SceneMeta, to_torch
+from .buffers import SENTINEL_TRI, SceneMeta, to_torch, world_bounds
 
 _GEOMETRY = ("verts", "vnorm", "vuv", "tri_idx", "tri_mat", "tri_light", "tri_flags")
 _LIGHTS = ("type", "emit", "l2w", "w2l", "area", "av0", "av1", "av2", "aflip",
            "acdf")
 _CAMERA = ("type", "raster2cam", "c2w", "lens_radius", "focal_distance", "shutter")
 _PYRAMID = ("flat", "h", "w", "off")
+_INSTANCE = ("obj", "t", "q", "s", "anim", "m0", "m0_inv", "swap", "wmin", "wmax")
 # reference-side features whose routes are not ported yet
-_UNPORTED_LEAVES = ("inst", "ring", "media")
+_UNPORTED_LEAVES = ("ring", "media")
 _UNPORTED_META = {"media_kinds": (), "has_bump": False, "alpha_rows": (),
                   "light_image_rows": (), "crop": (0.0, 1.0, 0.0, 1.0)}
 
@@ -60,6 +64,37 @@ def meta_from(meta) -> SceneMeta:
         has_env_map=bool(meta.has_env_map),
         n_images=int(meta.n_images),
     )
+
+
+def _object_tree(blas, root):
+    """The binary BLAS of the object at node `root`, sliced out of the
+    reference's concatenation of every object's tree (depth first, child
+    refs and prim offsets shifted by the object's offsets) and shifted back;
+    its prim_ids stay global."""
+    right, nprims = blas["right"], blas["nprims"]
+    last = root
+    while nprims[last] == 0:            # a subtree ends with its right child's
+        last = right[last]
+    part = slice(root, last + 1)
+    leaf = nprims[part] > 0
+    first = int(blas["prim_off"][part][leaf].min())
+    count = int(nprims[part].sum())
+    return {"bounds_min": blas["bounds_min"][part], "bounds_max": blas["bounds_max"][part],
+            "right": np.where(right[part] >= 0, right[part] - root, right[part]),
+            "prim_off": blas["prim_off"][part] - first, "nprims": nprims[part],
+            "prim_ids": blas["prim_ids"][first:first + count]}
+
+
+def instance_table(inst_np, verts, tri_idx):
+    """The port's instance table from the reference's: the pack leaves, and
+    the BLAS of every instanced object in one 4-wide table with each
+    instance's root (bvh4.build_bvh4_blas)."""
+    objs, first = np.unique(inst_np["obj"], return_index=True)
+    trees = [_object_tree(inst_np["blas"], int(inst_np["root"][i])) for i in first]
+    nodes, tris4, roots, stack = build_bvh4_blas(trees, verts, tri_idx)
+    root = roots[np.searchsorted(objs, inst_np["obj"])]
+    return dict({k: inst_np[k] for k in _INSTANCE}, root=root.astype(np.int32),
+                bvh4_nodes=nodes, bvh4_tris=tris4, bvh4_stack=stack)
 
 
 def scene_from_numpy(scene_np, meta, device=None):
@@ -94,4 +129,11 @@ def scene_from_numpy(scene_np, meta, device=None):
         nodes, tris4, stack = build_bvh4_tables(bvh, scene_np["verts"],
                                                 scene_np["tri_idx"])
         scene["bvh"] = {"bvh4_nodes": nodes, "bvh4_tris": tris4, "bvh4_stack": stack}
+    if scene_np.get("inst") is not None:
+        scene["inst"] = instance_table(scene_np["inst"], scene_np["verts"],
+                                       scene_np["tri_idx"])
+        base = scene_np["verts"][scene_np["tri_idx"][:int(meta.n_tris)]].reshape(-1, 3)
+        if np.array_equal(base, SENTINEL_TRI):     # an instanced-only scene
+            base = base[:0]
+        scene["world_bounds"] = world_bounds(base, scene["inst"])
     return to_torch(scene, device), meta_from(meta)

@@ -1,14 +1,19 @@
 """SceneBuilder -> (scene dict, SceneMeta) (port of grail/scene/buffers.py for
-triangle-mesh scenes with area and environment lights).
+triangle-mesh scenes with point, area and environment lights, and instanced
+objects).
 
 The scene compiles to structure-of-arrays tensors: one world-space triangle
 soup, a material lobe table, a texture table with its images and MIP
 pyramids, a light table with per-light area CDFs, pre-gathered
 light-triangle vertices and light transforms, the environment map and its
 Distribution2D, the camera pack and, above 64 triangles, the BVH's 4-wide
-node and triangle tables (its record table on request). Host-side work is
-numpy, as in the reference, so both packages hold the same bits. Instances,
-media, the other light types and the power-weighted light distribution are
+node and triangle tables (its record table on request). Instanced objects
+(pbrt's ObjectBegin/ObjectInstance) append their object-space triangles
+once, after the base soup, and add the instance table ("inst"): one 4-wide
+table of every object's BLAS with each instance's root, its decomposed
+(possibly animated) transform and its motion-bound world box. Host-side
+work is numpy, as in the reference, so both packages hold the same bits.
+Media, the other light types and the power-weighted light distribution are
 not ported yet; a scene that would need them raises.
 """
 from __future__ import annotations
@@ -24,7 +29,7 @@ from ..core import transform as tr
 from ..core.rng import SamplerConfig
 from ..device import resolve_device
 from ..engine.filters import FilterConfig
-from ..kernels.bvh4 import build_bvh4_tables
+from ..kernels.bvh4 import build_bvh4_blas, build_bvh4_tables
 from ..kernels.bvh_stream import build_stream_table, tree_depth
 from ..native import build_bvh_native
 from ..shade import bsdf as bx
@@ -35,6 +40,9 @@ from ..shade.mipmap import build_pyramid, pack_pyramid
 from ..shade.textures import TexSpec
 
 BRUTE_MAX_TRIS = 64   # the reference builds a BVH above this many triangles
+# the far micro-triangle an instanced-only scene gets as its base soup
+SENTINEL_TRI = np.asarray([[1e30, 1e30, 1e30], [1e30, 1e30 + 1, 1e30],
+                           [1e30, 1e30, 1e30 + 1]], np.float32)
 
 
 def binary_bvh(verts, tri_idx):
@@ -73,6 +81,100 @@ class SceneMeta:
     yres: int
     has_env_map: bool = False
     n_images: int = 0
+
+
+def _motion_bounds(m0, m1, omin, omax, steps=16):
+    """Conservative world box of an object box under an animated transform
+    (pbrt AnimatedTransform::MotionBounds: the union of the boxes at steps
+    interpolated times)."""
+    corners = np.asarray([[omin[0] if i & 1 else omax[0],
+                           omin[1] if i & 2 else omax[1],
+                           omin[2] if i & 4 else omax[2]] for i in range(8)],
+                         np.float32)
+    m0 = np.asarray(m0, np.float32)
+    m1 = np.asarray(m1, np.float32)
+    if np.allclose(m0, m1):
+        w = tr.xform_p_np(m0, corners)
+        lo, hi = w.min(0), w.max(0)
+    else:
+        t0, q0, s0 = tr.decompose(m0)
+        t1, q1, s1 = tr.decompose(m1)
+        q0 = np.asarray(q0, np.float64)
+        q1 = np.asarray(q1, np.float64)
+        lo = np.full(3, np.inf)
+        hi = np.full(3, -np.inf)
+        for k in range(steps):
+            u = k / (steps - 1.0)
+            T = (1 - u) * t0 + u * t1
+            S = (1 - u) * s0 + u * s1
+            d = float(np.dot(q0, q1))
+            qb = -q1 if d < 0 else q1
+            d = abs(d)
+            if d > 0.9995:
+                q = (1 - u) * q0 + u * qb
+            else:
+                th = np.arccos(np.clip(d, -1.0, 1.0))
+                q = (np.sin((1 - u) * th) * q0 + np.sin(u * th) * qb) / np.sin(th)
+            q = q / np.linalg.norm(q)
+            x, y, z, w_ = q
+            R = np.asarray([
+                [1 - 2 * (y * y + z * z), 2 * (x * y - z * w_), 2 * (x * z + y * w_)],
+                [2 * (x * y + z * w_), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w_)],
+                [2 * (x * z - y * w_), 2 * (y * z + x * w_), 1 - 2 * (x * x + y * y)]])
+            w = corners @ (R @ S).T + T
+            lo = np.minimum(lo, w.min(0))
+            hi = np.maximum(hi, w.max(0))
+    pad = 1e-4 * (np.linalg.norm(hi - lo) + 1.0)
+    return (lo - pad).astype(np.float32), (hi + pad).astype(np.float32)
+
+
+def instance_pack(instances, obj_verts, obj_root):
+    """The instance table's per-instance leaves (numpy) from {obj, m0, m1}
+    dicts, each object's object-space vertices and each object's root ref:
+    root, obj, t, q, s, anim, m0, m0_inv, swap, wmin, wmax."""
+    I = len(instances)
+    pk = {"root": np.zeros(I, np.int32), "obj": np.zeros(I, np.int32),
+          "t": np.zeros((I, 2, 3), np.float32), "q": np.zeros((I, 2, 4), np.float32),
+          "s": np.zeros((I, 2, 3, 3), np.float32), "anim": np.zeros(I, np.bool_),
+          "m0": np.zeros((I, 4, 4), np.float32),
+          "m0_inv": np.zeros((I, 4, 4), np.float32), "swap": np.zeros(I, np.bool_),
+          "wmin": np.zeros((I, 3), np.float32), "wmax": np.zeros((I, 3), np.float32)}
+    for i, ins in enumerate(instances):
+        p = tr.animated_pack(ins["m0"], ins["m1"])
+        pk["root"][i] = obj_root[ins["obj"]]
+        pk["obj"][i] = ins["obj"]
+        pk["t"][i], pk["q"][i], pk["s"][i] = p["t"], p["q"], p["s"]
+        pk["anim"][i] = p["animated"]
+        pk["m0"][i] = p["m0"]
+        pk["m0_inv"][i] = tr.inverse(ins["m0"])
+        pk["swap"][i] = bool(tr.swaps_handedness(ins["m0"]))
+        ov = obj_verts[ins["obj"]]
+        pk["wmin"][i], pk["wmax"][i] = _motion_bounds(ins["m0"], ins["m1"],
+                                                      ov.min(0), ov.max(0))
+    return pk
+
+
+def world_bounds(base_verts, inst):
+    """(2, 3) world bounds (Scene::WorldBound): the base vertices (none for
+    an instanced-only scene's far sentinel) and the instances' motion
+    bounds."""
+    lo = np.minimum(np.min(base_verts, 0, initial=np.inf), inst["wmin"].min(0))
+    hi = np.maximum(np.max(base_verts, 0, initial=-np.inf), inst["wmax"].max(0))
+    return np.stack([lo, hi]).astype(np.float32)
+
+
+def _vertex_rows(nv, normals, uvs, reverse_orientation, swaps_handedness):
+    """A mesh's vertex normal and uv rows (zeros where it has none) and its
+    triangles' flag bits."""
+    flags = ((geom.HAS_NS if normals is not None else 0)
+             | (geom.HAS_UV if uvs is not None else 0)
+             | (geom.REVERSE_ORIENTATION if reverse_orientation else 0)
+             | (geom.XFORM_SWAPS_HANDEDNESS if swaps_handedness else 0))
+    vnorm = (np.asarray(normals, np.float32).reshape(-1, 3) if normals is not None
+             else np.zeros((nv, 3), np.float32))
+    vuv = (np.asarray(uvs, np.float32).reshape(-1, 2) if uvs is not None
+           else np.zeros((nv, 2), np.float32))
+    return vnorm, vuv, flags
 
 
 def to_torch(tree, device):
@@ -125,6 +227,8 @@ class SceneBuilder:
         self.filter = FilterConfig()
         self.xres = 256
         self.yres = 256
+        self.inst_objects = []   # object-space mesh buckets (add_object)
+        self.instances = []      # {obj, m0, m1} (add_instance)
 
     # ------------------------------------------------------------------- textures
     def add_texture(self, spec: TexSpec, const=(0.0, 0.0, 0.0), w2t=None):
@@ -169,21 +273,11 @@ class SceneBuilder:
         nv = verts.shape[0]
         ntri = idx.shape[0]
         base = self.n_verts
-        flags = 0
-        if normals is not None:
-            flags |= geom.HAS_NS
-        if uvs is not None:
-            flags |= geom.HAS_UV
-        if reverse_orientation:
-            flags |= geom.REVERSE_ORIENTATION
-        if swaps_handedness:
-            flags |= geom.XFORM_SWAPS_HANDEDNESS
-
+        vnorm, vuv, flags = _vertex_rows(nv, normals, uvs, reverse_orientation,
+                                         swaps_handedness)
         self.verts.append(verts)
-        self.vnorm.append(np.asarray(normals, np.float32).reshape(-1, 3)
-                          if normals is not None else np.zeros((nv, 3), np.float32))
-        self.vuv.append(np.asarray(uvs, np.float32).reshape(-1, 2)
-                        if uvs is not None else np.zeros((nv, 2), np.float32))
+        self.vnorm.append(vnorm)
+        self.vuv.append(vuv)
         self.n_verts += nv
 
         light_id = -1
@@ -207,7 +301,46 @@ class SceneBuilder:
         self.tri_flags.append(np.full(ntri, flags, np.int64))
         return light_id
 
+    # ------------------------------------------------------------------- instances
+    def add_object(self):
+        """Open a reusable object-space geometry bucket (pbrtObjectBegin);
+        returns its id for add_object_mesh and add_instance."""
+        self.inst_objects.append({"verts": [], "vnorm": [], "vuv": [], "tri_idx": [],
+                                  "tri_mat": [], "tri_flags": [], "n_verts": 0})
+        return len(self.inst_objects) - 1
+
+    def add_object_mesh(self, obj_id, verts, idx, material, normals=None, uvs=None,
+                        reverse_orientation=False, swaps_handedness=False):
+        """Append an object-space mesh to an object: stored once whatever the
+        number of instances (area lights inside objects are not supported,
+        as in the reference)."""
+        ob = self.inst_objects[obj_id]
+        verts = np.asarray(verts, np.float32).reshape(-1, 3)
+        idx = np.asarray(idx, np.int64).reshape(-1, 3)
+        nv = verts.shape[0]
+        ntri = idx.shape[0]
+        vnorm, vuv, flags = _vertex_rows(nv, normals, uvs, reverse_orientation,
+                                         swaps_handedness)
+        ob["verts"].append(verts)
+        ob["vnorm"].append(vnorm)
+        ob["vuv"].append(vuv)
+        ob["tri_idx"].append(idx + ob["n_verts"])
+        ob["tri_mat"].append(np.full(ntri, material, np.int64))
+        ob["tri_flags"].append(np.full(ntri, flags, np.int64))
+        ob["n_verts"] += nv
+
+    def add_instance(self, obj_id, m0, m1=None):
+        """Instantiate an object with an object-to-world transform, animated
+        from m0 at shutter open to m1 at close (pbrtObjectInstance)."""
+        m0 = np.asarray(m0, np.float32)
+        m1 = m0 if m1 is None else np.asarray(m1, np.float32)
+        self.instances.append({"obj": obj_id, "m0": m0, "m1": m1})
+
     # ---------------------------------------------------------------------- lights
+    def add_point_light(self, p, intensity):
+        self.lights.append({"type": lt.POINT, "emit": np.asarray(intensity, np.float32),
+                            "l2w": tr.translate(np.asarray(p, np.float64))})
+
     def add_infinite_light(self, l2w=None, radiance=(1.0, 1.0, 1.0), env_map=None):
         """InfiniteAreaLight; env_map (H,W,3) lat-long, importance
         luminance·sinθ."""
@@ -223,21 +356,51 @@ class SceneBuilder:
         """Compile to (scene, meta); tensors go to `device` (CUDA unless the
         caller passes another)."""
         device = resolve_device(device)
-        n_tris = sum(len(t) for t in self.tri_idx)
+        has_sentinel = bool(self.instances) and sum(len(t) for t in self.tri_idx) == 0
+        if has_sentinel:
+            # an instanced-only scene: the base routes want geometry, so one
+            # far micro-triangle that no ray reaches (left out of the world
+            # bounds), as the reference
+            self.add_mesh(SENTINEL_TRI, np.asarray([[0, 1, 2]], np.int64), 0)
+        n_tris = sum(len(t) for t in self.tri_idx)     # the base soup
         if n_tris == 0:
             raise ValueError("scene has no geometry")
         if self.camera is None:
             raise ValueError("scene has no camera")
-        verts = np.concatenate(self.verts)
-        tri_idx = np.concatenate(self.tri_idx)
-        tri_flags = np.concatenate(self.tri_flags)
+        base_verts = np.concatenate(self.verts)
+        base_idx = np.concatenate(self.tri_idx)
+        parts = {k: [np.concatenate(getattr(self, k))]
+                 for k in ("vnorm", "vuv", "tri_mat", "tri_light", "tri_flags")}
+        parts["verts"], parts["tri_idx"] = [base_verts], [base_idx]
+        # objects' object-space triangles, appended once after the base soup,
+        # so that prim ids are the reference's
+        obj_ranges, obj_verts = [], []
+        n_verts, t0 = len(base_verts), n_tris
+        for ob in self.inst_objects:
+            ov = (np.concatenate(ob["verts"]) if ob["verts"]
+                  else np.zeros((0, 3), np.float32))
+            obj_verts.append(ov)
+            nt = sum(len(t) for t in ob["tri_idx"])
+            obj_ranges.append((t0, t0 + nt))
+            if nt == 0:
+                continue
+            parts["verts"].append(ov)
+            parts["tri_idx"].append(np.concatenate(ob["tri_idx"]) + n_verts)
+            for k in ("vnorm", "vuv", "tri_mat", "tri_flags"):
+                parts[k].append(np.concatenate(ob[k]))
+            parts["tri_light"].append(np.full(nt, -1, np.int64))
+            n_verts += len(ov)
+            t0 += nt
+        verts = np.concatenate(parts["verts"])
+        tri_idx = np.concatenate(parts["tri_idx"])
+        tri_flags = np.concatenate(parts["tri_flags"])
         scene = {
             "verts": verts,
-            "vnorm": np.concatenate(self.vnorm),
-            "vuv": np.concatenate(self.vuv),
+            "vnorm": np.concatenate(parts["vnorm"]),
+            "vuv": np.concatenate(parts["vuv"]),
             "tri_idx": tri_idx.astype(np.int32),
-            "tri_mat": np.concatenate(self.tri_mat).astype(np.int32),
-            "tri_light": np.concatenate(self.tri_light).astype(np.int32),
+            "tri_mat": np.concatenate(parts["tri_mat"]).astype(np.int32),
+            "tri_light": np.concatenate(parts["tri_light"]).astype(np.int32),
             "tri_flags": tri_flags.astype(np.int32),
         }
 
@@ -318,13 +481,33 @@ class SceneBuilder:
                 scene["env_map"] = self.env_map
         scene["camera"] = self.camera
 
-        # ---- the BVH's 4-wide tables (the record table only on request:
-        # attach_record_table)
-        if n_tris > BRUTE_MAX_TRIS:
-            nodes, tris4, stack = build_bvh4_tables(binary_bvh(verts, tri_idx),
+        # ---- the BVH's 4-wide tables over the base soup (the record table
+        # only on request: attach_record_table). An instanced scene always
+        # has one: the brute route would test the object-space rows too.
+        if n_tris > BRUTE_MAX_TRIS or self.instances:
+            nodes, tris4, stack = build_bvh4_tables(binary_bvh(verts, base_idx),
                                                     verts, tri_idx)
             scene["bvh"] = {"bvh4_nodes": nodes, "bvh4_tris": tris4,
                             "bvh4_stack": stack}
+
+        # ---- the instance table: the BLAS of every instanced object in one
+        # 4-wide table, each from its own binary tree; instances of empty
+        # objects dropped
+        instances = [i for i in self.instances
+                     if obj_ranges[i["obj"]][1] > obj_ranges[i["obj"]][0]]
+        if instances:
+            objs = sorted({i["obj"] for i in instances})
+            trees = []
+            for k in objs:
+                a, b = obj_ranges[k]
+                tree = binary_bvh(verts, tri_idx[a:b])
+                trees.append(dict(tree, prim_ids=tree["prim_ids"] + a))
+            nodes, tris4, roots, stack = build_bvh4_blas(trees, verts, tri_idx)
+            obj_root = dict(zip(objs, roots.tolist()))
+            scene["inst"] = dict(instance_pack(instances, obj_verts, obj_root),
+                                 bvh4_nodes=nodes, bvh4_tris=tris4, bvh4_stack=stack)
+            scene["world_bounds"] = world_bounds(base_verts[:0] if has_sentinel
+                                                 else base_verts, scene["inst"])
 
         meta = SceneMeta(
             tex_specs=tuple(self.tex_specs),

@@ -1,11 +1,12 @@
 """Differential geometry at hit points (port of grail/shade/geometry.py,
-without instances and the scene-sharded ring record), and the uv screen
-derivatives that texture filtering reads at camera hits."""
+without the scene-sharded ring record), and the uv screen derivatives that
+texture filtering reads at camera hits."""
 from __future__ import annotations
 
 import torch
 
 from ..core.vecmath import cross, dot, normalize, face_forward, coordinate_system
+from ..kernels.instanced import gather_pack, o2w_normal, o2w_point
 
 # tri_flags bits
 HAS_NS = 1
@@ -15,19 +16,31 @@ REVERSE_ORIENTATION = 8
 XFORM_SWAPS_HANDEDNESS = 16
 
 
-def shading_geometry(scene, hit, ray_o, ray_d):
+def shading_geometry(scene, hit, ray_o, ray_d, time=None):
     """Shading record for a batch of hits. Misses (prim<0) produce
-    garbage-but-finite entries; callers mask by hit."""
+    garbage-but-finite entries; callers mask by hit. An instance hit
+    (hit["inst"] >= 0) takes its object-space triangle to world space with
+    the instance's transform at the ray's time (None: shutter open), as
+    pbrt's TransformedPrimitive::Intersect does."""
     prim = torch.clamp_min(hit["prim"], 0)
     idx = scene["tri_idx"][prim]                    # (N,3)
     v0 = scene["verts"][idx[..., 0]]
     v1 = scene["verts"][idx[..., 1]]
     v2 = scene["verts"][idx[..., 2]]
-    e1 = v1 - v0
-    e2 = v2 - v0
     n0 = scene["vnorm"][idx[..., 0]]
     n1 = scene["vnorm"][idx[..., 1]]
     n2 = scene["vnorm"][idx[..., 2]]
+    inst = scene.get("inst")
+    on_inst = None
+    if inst is not None and "inst" in hit:
+        on_inst = hit["inst"] >= 0
+        pk = gather_pack(inst, torch.clamp_min(hit["inst"], 0))
+        t_lane = time if time is not None else torch.zeros_like(hit["t"])
+        m = on_inst[..., None]
+        v0, v1, v2 = (torch.where(m, o2w_point(pk, t_lane, v), v) for v in (v0, v1, v2))
+        n0, n1, n2 = (torch.where(m, o2w_normal(pk, t_lane, v), v) for v in (n0, n1, n2))
+    e1 = v1 - v0
+    e2 = v2 - v0
     uv0 = scene["vuv"][idx[..., 0]]
     uv1 = scene["vuv"][idx[..., 1]]
     uv2 = scene["vuv"][idx[..., 2]]
@@ -47,6 +60,8 @@ def shading_geometry(scene, hit, ray_o, ray_d):
 
     rev = (flags & REVERSE_ORIENTATION) != 0
     swap = (flags & XFORM_SWAPS_HANDEDNESS) != 0
+    if on_inst is not None:
+        swap = swap ^ (on_inst & inst["swap"][torch.clamp_min(hit["inst"], 0)])
     ng = torch.where((rev ^ swap)[..., None], -ng, ng)
 
     # uv: default parameterization (0,0),(1,0),(1,1) as pbrt TriangleMesh::GetUVs

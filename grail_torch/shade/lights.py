@@ -1,11 +1,14 @@
-"""Light sampling (port of grail/shade/lights.py: AREA and INFINITE lights).
+"""Light sampling (port of grail/shade/lights.py: POINT, AREA and INFINITE
+lights).
 
 Area lights pick a triangle from a per-light area CDF, then a uniform
 barycentric point, and convert to solid angle with the per-point pdf
 r^2/(|cos|·totalArea) — the area-domain MIS form the reference documents.
 The infinite light samples its lat-long map through a Distribution2D of
-luminance·sinθ (infinite.cpp). The static `present_types` branching is
-kept; other light types are not ported yet and raise.
+luminance·sinθ (infinite.cpp). A point light is a delta light at the
+translation of its light-to-world matrix with radiance I/d². The static
+`present_types` branching is kept; other light types are not ported yet and
+raise.
 """
 from __future__ import annotations
 
@@ -64,10 +67,10 @@ def sample_li(scene, li, p, u1, u2, u3, present_types):
     li (N,) light row per shade point; (u1, u2) 2D sample; u3 picks the area
     light's triangle. Returns dict: wi (N,3), radiance (N,3), pdf (N,),
     dist (N,) shadow-ray length, delta (N,) bool."""
-    unported = sorted(set(present_types) - {AREA, INFINITE})
+    unported = sorted(set(present_types) - {POINT, AREA, INFINITE})
     if unported:
         raise NotImplementedError(f"light types {unported} are not ported yet "
-                                  "(AREA, INFINITE)")
+                                  "(POINT, AREA, INFINITE)")
     lights = scene["lights"]
     lt = lights["type"][li]
     n = p.shape[0]
@@ -76,6 +79,16 @@ def sample_li(scene, li, p, u1, u2, u3, present_types):
     pdf = p.new_zeros((n,))
     dist = p.new_full((n,), WORLD_BIG)
     emit = lights["emit"][li]
+
+    if POINT in present_types:
+        vec = lights["l2w"][:, :3, 3][li] - p
+        d2 = torch.clamp_min(length_sq(vec), 1e-20)
+        dd = torch.sqrt(d2)
+        m = lt == POINT
+        wi = torch.where(m[..., None], vec / dd[..., None], wi)
+        radiance = torch.where(m[..., None], emit / d2[..., None], radiance)
+        pdf = torch.where(m, 1.0, pdf)
+        dist = torch.where(m, dd, dist)
 
     if AREA in present_types:
         wi_a, _, cos_l, pdf_a, dist_a = _area_sample(scene, li, p, u1, u2, u3)

@@ -1,14 +1,16 @@
 """Where the device time of one render goes, on the card.
 
-    python3 -m grail_torch.tools.profile_render [--scene cornell|mesh|mesh1m]
-        [--res 256] [--spp 16] [--depth 5] [--grid N]
+    python3 -m grail_torch.tools.profile_render
+        [--scene cornell|mesh|mesh1m|inst] [--res 256] [--spp 16] [--depth 5]
+        [--grid N]
 
 Renders the Cornell box (or mesh_scene, the textured terrain of
 2(grid-1)^2 triangles under an environment light, grid 224 unless given; or
 mesh_scene_1m, the terrain at grid 708 seen through a thin lens by a moving
-camera: bench.py's mesh1m is --spp 4) once to warm up, once timed, then once
-under
-torch.profiler, and prints JSON lines: the render's wall time (unprofiled and
+camera: bench.py's mesh1m is --spp 4; or instbench's instanced scene, 100
+instances of a 50,176-triangle sphere: its bench is --spp 4 --depth 3) once
+to warm up, once timed, then once under torch.profiler, and prints JSON
+lines: the render's wall time (unprofiled and
 profiled), the summed kernel time and the device's busy share (kernel time
 over the unprofiled wall time), the number of kernel launches; for each stage
 of the path its kernel time, the device timeline it spans and the host time
@@ -32,8 +34,10 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from ..core import rng
 from ..engine import camera, film, integrator, render as rnd
 from ..kernels import intersect
+from ..kernels import instanced
 from ..scene.presets import cornell_box, mesh_scene, mesh_scene_1m
 from ..shade import bsdf, geometry, lights, materials
+from .instbench import build_instanced
 
 # stage name -> (module, function names) wrapped in a profiler range
 _STAGES = {
@@ -43,6 +47,12 @@ _STAGES = {
     "binning": (intersect, ("bin_rays_key", "bucket_rank", "sort_by_rank",
                             "unsort")),                 # inside intersect
     "traversal": (intersect, ("bvh4_traverse",)),       # inside intersect
+    # the instanced sweep (inside intersect) and its parts: the (N, I) TLAS
+    # cull, the rays to object space, the BLAS walk with per-ray roots
+    "instanced": (intersect, ("instances_intersect",)),
+    "tlas_cull": (instanced, ("_instance_nears",)),
+    "to_object_space": (instanced, ("w2o_ray",)),
+    "blas_walk": (instanced, ("bvh4_traverse",)),
     "uv_differentials": (geometry, ("uv_differentials",)),
     "textures": (integrator, ("eval_textures",)),
     "environment": (lights, ("env_pdf", "escaped_radiance")),
@@ -79,7 +89,8 @@ def _instrument():
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scene", choices=("cornell", "mesh", "mesh1m"), default="cornell")
+    ap.add_argument("--scene", choices=("cornell", "mesh", "mesh1m", "inst"),
+                    default="cornell")
     ap.add_argument("--grid", type=int, help="terrain grid (default: the preset's)")
     ap.add_argument("--res", type=int, default=256)
     ap.add_argument("--spp", type=int, default=16)
@@ -89,7 +100,9 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_render: no CUDA device")
     dev = torch.device("cuda", 0)
-    if args.scene != "cornell":
+    if args.scene == "inst":
+        scene, meta = build_instanced(args.res, dev)
+    elif args.scene != "cornell":
         preset = mesh_scene if args.scene == "mesh" else mesh_scene_1m
         grid = {} if args.grid is None else {"grid": args.grid}
         scene, meta, _ = preset(args.res, args.res, args.spp, device=dev, **grid)
@@ -104,6 +117,7 @@ def main(argv=None):
     wall_plain = time.perf_counter() - t0
 
     saved = _instrument()
+    instanced.LAST_SWEEPS.clear()
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -138,6 +152,10 @@ def main(argv=None):
                 st["kernel_ms"] = e.device_time_total / 1e3
                 st["host_ms_profiled"] = e.cpu_time_total / 1e3
     print(json.dumps({"stages": stages}))
+    if args.scene == "inst":
+        # (kind, rays, rounds) of each instanced sweep of the profiled
+        # render: one BLAS launch and one host sync a round
+        print(json.dumps({"sweeps": [list(s) for s in instanced.LAST_SWEEPS]}))
     for kind, rows in (("kernel", kernels),
                        ("operator", [e for e in events
                                      if e.device_type == DeviceType.CPU

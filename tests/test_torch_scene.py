@@ -90,8 +90,8 @@ def test_clustered_scene_carries(monkeypatch):
 
 def test_unported_scenes_raise(both):
     scene_np, jm, _, _ = both
-    with pytest.raises(NotImplementedError, match="inst"):
-        scene_from_numpy(dict(scene_np, inst={"m0": np.zeros((1, 4, 4))}), jm,
+    with pytest.raises(NotImplementedError, match="ring"):
+        scene_from_numpy(dict(scene_np, ring={"verts": np.zeros((1, 3))}), jm,
                          device="cpu")
     with pytest.raises(NotImplementedError, match="has_bump"):
         scene_from_numpy(scene_np, dataclasses.replace(jm, has_bump=True),
