@@ -77,7 +77,20 @@ failure ends the run with a non-zero exit code:
       the Cornell box's albedos, emission and vertices (brute-force kernel)
       and for mesh100k's texels, MIP pyramid and vertices (4-wide kernels),
       against the same through the plain versions on the card (bitwise) and
-      against the CPU at 32x32; then optimize_albedo on the Cornell box.
+      against the CPU at 32x32; then optimize_albedo on the Cornell box;
+  pbrt scene files (scenes/cornell.pbrt, glossy.pbrt, envlight.pbrt, through
+  the port's own parser, 4-wide kernels):
+  21. pbrt: each scene rendered at its authored settings by the command line
+      (python -m grail_torch.cli.main SCENE --outfile OUT.exr, one process a
+      scene, run together), the EXR read back against the scene's golden
+      (tests/goldens, relative MAE < 0.02); in this process, the parse's
+      host seconds; parity: the rays of the busiest wave of each kind that
+      the authored render hands the 4-wide walk (the camera wave, binned
+      secondary and shadow waves, and envlight's unbinned compacted tail),
+      each kernel against its plain version on them, bitwise; the render
+      at authored settings (a warm-up, then three timed: camera rays/s,
+      launches per render of each kernel, the image against the golden);
+      and the scene at 32x32, 2 spp on the card against the CPU.
 Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
 Needs a CUDA device and nvcc; imports nothing of JAX.
 """
@@ -89,12 +102,14 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from grail_torch.core import transform as tr
+from grail_torch.engine.imageio import read_image
 from grail_torch.engine import camera
 from grail_torch.engine.film import develop, new_film
 from grail_torch.engine.integrator import IntegratorConfig
@@ -110,6 +125,7 @@ from grail_torch.kernels.binning import (N_RAY_BUCKETS, bin_rays_key, bucket_ran
 from grail_torch.kernels.intersect import (BIG_T, CLOSEST_WAVES, SORT_MIN,
                                            moller_trumbore, pack_tris)
 from grail_torch.scene.buffers import SceneBuilder, attach_record_table
+from grail_torch.scene.parser import parse_file, parse_string
 from grail_torch.scene.presets import cornell_box, mesh_scene, mesh_scene_1m
 from grail_torch.scene.shapes import sphere
 from grail_torch.tools import instbench
@@ -192,6 +208,19 @@ GRAD_LEAVES = {"cornell": {"const": ("tex_data", "const"), "emit": ("lights", "e
 # which a last-bit change of uv moves by up to 1.2e-4 (as in
 # tests/test_torch_grad.py against the reference)
 GRAD_RTOL, GRAD_ATOL = 1e-3, 2e-3     # atol: of the largest CPU entry
+# the pbrt scenes with golden images that the port renders (the path
+# integrator), tests/test_golden.py's threshold for them, and the reduced
+# size of the card-against-CPU check
+ROOT = os.path.dirname(os.path.abspath(__file__))
+PBRT_SCENES = ("cornell", "glossy", "envlight")
+GOLDEN_RELMAE = 0.02
+PBRT_SMALL_RES, PBRT_SMALL_SPP = 32, 2
+# the kinds of wave each parsed scene's authored render must hand the 4-wide
+# walk (captured_waves): envlight's compacted tail falls below SORT_MIN
+PBRT_WAVES = {"cornell": ("camera_wave", "binned_secondary", "binned_shadow"),
+              "glossy": ("camera_wave", "binned_secondary", "binned_shadow"),
+              "envlight": ("camera_wave", "binned_secondary", "binned_shadow",
+                           "unbinned_secondary", "unbinned_shadow")}
 BRUTE_SOURCE = "grail_torch/kernels/csrc/brute_intersect.cu"
 RAGGED = 37                # rays past 1M in the ragged parity case
 NODE_BYTES, TRI_BYTES = 128, 48
@@ -521,7 +550,7 @@ def bvh4_parity(scene_name, name, wave, args, bvh):
     # consecutive rays: the share of lanes busy while the warp walks
     items = (plain[4] + plain[6]).view(-1, 32).double()
     line = {"phase": "parity", "scene": scene_name, "kernel": name, "case": wave,
-            "rays": N_RAYS, "live_rays": int((args[3] > args[2]).sum()),
+            "rays": args[0].shape[0], "live_rays": int((args[3] > args[2]).sum()),
             "hits": int((kern[1] >= 0).sum()), "prim_mismatch": n_bad,
             "occlusion_mismatch": int(((kern[1] >= 0) != (plain[1] >= 0)).sum()),
             "max_abs_diff": errs, "bitwise_equal": bitwise, "node_fetches": counts[0],
@@ -1234,6 +1263,145 @@ def grad_phases(dev, gpu):
           "inverse rendering did not recover the albedo")
 
 
+def _scene_file(name):
+    return os.path.join(ROOT, "scenes", name + ".pbrt")
+
+
+def _golden(name):
+    return read_image(os.path.join(ROOT, "tests", "goldens", name + ".exr"))
+
+
+def pbrt_cli(tmp):
+    """The command line on every pbrt scene, one process a scene, run
+    together; each must exit 0 and write an image near the golden."""
+    t0 = time.perf_counter()
+    outs = {name: os.path.join(tmp, name + ".exr") for name in PBRT_SCENES}
+    procs = {}
+    try:
+        for name in PBRT_SCENES:
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "grail_torch.cli.main", _scene_file(name),
+                 "--outfile", outs[name]], cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        for name, proc in procs.items():
+            _, log = proc.communicate(timeout=600)
+            check(proc.returncode == 0,
+                  f"the command line exited {proc.returncode} on {name}: {log[-2000:]}")
+            img = read_image(outs[name])
+            err = relative_mae(img, _golden(name))
+            emit({"phase": "pbrt_cli", "scene": name, "shape": list(img.shape),
+                  "relative_mae_vs_golden": err, "log": log.strip().splitlines()[-3:],
+                  "seconds": time.perf_counter() - t0})
+            check(np.isfinite(img).all() and err < GOLDEN_RELMAE,
+                  f"the command line's {name} image is {err} from its golden")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+@contextlib.contextmanager
+def captured_waves(waves):
+    """Records in `waves` the launch of the 4-wide walk with the most live
+    rays on each kind of wave that the intersect dispatch makes, as {case:
+    (any_hit, (o, d, tmin, tmax))}: the rays as the kernel receives them
+    (binned or not, dead lanes inert). case: "camera_wave", or a secondary
+    or shadow wave, binned or unbinned (below SORT_MIN rays, as a compacted
+    tail may be)."""
+    stream, traverse = isect._stream_bvh, isect.bvh4_traverse
+    case, live_of = [None], {}
+
+    def stream_named(scene, o, d, tmax, tmin, any_hit=False, sort=None):
+        if sort is False:
+            case[0] = "camera_wave"
+        else:
+            case[0] = (("binned_" if o.shape[0] >= isect.SORT_MIN else "unbinned_")
+                       + ("shadow" if any_hit else "secondary"))
+        return stream(scene, o, d, tmax, tmin, any_hit=any_hit, sort=sort)
+
+    def traverse_recorded(nodes, tris, o, d, tmin, tmax, any_hit=False, **kw):
+        live = int((tmax > tmin).sum())
+        if live and live > live_of.get(case[0], 0):
+            live_of[case[0]] = live
+            waves[case[0]] = (any_hit, tuple(x.detach().clone() for x in (o, d, tmin, tmax)))
+        return traverse(nodes, tris, o, d, tmin, tmax, any_hit, **kw)
+
+    isect._stream_bvh, isect.bvh4_traverse = stream_named, traverse_recorded
+    try:
+        yield waves
+    finally:
+        isect._stream_bvh, isect.bvh4_traverse = stream, traverse
+
+
+def pbrt_phases(dev, gpu):
+    """Phase 21: the pbrt scenes through the port's parser and command line."""
+    with tempfile.TemporaryDirectory() as tmp:
+        pbrt_cli(tmp)
+    for name in PBRT_SCENES:
+        t0 = time.perf_counter()
+        scene, meta, api = parse_file(_scene_file(name), device=dev)
+        torch.cuda.synchronize()
+        parse_s = time.perf_counter() - t0
+        cfg = api.integrator_config
+        spp = meta.sampler.spp
+
+        # parity: each 4-wide kernel on the busiest wave of each kind that
+        # the authored render hands it, against its plain version, bitwise
+        t0 = time.perf_counter()
+        with captured_waves({}) as waves:
+            render(scene, meta, cfg, spp=spp, device=dev)
+        for case in PBRT_WAVES[name]:
+            check(case in waves, f"{name}'s render made no {case} wave")
+        for case, (any_hit, args) in waves.items():
+            kernel = "bvh4_any_hit" if any_hit else "bvh4_closest"
+            emit(bvh4_parity(name, kernel, case, args, scene["bvh"])[1])
+        emit({"phase": "parity", "scene": name, "cases": sorted(waves),
+              "seconds": time.perf_counter() - t0})
+        del waves
+        times, launches, waves, img, peak, held = bench_render(scene, meta, cfg, spp, dev)
+        err = relative_mae(img, _golden(name))
+        expected = dict.fromkeys(launches[0], 0)
+        expected.update(dict.fromkeys(b4.KERNELS, cfg.max_depth + 1))
+        emit({"phase": "pbrt_bench", "scene": name, "res": [meta.xres, meta.yres],
+              "spp": spp, "sampler_kind": meta.sampler.kind, "filter": meta.filter.kind,
+              "max_depth": cfg.max_depth, "triangles": meta.n_tris,
+              "lobe_types": list(meta.lobe_types), "host_parse_seconds": parse_s,
+              "render_seconds": times,
+              "camera_rays_per_sec": meta.xres * meta.yres * spp / statistics.median(times),
+              "launches_per_render": launches, "expected_launches": expected,
+              "bvh4_closest_by_wave": waves, "relative_mae_vs_golden": err,
+              "image_mean": float(img.mean()), "peak_memory_bytes": peak,
+              "held_before_render_bytes": held, "gpu": gpu,
+              "seconds": time.perf_counter() - t0})
+        check(all(n == expected for n in launches),
+              f"{name} renders launched {launches}, want {expected}")
+        check(np.isfinite(img).all() and err < GOLDEN_RELMAE,
+              f"{name} at its authored settings is {err} from its golden")
+        del scene
+
+        # the card against the CPU at a reduced size
+        t0 = time.perf_counter()
+        with open(_scene_file(name)) as f:
+            text = re.sub(r'"integer xresolution" \[\d+\] "integer yresolution" \[\d+\]',
+                          f'"integer xresolution" [{PBRT_SMALL_RES}] '
+                          f'"integer yresolution" [{PBRT_SMALL_RES}]', f.read())
+        imgs = {}
+        for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            sc, mt, ap = parse_string(text, device=where,
+                                      search_path=os.path.join(ROOT, "scenes"))
+            imgs[side] = render(sc, mt, ap.integrator_config, spp=PBRT_SMALL_SPP,
+                                device=where)[0].cpu().numpy()
+        err = relative_mae(imgs["card"], imgs["cpu"])
+        emit({"phase": "pbrt_vs_cpu", "scene": name, "res": PBRT_SMALL_RES,
+              "spp": PBRT_SMALL_SPP, "relative_mae": err,
+              "bitwise_equal": bool(np.array_equal(imgs["card"], imgs["cpu"])),
+              "seconds": time.perf_counter() - t0})
+        check(imgs["card"].shape == (PBRT_SMALL_RES, PBRT_SMALL_RES, 3)
+              and np.isfinite(imgs["card"]).all() and err < RELMAE_MAX,
+              f"{name} on the card differs from the CPU (relative MAE {err})")
+
+
 def main():
     check(torch.cuda.is_available(), "no CUDA device")
     dev = torch.device("cuda", 0)
@@ -1268,6 +1436,7 @@ def main():
     mesh1m_phases(dev, gpu)
     kernels += inst_phases(dev, gpu)
     grad_phases(dev, gpu)
+    pbrt_phases(dev, gpu)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(gpu, flush=True)
     emit({"kernels": kernels})

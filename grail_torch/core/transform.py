@@ -43,6 +43,25 @@ def rotate_y(deg):
     return m
 
 
+def rotate(deg, axis):
+    """Rotation about an arbitrary axis (pbrt transform.cpp Rotate)."""
+    a = np.asarray(axis, dtype=np.float64)
+    a = a / np.linalg.norm(a)
+    t = np.radians(deg)
+    c, s = np.cos(t), np.sin(t)
+    m = np.eye(4, dtype=np.float64)
+    m[0, 0] = a[0] * a[0] + (1 - a[0] * a[0]) * c
+    m[0, 1] = a[0] * a[1] * (1 - c) - a[2] * s
+    m[0, 2] = a[0] * a[2] * (1 - c) + a[1] * s
+    m[1, 0] = a[0] * a[1] * (1 - c) + a[2] * s
+    m[1, 1] = a[1] * a[1] + (1 - a[1] * a[1]) * c
+    m[1, 2] = a[1] * a[2] * (1 - c) - a[0] * s
+    m[2, 0] = a[0] * a[2] * (1 - c) - a[1] * s
+    m[2, 1] = a[1] * a[2] * (1 - c) + a[0] * s
+    m[2, 2] = a[2] * a[2] + (1 - a[2] * a[2]) * c
+    return m.astype(np.float32)
+
+
 def look_at(pos, look, up):
     """world-from-camera matrix (pbrt transform.cpp LookAt)."""
     pos = np.asarray(pos, np.float64)
@@ -90,6 +109,13 @@ def xform_p_np(m, p):
     r = p @ m[:3, :3].T + m[:3, 3]
     w = p @ m[3, :3].T + m[3, 3]
     return (r / w[..., None]).astype(np.float32)
+
+
+def xform_n_np(m_inv, n):
+    """Host: transform normals (...,3) by the inverse transpose, given the
+    inverse matrix."""
+    m_inv = np.asarray(m_inv, np.float64)
+    return (np.asarray(n, np.float64) @ m_inv[:3, :3]).astype(np.float32)
 
 
 # ------------------------------------------------------------------ device application

@@ -1,0 +1,697 @@
+"""Scene API (port of grail/scene/api.py; pbrt src/core/api): the state
+machine that the .pbrt parser drives, with graphics and transform state
+stacks and string-keyed factories, building the port's SceneBuilder.
+
+Statements flow as in the reference (options block -> WorldBegin ->
+attributes, materials, lights and shapes -> WorldEnd) and build the same
+rows in the same order, so that a parsed scene holds the reference's leaves.
+Ported: the transform directives, Camera "perspective", Film, Sampler,
+PixelFilter, SurfaceIntegrator "path", attributes and ReverseOrientation,
+Texture "constant"/"scale"/"mix"/"imagemap" (uv mapping), the materials
+matte, plastic, metal, mirror, glass, uber and mix (named or not),
+LightSource "point"/"infinite", AreaLightSource "diffuse", every shape of
+scene/shapes.py and object instancing (ObjectBegin/ObjectEnd/ObjectInstance,
+animated transforms as single-instance objects). Everything else raises
+NotImplementedError where it is used, naming the directive or parameter.
+The reference's own name mappings stay: an unknown filter is a box filter,
+an unknown sampler and "bestcandidate" are the (0,2)-sequence, an unknown
+integrator is "path", an unknown accelerator or renderer is the BVH and
+the sampler renderer, each with a warning.
+"""
+from __future__ import annotations
+
+import copy
+import logging
+import os
+
+import numpy as np
+
+from ..core import transform as tr
+from ..core.rng import HALTON, RANDOM, STRATIFIED, ZERO_TWO, SamplerConfig
+from ..engine import camera as cam
+from ..engine.filters import FilterConfig
+from ..engine.imageio import read_image
+from ..engine.integrator import IntegratorConfig
+from ..shade import bsdf as bx
+from ..shade.materials import CONV_INV, CONV_RADIANS
+from ..shade.textures import TexSpec
+from . import shapes as shp
+from .buffers import SceneBuilder
+from .paramset import ParamSet, TextureParams
+
+log = logging.getLogger("grail_torch")
+
+# default conductor spectra (approx copper, pbrt metal.cpp defaults)
+COPPER_ETA = (0.2004, 0.9240, 1.1022)
+COPPER_K = (3.9129, 2.4528, 2.1421)
+
+# the SurfaceIntegrator names the reference knows besides "path" (an
+# unknown name renders with "path", as in the reference)
+UNPORTED_INTEGRATORS = ("directlighting", "whitted", "ambientocclusion", "igi",
+                        "photonmap", "exphotonmap", "diffuseprt", "glossyprt",
+                        "useprobes", "irradiancecache", "dipolesubsurface")
+SAMPLER_KINDS = {"lowdiscrepancy": ZERO_TWO, "02sequence": ZERO_TWO,
+                 "stratified": STRATIFIED, "halton": HALTON, "random": RANDOM,
+                 "bestcandidate": ZERO_TWO}
+FILTERS = ("box", "triangle", "gaussian", "mitchell", "sinc")
+UNPORTED_RENDERERS = ("metropolis", "createprobes", "surfacepoints")
+
+
+def _unported(what):
+    return NotImplementedError(f"{what} is not ported yet")
+
+
+class GraphicsState:
+    """pbrt api.cpp GraphicsState."""
+
+    def __init__(self):
+        self.material = "matte"
+        self.material_params = ParamSet()
+        self.named_materials = {}            # name -> material id (built)
+        self.current_named_material = None
+        self.float_textures = {}             # name -> tex id
+        self.spectrum_textures = {}
+        self.area_light = None               # (name, ParamSet)
+        self.reverse_orientation = False
+
+    def clone(self):
+        g = copy.copy(self)
+        g.float_textures = dict(self.float_textures)
+        g.spectrum_textures = dict(self.spectrum_textures)
+        g.named_materials = dict(self.named_materials)
+        return g
+
+
+class TransformSet:
+    """Two transform slots for motion start/end (api.cpp TransformSet)."""
+
+    def __init__(self):
+        self.t = [tr.identity(), tr.identity()]
+
+    def clone(self):
+        ts = TransformSet()
+        ts.t = [self.t[0].copy(), self.t[1].copy()]
+        return ts
+
+    def is_animated(self):
+        return not np.allclose(self.t[0], self.t[1])
+
+
+ALL_TRANSFORM_BITS = 0b11
+START_BIT, END_BIT = 0b01, 0b10
+
+
+class PbrtAPI:
+    """One render context: use it through scene.parser.parse_file. WorldEnd
+    finalizes the scene on `device` (a torch device, resolved by the
+    caller)."""
+
+    # objects at or below this triangle count are flattened into the base
+    # soup; larger ones share one BLAS across their instances
+    INSTANCE_BAKE_MAX = 16
+
+    def __init__(self, device):
+        self.device = device
+        self.ctm = TransformSet()
+        self.active_bits = ALL_TRANSFORM_BITS
+        self.coord_systems = {}
+        self.gs = GraphicsState()
+        self.pushed_gs = []
+        self.pushed_ctm = []
+        self.pushed_bits = []
+        self.builder = SceneBuilder()
+        # pre-world configuration (RenderOptions)
+        self.camera_name = "perspective"
+        self.camera_params = ParamSet()
+        self.camera_to_world = TransformSet()
+        self.sampler_name = "lowdiscrepancy"
+        self.sampler_params = ParamSet()
+        self.film_name = "image"
+        self.film_params = ParamSet()
+        self.filter_name = "box"
+        self.filter_params = ParamSet()
+        self.integrator_name = "directlighting"
+        self.integrator_params = ParamSet()
+        self.accelerator_name = "bvh"
+        self.renderer_name = "sampler"
+        self.objects = {}                 # ObjectBegin name -> recorded shapes
+        self._tlas_objects = {}           # name -> builder object id (BLAS)
+        self.current_object = None
+        self.search_path = "."
+        self.out_filename = "out.exr"
+        self.integrator_config = None
+
+    # --------------------------------------------------------------- CTM helpers
+    def _for_active(self, fn):
+        for i in range(2):
+            if self.active_bits & (1 << i):
+                self.ctm.t[i] = fn(self.ctm.t[i])
+
+    def identity(self):
+        self._for_active(lambda m: tr.identity())
+
+    def translate(self, dx, dy, dz):
+        self._for_active(lambda m: m @ tr.translate([dx, dy, dz]))
+
+    def rotate(self, angle, x, y, z):
+        self._for_active(lambda m: m @ tr.rotate(angle, [x, y, z]))
+
+    def scale(self, sx, sy, sz):
+        self._for_active(lambda m: m @ tr.scale(sx, sy, sz))
+
+    def look_at(self, ex, ey, ez, lx, ly, lz, ux, uy, uz):
+        # pbrt: CTM = CTM * Inverse(LookAt), world -> camera
+        w2c = tr.inverse(tr.look_at([ex, ey, ez], [lx, ly, lz], [ux, uy, uz]))
+        self._for_active(lambda m: m @ w2c)
+
+    def concat_transform(self, m16):
+        m = np.asarray(m16, np.float32).reshape(4, 4).T  # column-major input
+        self._for_active(lambda cur: cur @ m)
+
+    def transform(self, m16):
+        m = np.asarray(m16, np.float32).reshape(4, 4).T
+        self._for_active(lambda cur: m.copy())
+
+    def coordinate_system(self, name):
+        self.coord_systems[name] = self.ctm.clone()
+
+    def coord_sys_transform(self, name):
+        if name in self.coord_systems:
+            self.ctm = self.coord_systems[name].clone()
+        else:
+            log.warning("CoordSysTransform: unknown coordinate system %r", name)
+
+    def active_transform(self, which):
+        self.active_bits = {"StartTime": START_BIT,
+                            "EndTime": END_BIT}.get(which, ALL_TRANSFORM_BITS)
+
+    # ----------------------------------------------------------- options block
+    def camera(self, name, params):
+        if name != "perspective":
+            raise _unported(f'Camera "{name}"')
+        self.camera_name = name
+        self.camera_params = params
+        # camera-to-world = inverse(CTM); also the "camera" coordinate system
+        c2w = TransformSet()
+        c2w.t = [tr.inverse(self.ctm.t[0]), tr.inverse(self.ctm.t[1])]
+        self.camera_to_world = c2w
+        self.coord_systems["camera"] = c2w
+
+    def sampler(self, name, params):
+        if name == "adaptive":
+            raise _unported('Sampler "adaptive"')
+        self.sampler_name, self.sampler_params = name, params
+
+    def film(self, name, params):
+        if params.find_floats("cropwindow") is not None:
+            raise _unported('Film "cropwindow"')
+        self.film_name, self.film_params = name, params
+
+    def pixel_filter(self, name, params):
+        self.filter_name, self.filter_params = name, params
+
+    def surface_integrator(self, name, params):
+        if name in UNPORTED_INTEGRATORS:
+            raise _unported(f'SurfaceIntegrator "{name}"')
+        self.integrator_name, self.integrator_params = name, params
+
+    def volume_integrator(self, name, params):
+        if name != "emission":
+            raise _unported(f'VolumeIntegrator "{name}"')
+
+    def accelerator(self, name, params):
+        self.accelerator_name = name
+
+    def renderer(self, name, params):
+        if name in UNPORTED_RENDERERS:
+            raise _unported(f'Renderer "{name}"')
+        self.renderer_name = name
+
+    # -------------------------------------------------------------- world block
+    def world_begin(self):
+        self.ctm = TransformSet()
+        self.active_bits = ALL_TRANSFORM_BITS
+        self.coord_systems["world"] = self.ctm.clone()
+
+    def attribute_begin(self):
+        self.pushed_gs.append(self.gs.clone())
+        self.pushed_ctm.append(self.ctm.clone())
+        self.pushed_bits.append(self.active_bits)
+
+    def attribute_end(self):
+        if not self.pushed_gs:
+            log.warning("Unmatched AttributeEnd")
+            return
+        self.gs = self.pushed_gs.pop()
+        self.ctm = self.pushed_ctm.pop()
+        self.active_bits = self.pushed_bits.pop()
+
+    def transform_begin(self):
+        self.pushed_ctm.append(self.ctm.clone())
+        self.pushed_bits.append(self.active_bits)
+
+    def transform_end(self):
+        if not self.pushed_ctm:
+            log.warning("Unmatched TransformEnd")
+            return
+        self.ctm = self.pushed_ctm.pop()
+        self.active_bits = self.pushed_bits.pop()
+
+    def reverse_orientation(self):
+        self.gs.reverse_orientation = not self.gs.reverse_orientation
+
+    # ---------------------------------------------------------------- textures
+    def texture(self, name, ttype, texclass, params):
+        tp = TextureParams(params, ParamSet(), self.gs.float_textures,
+                           self.gs.spectrum_textures)
+        tex_id = self._make_texture(texclass, tp)
+        tp.report_unused(f'Texture "{texclass}"')
+        if ttype == "float":
+            self.gs.float_textures[name] = tex_id
+        else:
+            self.gs.spectrum_textures[name] = tex_id
+
+    def _make_texture(self, texclass, tp):
+        b = self.builder
+        w2t = tr.inverse(self.ctm.t[0])
+        if texclass == "constant":
+            return b.const_tex(tp.geom.find_one_rgb(
+                "value", (tp.find_one_float("value", 1.0),) * 3))
+        if texclass == "scale":
+            t1 = tp.get_spectrum_texture(b, "tex1", (1, 1, 1))
+            t2 = tp.get_spectrum_texture(b, "tex2", (1, 1, 1))
+            return b.add_texture(TexSpec(kind="scale", inputs=(t1, t2)), w2t=w2t)
+        if texclass == "mix":
+            t1 = tp.get_spectrum_texture(b, "tex1", (0, 0, 0))
+            t2 = tp.get_spectrum_texture(b, "tex2", (1, 1, 1))
+            amt = tp.get_float_texture(b, "amount", 0.5)
+            return b.add_texture(TexSpec(kind="mix", inputs=(t1, t2, amt)), w2t=w2t)
+        if texclass == "imagemap":
+            mapping = tp.find_one_string("mapping", "uv")
+            if mapping != "uv":
+                raise _unported(f'Texture "imagemap" with "mapping" "{mapping}"')
+            fname = self._resolve(tp.find_one_string("filename", ""))
+            scale = tp.find_one_float("scale", 1.0)
+            g = tp.geom.find_floats("gamma")
+            gamma = (float(g[0]) if g is not None and len(g)
+                     else (None if fname.lower().endswith((".tga", ".png", ".jpg"))
+                           else 1.0))
+            img_id = b.add_image(read_image(fname, gamma=gamma) * scale)
+            # imagemap.cpp: "trilinear" bool (false => EWA), "maxanisotropy"
+            filt = "trilinear" if tp.find_one_bool("trilinear", False) else "ewa"
+            return b.add_texture(
+                TexSpec(kind="image", image_id=img_id, filt=filt,
+                        maxaniso=tp.find_one_float("maxanisotropy", 8.0),
+                        mapping=mapping,
+                        su=tp.find_one_float("uscale", 1.0),
+                        sv=tp.find_one_float("vscale", 1.0),
+                        du=tp.find_one_float("udelta", 0.0),
+                        dv=tp.find_one_float("vdelta", 0.0)),
+                w2t=w2t)
+        raise _unported(f'Texture "{texclass}"')
+
+    def _resolve(self, fname):
+        if fname and not os.path.isabs(fname):
+            return os.path.join(self.search_path, fname)
+        return fname
+
+    # ---------------------------------------------------------------- materials
+    def material(self, name, params):
+        self.gs.material = name
+        self.gs.material_params = params
+        self.gs.current_named_material = None
+
+    def make_named_material(self, name, params):
+        mtype = params.find_one_string("type", "matte")
+        mid = self._build_material(mtype, TextureParams(
+            ParamSet(), params, self.gs.float_textures, self.gs.spectrum_textures))
+        self.gs.named_materials[name] = mid
+
+    def named_material(self, name):
+        self.gs.current_named_material = name
+
+    def _current_material_id(self, shape_params):
+        if self.gs.current_named_material is not None:
+            mid = self.gs.named_materials.get(self.gs.current_named_material)
+            if mid is None:
+                log.warning("NamedMaterial %r unknown; using matte",
+                            self.gs.current_named_material)
+                return self.builder.matte()
+            return mid
+        tp = TextureParams(shape_params, self.gs.material_params,
+                           self.gs.float_textures, self.gs.spectrum_textures)
+        return self._build_material(self.gs.material, tp)
+
+    def _build_material(self, mtype, tp):
+        """One material row, its textures built in the reference's order."""
+        b = self.builder
+        if tp.get_float_texture_or_none(b, "bumpmap") is not None:
+            raise NotImplementedError("bump mapping (a material's bumpmap) is "
+                                      "not ported yet")
+        if mtype in ("", "none"):
+            return b.add_material([])
+        if mtype == "matte":
+            kd = tp.get_spectrum_texture(b, "Kd", (0.5, 0.5, 0.5))
+            sigma = tp.get_float_texture(b, "sigma", 0.0)
+            return b.add_material([dict(type=bx.OREN_NAYAR, s0=kd, f0=sigma,
+                                        f0_conv=CONV_RADIANS)])
+        if mtype == "plastic":
+            kd = tp.get_spectrum_texture(b, "Kd", (0.25,) * 3)
+            ks = tp.get_spectrum_texture(b, "Ks", (0.25,) * 3)
+            rough = tp.get_float_texture(b, "roughness", 0.1)
+            ior = b.const_tex((1.5,) * 3)
+            return b.add_material([
+                dict(type=bx.LAMBERT, s0=kd),
+                dict(type=bx.BLINN, s0=ks, fr=bx.FR_DIELECTRIC, f0=rough,
+                     f0_conv=CONV_INV, f2=ior)])
+        if mtype == "glass":
+            kr = tp.get_spectrum_texture(b, "Kr", (1.0,) * 3)
+            kt = tp.get_spectrum_texture(b, "Kt", (1.0,) * 3)
+            index = tp.get_float_texture(b, "index", 1.5)
+            return b.add_material([
+                dict(type=bx.SPEC_REFL, s0=kr, fr=bx.FR_DIELECTRIC, f2=index),
+                dict(type=bx.SPEC_TRANS, s0=kt, f2=index)])
+        if mtype == "mirror":
+            kr = tp.get_spectrum_texture(b, "Kr", (0.9,) * 3)
+            return b.add_material([dict(type=bx.SPEC_REFL, s0=kr, fr=bx.FR_NOOP)])
+        if mtype == "metal":
+            eta = tp.get_spectrum_texture(b, "eta", COPPER_ETA)
+            k = tp.get_spectrum_texture(b, "k", COPPER_K)
+            rough = tp.get_float_texture(b, "roughness", 0.01)
+            one = b.const_tex((1.0,) * 3)
+            return b.add_material([dict(type=bx.BLINN, s0=one, s1=eta, s2=k,
+                                        fr=bx.FR_CONDUCTOR, f0=rough,
+                                        f0_conv=CONV_INV)])
+        if mtype == "uber":
+            kd = tp.get_spectrum_texture(b, "Kd", (0.25,) * 3)
+            ks = tp.get_spectrum_texture(b, "Ks", (0.25,) * 3)
+            kr = tp.get_spectrum_texture(b, "Kr", (0.0,) * 3)
+            rough = tp.get_float_texture(b, "roughness", 0.1)
+            index = tp.get_float_texture(b, "index", 1.5)
+            opacity = tp.get_spectrum_texture(b, "opacity", (1.0,) * 3)
+            one = b.const_tex((1.0,) * 3)
+            inv_op = b.add_texture(TexSpec(kind="mix", inputs=(one, b.const_tex(
+                (0.0,) * 3), opacity)))  # lerp(op, 1, 0) = 1-op
+            okd = b.add_texture(TexSpec(kind="scale", inputs=(opacity, kd)))
+            oks = b.add_texture(TexSpec(kind="scale", inputs=(opacity, ks)))
+            okr = b.add_texture(TexSpec(kind="scale", inputs=(opacity, kr)))
+            unity_ior = b.const_tex((1.0,) * 3)
+            return b.add_material([
+                dict(type=bx.LAMBERT, s0=okd),
+                dict(type=bx.BLINN, s0=oks, fr=bx.FR_DIELECTRIC, f0=rough,
+                     f0_conv=CONV_INV, f2=index),
+                dict(type=bx.SPEC_REFL, s0=okr, fr=bx.FR_DIELECTRIC, f2=index),
+                # opacity pass-through: (1-op)·SpecularTransmission with ior 1
+                dict(type=bx.SPEC_TRANS, s0=inv_op, f2=unity_ior)])
+        if mtype == "mix":
+            m1 = tp.find_one_string("namedmaterial1", "")
+            m2 = tp.find_one_string("namedmaterial2", "")
+            amount = tp.get_spectrum_texture(b, "amount", (0.5,) * 3)
+            named = self.gs.named_materials
+            rows1 = b.mat_rows[named[m1]] if m1 in named else []
+            rows2 = b.mat_rows[named[m2]] if m2 in named else []
+            one = b.const_tex((1.0,) * 3)
+            zero = b.const_tex((0.0,) * 3)
+            inv_amount = b.add_texture(TexSpec(kind="mix", inputs=(one, zero, amount)))
+            lobes = []
+            for weight, rows in ((amount, rows1), (inv_amount, rows2)):
+                for lobe in rows:
+                    lobes.append(dict(lobe, s0=b.add_texture(
+                        TexSpec(kind="scale", inputs=(weight, lobe["s0"])))))
+            return b.add_material(lobes)
+        raise _unported(f'Material "{mtype}"')
+
+    # ------------------------------------------------------------------- lights
+    def light_source(self, name, params):
+        b = self.builder
+        l2w = self.ctm.t[0]
+        scale = params.find_one_rgb("scale", (1, 1, 1))
+        if name == "point":
+            i = params.find_one_rgb("I", (1, 1, 1)) * scale
+            from_p = params.find_one_point("from", (0, 0, 0))
+            b.add_point_light(tr.xform_p_np(l2w, from_p), i)
+        elif name == "infinite":
+            L = params.find_one_rgb("L", (1, 1, 1)) * scale
+            mapname = params.find_one_string("mapname", "")
+            env = read_image(self._resolve(mapname)) if mapname else None
+            b.add_infinite_light(l2w, L, env)
+        else:
+            raise _unported(f'LightSource "{name}"')
+        params.report_unused(f'LightSource "{name}"')
+
+    def area_light_source(self, name, params):
+        if name != "diffuse":
+            raise _unported(f'AreaLightSource "{name}"')
+        self.gs.area_light = (name, params)
+
+    # ------------------------------------------------------------------- shapes
+    def shape(self, name, params):
+        mesh = self._make_shape_mesh(name, params)
+        if mesh is None:
+            return
+        verts, idx, normals, uvs = mesh
+        if self.current_object is not None:
+            self.objects[self.current_object].append(
+                (verts, idx, normals, uvs, self.gs.clone(), self.ctm.clone(), params))
+            return
+        self._emit_shape(verts, idx, normals, uvs, self.gs, self.ctm, params)
+        params.report_unused(f'Shape "{name}"')
+
+    def _emit_shape(self, verts, idx, normals, uvs, gs, ctm, shape_params):
+        b = self.builder
+        m = ctm.t[0]
+        _check_no_alpha(shape_params)
+        if ctm.is_animated() and gs.area_light is None:
+            # object motion blur (TransformedPrimitive with an animated
+            # PrimitiveToWorld): a single-instance object with object-space
+            # geometry and the transform pair on the instance
+            nrm = normals
+            if nrm is not None:
+                nrm = nrm / np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-12)
+            mat_id = self._material_id_for_state(gs, shape_params)
+            obj_id = b.add_object()
+            b.add_object_mesh(obj_id, verts, idx, mat_id, normals=nrm, uvs=uvs,
+                              reverse_orientation=gs.reverse_orientation)
+            b.add_instance(obj_id, ctm.t[0].copy(), ctm.t[1].copy())
+            return
+        if ctm.is_animated():
+            log.warning("Animated transform on an area-light shape: using the "
+                        "shutter-open key")
+        verts = tr.xform_p_np(m, verts)
+        if normals is not None:
+            normals = tr.xform_n_np(tr.inverse(m), normals)
+            normals = normals / np.maximum(np.linalg.norm(normals, axis=1, keepdims=True),
+                                           1e-12)
+        emit = None
+        nsamp = 1
+        if gs.area_light is not None:
+            _, ap = gs.area_light
+            emit = ap.find_one_rgb("L", (1, 1, 1)) * ap.find_one_rgb("scale", (1, 1, 1))
+            nsamp = ap.find_one_int("nsamples", 1)
+        mat_id = self._material_id_for_state(gs, shape_params)
+        b.add_mesh(verts, idx, mat_id, normals=normals, uvs=uvs,
+                   reverse_orientation=gs.reverse_orientation,
+                   swaps_handedness=bool(tr.swaps_handedness(m)),
+                   area_light_emit=emit, n_samples=nsamp)
+
+    def _material_id_for_state(self, gs, shape_params):
+        saved = self.gs
+        self.gs = gs
+        try:
+            return self._current_material_id(shape_params)
+        finally:
+            self.gs = saved
+
+    def _make_shape_mesh(self, name, params):
+        """(verts, idx, normals, uvs) in object space, or None."""
+        if name == "trianglemesh":
+            idx = params.find_ints("indices")
+            P = params.find_points("P")
+            if idx is None or P is None:
+                log.warning("trianglemesh missing indices/P; ignored")
+                return None
+            N = params.find_normals("N")
+            uv = params.find_floats("uv")
+            if uv is None:
+                uv = params.find_floats("st")
+            return (np.asarray(P, np.float32),
+                    np.asarray(idx, np.int64).reshape(-1, 3),
+                    np.asarray(N, np.float32) if N is not None else None,
+                    np.asarray(uv, np.float32).reshape(-1, 2) if uv is not None else None)
+        if name == "sphere":
+            r = params.find_one_float("radius", 1.0)
+            return shp.sphere(r, params.find_one_float("zmin", -r),
+                              params.find_one_float("zmax", r),
+                              params.find_one_float("phimax", 360.0))
+        if name == "cylinder":
+            return shp.cylinder(params.find_one_float("radius", 1.0),
+                                params.find_one_float("zmin", -1.0),
+                                params.find_one_float("zmax", 1.0),
+                                params.find_one_float("phimax", 360.0))
+        if name == "disk":
+            return shp.disk(params.find_one_float("height", 0.0),
+                            params.find_one_float("radius", 1.0),
+                            params.find_one_float("innerradius", 0.0),
+                            params.find_one_float("phimax", 360.0))
+        if name == "cone":
+            return shp.cone(params.find_one_float("height", 1.0),
+                            params.find_one_float("radius", 1.0),
+                            params.find_one_float("phimax", 360.0))
+        if name == "paraboloid":
+            return shp.paraboloid(params.find_one_float("radius", 1.0),
+                                  params.find_one_float("zmin", 0.0),
+                                  params.find_one_float("zmax", 1.0),
+                                  params.find_one_float("phimax", 360.0))
+        if name == "hyperboloid":
+            return shp.hyperboloid(params.find_one_point("p1", (0, 0, 0)),
+                                   params.find_one_point("p2", (1, 1, 1)),
+                                   params.find_one_float("phimax", 360.0))
+        if name == "loopsubdiv":
+            P = params.find_points("P")
+            idx = params.find_ints("indices")
+            if P is None or idx is None:
+                return None
+            return shp.loop_subdivide(np.asarray(P, np.float32),
+                                      np.asarray(idx, np.int64).reshape(-1, 3),
+                                      params.find_one_int("nlevels", 3))
+        if name == "heightfield":
+            nu = params.find_one_int("nu", 0)
+            nv = params.find_one_int("nv", 0)
+            z = params.find_floats("Pz")
+            if not nu or not nv or z is None:
+                return None
+            return shp.heightfield(nu, nv, z)
+        if name == "nurbs":
+            P = params.find_points("P")
+            return shp.nurbs(
+                params.find_one_int("nu", 0), params.find_one_int("uorder", 0),
+                params.find_floats("uknots"),
+                params.find_one_float("u0", 0.0), params.find_one_float("u1", 1.0),
+                params.find_one_int("nv", 0), params.find_one_int("vorder", 0),
+                params.find_floats("vknots"),
+                params.find_one_float("v0", 0.0), params.find_one_float("v1", 1.0),
+                P if P is not None else params.find_floats("Pw"), P is None)
+        raise _unported(f'Shape "{name}"')
+
+    # ---------------------------------------------------------------- instances
+    def object_begin(self, name):
+        self.attribute_begin()
+        self.objects[name] = []
+        self.current_object = name
+
+    def object_end(self):
+        self.current_object = None
+        self.attribute_end()
+
+    def object_instance(self, name):
+        if name not in self.objects:
+            log.warning("ObjectInstance: unknown object %r", name)
+            return
+        shapes = self.objects[name]
+        inst_ctm = self.ctm
+        if sum(len(s[1]) for s in shapes) <= self.INSTANCE_BAKE_MAX:
+            for verts, idx, normals, uvs, gs, obj_ctm, shape_params in shapes:
+                combined = TransformSet()
+                combined.t = [inst_ctm.t[i] @ obj_ctm.t[i] for i in range(2)]
+                self._emit_shape(verts, idx, normals, uvs, gs, combined, shape_params)
+            return
+        b = self.builder
+        obj_id = self._tlas_objects.get(name)
+        if obj_id is None:
+            obj_id = b.add_object()
+            for verts, idx, normals, uvs, gs, obj_ctm, shape_params in shapes:
+                _check_no_alpha(shape_params)
+                m = obj_ctm.t[0]
+                if obj_ctm.is_animated():
+                    log.warning("Animated CTM inside ObjectBegin %r: using the "
+                                "start key", name)
+                ov = tr.xform_p_np(m, verts)
+                on = normals
+                if normals is not None:
+                    on = tr.xform_n_np(tr.inverse(m), normals)
+                    on = on / np.maximum(np.linalg.norm(on, axis=1, keepdims=True), 1e-12)
+                if gs.area_light is not None:
+                    log.warning("Area light inside ObjectInstance %r ignored "
+                                "(pbrt TransformedPrimitive carries no area light)",
+                                name)
+                mat_id = self._material_id_for_state(gs, shape_params)
+                b.add_object_mesh(obj_id, ov, idx, mat_id, normals=on, uvs=uvs,
+                                  reverse_orientation=gs.reverse_orientation,
+                                  swaps_handedness=bool(tr.swaps_handedness(m)))
+            self._tlas_objects[name] = obj_id
+        b.add_instance(obj_id, inst_ctm.t[0].copy(), inst_ctm.t[1].copy())
+
+    # ------------------------------------------------------------------- finish
+    def world_end(self):
+        """MakeRenderer + MakeScene -> (scene, meta); the integrator's
+        configuration is left in self.integrator_config."""
+        b = self.builder
+        b.xres = self.film_params.find_one_int("xresolution", 640)
+        b.yres = self.film_params.find_one_int("yresolution", 480)
+        self.out_filename = self.film_params.find_one_string("filename", "out.exr")
+        fkind = self.filter_name if self.filter_name in FILTERS else "box"
+        kw = {}
+        xw = self.filter_params.find_floats("xwidth")
+        yw = self.filter_params.find_floats("ywidth")
+        if xw is not None and len(xw):
+            kw["xwidth"] = float(xw[0])
+        if yw is not None and len(yw):
+            kw["ywidth"] = float(yw[0])
+        if fkind == "gaussian":
+            kw["alpha"] = self.filter_params.find_one_float("alpha", 2.0)
+        if fkind == "mitchell":
+            kw["b"] = self.filter_params.find_one_float("B", 1.0 / 3.0)
+            kw["c"] = self.filter_params.find_one_float("C", 1.0 / 3.0)
+        if fkind == "sinc":
+            kw["tau"] = self.filter_params.find_one_float("tau", 3.0)
+        b.filter = FilterConfig.from_name(fkind, **kw)
+
+        spp = self.sampler_params.find_one_int(
+            "pixelsamples", self.sampler_params.find_one_int("nsamples", 4))
+        if self.sampler_name == "stratified":
+            spp = (self.sampler_params.find_one_int("xsamples", 2)
+                   * self.sampler_params.find_one_int("ysamples", 2))
+        if self.sampler_name == "bestcandidate":
+            log.warning("Sampler %r mapped to scrambled (0,2)-sequence",
+                        self.sampler_name)
+        b.sampler = SamplerConfig(kind=SAMPLER_KINDS.get(self.sampler_name, ZERO_TWO),
+                                  spp=spp)
+
+        sw = self.camera_params.find_floats("screenwindow")
+        b.camera = cam.build_camera(
+            cam.PERSPECTIVE, self.camera_to_world.t[0], self.camera_to_world.t[1],
+            b.xres, b.yres,
+            fov=self.camera_params.find_one_float("fov", 90.0),
+            screen_window=list(sw) if sw is not None and len(sw) == 4 else None,
+            lens_radius=self.camera_params.find_one_float("lensradius", 0.0),
+            focal_distance=self.camera_params.find_one_float("focaldistance", 1e6),
+            shutter_open=self.camera_params.find_one_float("shutteropen", 0.0),
+            shutter_close=self.camera_params.find_one_float("shutterclose", 1.0))
+
+        if self.integrator_name in UNPORTED_INTEGRATORS:  # also the default one
+            raise _unported(f'SurfaceIntegrator "{self.integrator_name}"')
+        if self.integrator_name != "path":
+            log.warning("Surface integrator %r not yet implemented; using path",
+                        self.integrator_name)
+        self.integrator_config = IntegratorConfig(
+            kind="path", max_depth=self.integrator_params.find_one_int("maxdepth", 5))
+        if self.renderer_name not in ("sampler", "aggregatetest", ""):
+            log.warning("Renderer %r falls back to the sampler renderer",
+                        self.renderer_name)
+        if self.accelerator_name not in ("bvh", ""):
+            log.warning("Accelerator %r mapped to BVH", self.accelerator_name)
+
+        for ps, ctx in ((self.camera_params, f'Camera "{self.camera_name}"'),
+                        (self.film_params, f'Film "{self.film_name}"'),
+                        (self.sampler_params, f'Sampler "{self.sampler_name}"'),
+                        (self.filter_params, f'PixelFilter "{self.filter_name}"'),
+                        (self.integrator_params,
+                         f'SurfaceIntegrator "{self.integrator_name}"')):
+            ps.report_unused(ctx)
+        return b.finalize(self.device)
+
+
+def _check_no_alpha(shape_params):
+    """Alpha cutouts ("float alpha" / "texture alpha") are not ported yet."""
+    if "alpha" in shape_params.items:
+        raise _unported('Shape parameter "alpha"')

@@ -257,7 +257,7 @@ class SceneBuilder:
         return len(self.mat_rows) - 1
 
     def matte(self, kd_tex=None, kd=(0.5, 0.5, 0.5)):
-        """pbrt matte.cpp, Lambertian (OrenNayar is not ported yet)."""
+        """pbrt matte.cpp, Lambertian (the parser builds OrenNayar itself)."""
         if kd_tex is None:
             kd_tex = self.const_tex(kd)
         return self.add_material([{"type": bx.LAMBERT, "s0": kd_tex}])

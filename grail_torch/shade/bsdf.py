@@ -1,10 +1,13 @@
 """BSDF lobe stack (port of grail/shade/bsdf.py: the stack dispatch, the
-LAMBERT lobe and the BLINN microfacet lobe with its Fresnel terms).
+LAMBERT and OREN_NAYAR diffuse lobes, the BLINN microfacet lobe with its
+Fresnel terms, and the delta lobes SPEC_REFL and SPEC_TRANS).
 
 A BSDF is a static-length stack of lobe slots evaluated in the local shading
 frame (z up). As in the reference, only the lobe types present in the scene
-(`present`, a static tuple) are evaluated, each under its type mask. Other
-lobe types are not ported yet and raise.
+(`present`, a static tuple) are evaluated, each under its type mask. Delta
+lobes have no f or pdf: they enter only through bsdf_sample, whose pick of
+one carries its delta value and pdf 1/n_match. Other lobe types are not
+ported yet and raise.
 """
 from __future__ import annotations
 
@@ -31,14 +34,14 @@ FR_NOOP = 0
 FR_DIELECTRIC = 1
 FR_CONDUCTOR = 2
 
-PORTED_TYPES = (LAMBERT, BLINN)
+PORTED_TYPES = (LAMBERT, OREN_NAYAR, BLINN, SPEC_REFL, SPEC_TRANS)
 
 
 def _check_present(present):
     missing = sorted(set(present) - set(PORTED_TYPES))
     if missing:
         raise NotImplementedError(f"lobe types {missing} are not ported yet "
-                                  "(LAMBERT, BLINN)")
+                                  "(LAMBERT, OREN_NAYAR, BLINN, SPEC_REFL, SPEC_TRANS)")
 
 
 def cos_theta(w):
@@ -129,6 +132,25 @@ def _half_vector(wo, wi):
 
 
 # --------------------------------------------------------------------- one lobe slot
+def oren_nayar_f(wo, wi, R, sigma):
+    """OrenNayar::f with sigma in radians (A and B from sigma^2, the cosine
+    of the azimuth difference from the normalized xy projections)."""
+    sigma2 = sigma * sigma
+    A = 1.0 - sigma2 / (2.0 * (sigma2 + 0.33))
+    B = 0.45 * sigma2 / (sigma2 + 0.09)
+    sinthetai = safe_sqrt(1.0 - wi[..., 2] ** 2)
+    sinthetao = safe_sqrt(1.0 - wo[..., 2] ** 2)
+    ok_i = sinthetai > 1e-4
+    ok_o = sinthetao > 1e-4
+    cosdphi = ((wi[..., 0] * wo[..., 0] + wi[..., 1] * wo[..., 1])
+               / (torch.where(ok_i, sinthetai, 1.0) * torch.where(ok_o, sinthetao, 1.0)))
+    maxcos = torch.where(ok_i & ok_o, torch.clamp_min(cosdphi, 0.0), 0.0)
+    sinalpha = torch.maximum(sinthetai, sinthetao)
+    tanbeta = torch.minimum(sinthetai, sinthetao) / torch.clamp_min(
+        torch.minimum(abs_cos_theta(wi), abs_cos_theta(wo)), 1e-6)
+    return R * INV_PI * (A + B * maxcos * sinalpha * tanbeta)[..., None]
+
+
 def lobe_f(lobe_type, wo, wi, R, S1, S2, f0, f2, fr_type, present):
     """One lobe slot's BRDF value (masked by type). Delta lobes return 0."""
     _check_present(present)
@@ -137,6 +159,9 @@ def lobe_f(lobe_type, wo, wi, R, S1, S2, f0, f2, fr_type, present):
     if LAMBERT in present:
         m = (lobe_type == LAMBERT) & reflect
         result = result + torch.where(m[..., None], R * INV_PI, 0.0)
+    if OREN_NAYAR in present:
+        result = result + torch.where(((lobe_type == OREN_NAYAR) & reflect)[..., None],
+                                      oren_nayar_f(wo, wi, R, f0), 0.0)
     if BLINN in present:
         aci, aco = abs_cos_theta(wi), abs_cos_theta(wo)
         wh, wh_ok = _half_vector(wo, wi)
@@ -154,9 +179,11 @@ def lobe_pdf(lobe_type, wo, wi, f0, present):
     _check_present(present)
     pdf = wo.new_zeros(wo.shape[:-1])
     reflect = same_hemisphere(wo, wi)
-    if LAMBERT in present:
+    diffuse = [t for t in (LAMBERT, OREN_NAYAR) if t in present]
+    if diffuse:
         cos_pdf = abs_cos_theta(wi) * INV_PI
-        pdf = pdf + torch.where((lobe_type == LAMBERT) & reflect, cos_pdf, 0.0)
+        for t in diffuse:
+            pdf = pdf + torch.where((lobe_type == t) & reflect, cos_pdf, 0.0)
     if BLINN in present:
         wh, wh_ok = _half_vector(wo, wi)
         pdf = pdf + torch.where((lobe_type == BLINN) & reflect & wh_ok,
@@ -164,27 +191,62 @@ def lobe_pdf(lobe_type, wo, wi, f0, present):
     return pdf
 
 
-def lobe_sample_wi(lobe_type, wo, u1, u2, f0, present):
+def lobe_sample_wi(lobe_type, wo, u1, u2, f0, f2, present):
     """Sample an incident direction from one lobe slot's strategy; returns
-    (wi, is_valid)."""
+    (wi, is_valid). Delta lobes give their one direction: SPEC_REFL mirrors
+    wo about +z, SPEC_TRANS refracts it with ior f2 (the indices swap when
+    wo is inside, and total internal reflection is an invalid sample); f2
+    is read only when SPEC_TRANS is present, and may be None otherwise."""
     _check_present(present)
     wi = wo.new_zeros(wo.shape[:-1] + (3,))
     valid = torch.zeros(wo.shape[:-1], dtype=torch.bool, device=wo.device)
-    if LAMBERT in present:
+
+    def put(t, cand, ok):
+        m = lobe_type == t
+        return torch.where(m[..., None], cand, wi), torch.where(m, ok, valid)
+
+    diffuse = [t for t in (LAMBERT, OREN_NAYAR) if t in present]
+    if diffuse:
         entering_sign = torch.where(cos_theta(wo) > 0.0, 1.0, -1.0)
         one = torch.ones_like(entering_sign)
         cand = mc.cosine_sample_hemisphere(u1, u2) * torch.stack(
             [one, one, entering_sign], dim=-1)
-        m = lobe_type == LAMBERT
-        wi = torch.where(m[..., None], cand, wi)
-        valid = torch.where(m, True, valid)
+        for t in diffuse:
+            wi, valid = put(t, cand, True)
     if BLINN in present:
         wh = blinn_sample_wh(wo, u1, u2, f0)
         cand = -wo + 2.0 * dot(wo, wh)[..., None] * wh
-        m = lobe_type == BLINN
-        wi = torch.where(m[..., None], cand, wi)
-        valid = torch.where(m, same_hemisphere(wo, cand), valid)
+        wi, valid = put(BLINN, cand, same_hemisphere(wo, cand))
+    if SPEC_REFL in present:
+        cand = torch.stack([-wo[..., 0], -wo[..., 1], wo[..., 2]], dim=-1)
+        wi, valid = put(SPEC_REFL, cand, True)
+    if SPEC_TRANS in present:
+        entering = cos_theta(wo) > 0.0
+        eta = torch.where(entering, 1.0, f2) / torch.where(entering, f2, 1.0)
+        sint2 = eta * eta * torch.clamp_min(1.0 - cos_theta(wo) ** 2, 0.0)
+        cost = safe_sqrt(1.0 - sint2)
+        cand = torch.stack([eta * -wo[..., 0], eta * -wo[..., 1],
+                            torch.where(entering, -cost, cost)], dim=-1)
+        wi, valid = put(SPEC_TRANS, cand, sint2 < 1.0)
     return wi, valid
+
+
+def lobe_specular_value(lobe_type, wo, wi, R, S1, S2, f2, fr_type, present):
+    """A delta lobe's value as pbrt's Sample_f returns it: F·R/|cosθi| for
+    SPEC_REFL, (1−F)·T·(ηi/ηt)²/|cosθi| for SPEC_TRANS; zero elsewhere."""
+    aci = torch.clamp_min(abs_cos_theta(wi), 1e-6)[..., None]
+    out = wo.new_zeros(wo.shape)
+    if SPEC_REFL in present:
+        F = lobe_fresnel(fr_type, cos_theta(wo), f2, S1, S2)
+        out = torch.where((lobe_type == SPEC_REFL)[..., None], F * R / aci, out)
+    if SPEC_TRANS in present:
+        Fr = fr_dielectric(cos_theta(wo), torch.ones_like(f2), f2)
+        entering = cos_theta(wo) > 0.0
+        ei = torch.where(entering, 1.0, f2)
+        et = torch.where(entering, f2, 1.0)
+        val = ((ei * ei) / (et * et) * (1.0 - Fr))[..., None] * R / aci
+        out = torch.where((lobe_type == SPEC_TRANS)[..., None], val, out)
+    return out
 
 
 # ------------------------------------------------------------------- BSDF stack API
@@ -231,20 +293,24 @@ def bsdf_sample(lobes, wo, u1, u2, u_comp, present, include_specular=True):
     cum = torch.cumsum(match.to(torch.int32), dim=-1)
     slot_sel = torch.argmax(((cum == (which + 1)[:, None]) & match).to(torch.int32),
                             dim=-1)
+    specular = [t for t in (SPEC_REFL, SPEC_TRANS) if t in present]
     lane = torch.arange(wo.shape[0], device=wo.device)
-    ch_type = lobes["type"][lane, slot_sel]
+    # the delta lobes' fields are gathered only when one is present
+    keys = ("type", "f0") + (("R", "S1", "S2", "f2", "fr") if specular else ())
+    ch = {key: lobes[key][lane, slot_sel] for key in keys}
 
-    wi, valid = lobe_sample_wi(ch_type, wo, u1, u2, lobes["f0"][lane, slot_sel],
-                               present)
-    chosen_specular = (ch_type == SPEC_REFL) | (ch_type == SPEC_TRANS)
+    wi, valid = lobe_sample_wi(ch["type"], wo, u1, u2, ch["f0"], ch.get("f2"), present)
     valid = valid & (n_match > 0)
-
-    f_all = bsdf_f(lobes, wo, wi, present, include_specular)
-    pdf_all = bsdf_pdf(lobes, wo, wi, present, include_specular)
-    # specular picks carry the delta value and pdf 1/n_match; no specular
-    # lobe is ported yet, so their value is zero
-    inv_n = 1.0 / torch.clamp_min(n_match.to(torch.float32), 1.0)
-    f = torch.where(chosen_specular[:, None], 0.0, f_all)
-    pdf = torch.where(chosen_specular, inv_n, pdf_all)
+    f = bsdf_f(lobes, wo, wi, present, include_specular)
+    pdf = bsdf_pdf(lobes, wo, wi, present, include_specular)
+    chosen_specular = (ch["type"] == SPEC_REFL) | (ch["type"] == SPEC_TRANS)
+    if specular:
+        # a specular pick carries the chosen lobe's delta value and pdf
+        # 1/n_match, and no f of the other lobes
+        f_spec = lobe_specular_value(ch["type"], wo, wi, ch["R"], ch["S1"], ch["S2"],
+                                     ch["f2"], ch["fr"], present)
+        inv_n = 1.0 / torch.clamp_min(n_match.to(torch.float32), 1.0)
+        f = torch.where(chosen_specular[:, None], f_spec, f)
+        pdf = torch.where(chosen_specular, inv_n, pdf)
     return {"wi": wi, "f": f, "pdf": pdf, "specular": chosen_specular,
             "valid": valid & (pdf > 0.0)}

@@ -1,5 +1,7 @@
-"""Texture table (port of grail/shade/textures.py: `const` rows and `image`
-rows with the `uv` mapping). Image rows read the MIP pyramid with EWA where
+"""Texture table (port of grail/shade/textures.py: `const`, `scale` and
+`mix` rows, and `image` rows with the `uv` mapping). The table is in
+topological order (a row's inputs come before it), so one pass evaluates
+it. Image rows read the MIP pyramid with EWA where
 the shade point carries uv screen differentials (camera hits) and the finest
 level bilinearly otherwise, as the reference does."""
 from __future__ import annotations
@@ -53,12 +55,18 @@ def eval_textures(tex_specs, tex_data, sg, images=(), mipmaps=()):
     for row, spec in enumerate(tex_specs):
         if spec.kind == "const":
             vals.append(tex_data["const"][row].expand(n, 3))
+        elif spec.kind == "scale":
+            vals.append(vals[spec.inputs[0]] * vals[spec.inputs[1]])
+        elif spec.kind == "mix":
+            amt = vals[spec.inputs[2]][..., :1]     # the amount is a float texture
+            vals.append((1.0 - amt) * vals[spec.inputs[0]] + amt * vals[spec.inputs[1]])
         elif spec.kind == "image":
             s, t = apply_mapping(spec, sg)
             vals.append(image_lookup(spec, images, mipmaps, sg, s, t))
         else:
             raise NotImplementedError(
-                f"texture kind {spec.kind!r} is not ported yet (const, image)")
+                f"texture kind {spec.kind!r} is not ported yet "
+                "(const, scale, mix, image)")
     if not vals:
         return sg["p"].new_zeros((0, n, 3))
     return torch.stack(vals, dim=0)

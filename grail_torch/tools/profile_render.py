@@ -3,13 +3,15 @@
     python3 -m grail_torch.tools.profile_render
         [--scene cornell|mesh|mesh1m|inst] [--res 256] [--spp 16] [--depth 5]
         [--grid N]
+    python3 -m grail_torch.tools.profile_render --pbrt scenes/envlight.pbrt
 
 Renders the Cornell box (or mesh_scene, the textured terrain of
 2(grid-1)^2 triangles under an environment light, grid 224 unless given; or
 mesh_scene_1m, the terrain at grid 708 seen through a thin lens by a moving
 camera: bench.py's mesh1m is --spp 4; or instbench's instanced scene, 100
-instances of a 50,176-triangle sphere: its bench is --spp 4 --depth 3) once
-to warm up, once timed, then once under torch.profiler, and prints JSON
+instances of a 50,176-triangle sphere: its bench is --spp 4 --depth 3; or a
+.pbrt scene file through the port's parser, at its authored resolution,
+samples and depth) once to warm up, once timed, then once under torch.profiler, and prints JSON
 lines: the render's wall time (unprofiled and
 profiled), the summed kernel time and the device's busy share (kernel time
 over the unprofiled wall time), the number of kernel launches; for each stage
@@ -35,6 +37,7 @@ from ..core import rng
 from ..engine import camera, film, integrator, render as rnd
 from ..kernels import intersect
 from ..kernels import instanced
+from ..scene.parser import parse_file
 from ..scene.presets import cornell_box, mesh_scene, mesh_scene_1m
 from ..shade import bsdf, geometry, lights, materials
 from .instbench import build_instanced
@@ -95,12 +98,21 @@ def main(argv=None):
     ap.add_argument("--res", type=int, default=256)
     ap.add_argument("--spp", type=int, default=16)
     ap.add_argument("--depth", type=int, default=5)
+    ap.add_argument("--pbrt", metavar="FILE",
+                    help="a .pbrt scene at its authored settings (in place of "
+                         "--scene, --res, --spp, --depth and --grid)")
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_render: no CUDA device")
     dev = torch.device("cuda", 0)
-    if args.scene == "inst":
+    cfg = integrator.IntegratorConfig(kind="path", max_depth=args.depth)
+    if args.pbrt:
+        scene, meta, api = parse_file(args.pbrt, device=dev)
+        cfg = api.integrator_config
+        args.scene, args.res, args.spp, args.depth = (
+            args.pbrt, meta.xres, meta.sampler.spp, cfg.max_depth)
+    elif args.scene == "inst":
         scene, meta = build_instanced(args.res, dev)
     elif args.scene != "cornell":
         preset = mesh_scene if args.scene == "mesh" else mesh_scene_1m
@@ -108,7 +120,6 @@ def main(argv=None):
         scene, meta, _ = preset(args.res, args.res, args.spp, device=dev, **grid)
     else:
         scene, meta, _ = cornell_box(args.res, args.res, args.spp, device=dev)
-    cfg = integrator.IntegratorConfig(kind="path", max_depth=args.depth)
     rnd.render(scene, meta, cfg, spp=args.spp, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
