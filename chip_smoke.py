@@ -91,10 +91,29 @@ failure ends the run with a non-zero exit code:
       at authored settings (a warm-up, then three timed: camera rays/s,
       launches per render of each kernel, the image against the golden);
       and the scene at 32x32, 2 spp on the card against the CPU.
-Then a {"kernels": [...]} line and, last, {"ok": true, "device": {...}}.
+  the direct group (the integrator kinds direct, whitted and ao):
+  22. direct: the seven goldens of those kinds (nurbs, instances, dof,
+      heightfield, whittedigi, subdiv, ao) through the command line, seven
+      processes at once, each EXR against its golden; each at 32x32, 2 spp
+      on the card against the CPU, and the Cornell box under direct with
+      the power strategy (the area light's BSDF branch on brute force);
+      full-size renders (256x256, 16 spp, one megawave of 1,048,576 camera
+      rays): mesh100k under direct with the "all" strategy (its environment
+      light's BSDF branch) and under ao with 4 samples, the Cornell box
+      under whitted, each with camera rays/s (median of 3 after a warm-up),
+      launches per render of each kernel, the waves by role (camera,
+      continuation and BSDF-branch closest hits, shadow and occlusion any
+      hits), the card's busy share under torch.profiler and peak memory,
+      and direct and whitted again at depth 0 (the same image: their later
+      bounces are dead waves); every kernel of the group's path launched;
+      then each kernel against its plain version on the card, bitwise, on
+      the busiest wave of each (kernel, role) those renders handed it.
+Then a {"kernels": [...]} line (each kernel's "launches_direct": its launches
+in the direct group's renders) and, last, {"ok": true, "device": {...}}.
 Needs a CUDA device and nvcc; imports nothing of JAX.
 """
 import contextlib
+import dataclasses
 import functools
 import json
 import os
@@ -112,7 +131,8 @@ from grail_torch.core import transform as tr
 from grail_torch.engine.imageio import read_image
 from grail_torch.engine import camera
 from grail_torch.engine.film import develop, new_film
-from grail_torch.engine.integrator import IntegratorConfig
+from grail_torch.engine import integrator as integ
+from grail_torch.engine.integrator import WAVES, IntegratorConfig
 from grail_torch.engine.render import camera_rays, megawave_lanes, render, render_wave
 from grail_torch.kernels import brute_intersect as bi
 from grail_torch.kernels import bvh4 as b4
@@ -128,6 +148,7 @@ from grail_torch.scene.buffers import SceneBuilder, attach_record_table
 from grail_torch.scene.parser import parse_file, parse_string
 from grail_torch.scene.presets import cornell_box, mesh_scene, mesh_scene_1m
 from grail_torch.scene.shapes import sphere
+from grail_torch.shade.lights import AREA, INFINITE
 from grail_torch.tools import instbench
 from grail_torch.tools.instbench import (N_INST, SPHERE_NU, SPHERE_NV, build_flattened,
                                          build_instanced)
@@ -221,6 +242,20 @@ PBRT_WAVES = {"cornell": ("camera_wave", "binned_secondary", "binned_shadow"),
               "glossy": ("camera_wave", "binned_secondary", "binned_shadow"),
               "envlight": ("camera_wave", "binned_secondary", "binned_shadow",
                            "unbinned_secondary", "unbinned_shadow")}
+# the direct-lighting, Whitted and ambient-occlusion goldens, and the
+# group's full-size renders (mesh100k's and the Cornell box's bench size:
+# one megawave of 1,048,576 camera rays): (name, preset, configuration)
+DIRECT_GOLDENS = ("nurbs", "instances", "dof", "heightfield", "whittedigi", "subdiv",
+                  "ao")
+DIRECT_RENDERS = (
+    ("mesh100k_direct_all", "mesh", IntegratorConfig(kind="direct", light_strategy="all")),
+    ("mesh100k_ao", "mesh", IntegratorConfig(kind="ao", ao_samples=4)),
+    ("cornell_whitted", "cornell", IntegratorConfig(kind="whitted")))
+# the Cornell box under the power strategy: the area light's BSDF branch on
+# brute force, card against CPU
+DIRECT_POWER = IntegratorConfig(kind="direct", light_strategy="power")
+# the kernels of the group's path; each must launch in its renders
+DIRECT_KERNELS = bi.KERNELS + b4.KERNELS + b4.ROOT_KERNELS
 BRUTE_SOURCE = "grail_torch/kernels/csrc/brute_intersect.cu"
 RAGGED = 37                # rays past 1M in the ragged parity case
 NODE_BYTES, TRI_BYTES = 128, 48
@@ -1271,14 +1306,14 @@ def _golden(name):
     return read_image(os.path.join(ROOT, "tests", "goldens", name + ".exr"))
 
 
-def pbrt_cli(tmp):
-    """The command line on every pbrt scene, one process a scene, run
+def pbrt_cli(tmp, names=PBRT_SCENES, phase="pbrt_cli"):
+    """The command line on each scene of `names`, one process a scene, run
     together; each must exit 0 and write an image near the golden."""
     t0 = time.perf_counter()
-    outs = {name: os.path.join(tmp, name + ".exr") for name in PBRT_SCENES}
+    outs = {name: os.path.join(tmp, name + ".exr") for name in names}
     procs = {}
     try:
-        for name in PBRT_SCENES:
+        for name in names:
             procs[name] = subprocess.Popen(
                 [sys.executable, "-m", "grail_torch.cli.main", _scene_file(name),
                  "--outfile", outs[name]], cwd=ROOT, stdout=subprocess.PIPE,
@@ -1289,7 +1324,7 @@ def pbrt_cli(tmp):
                   f"the command line exited {proc.returncode} on {name}: {log[-2000:]}")
             img = read_image(outs[name])
             err = relative_mae(img, _golden(name))
-            emit({"phase": "pbrt_cli", "scene": name, "shape": list(img.shape),
+            emit({"phase": phase, "scene": name, "shape": list(img.shape),
                   "relative_mae_vs_golden": err, "log": log.strip().splitlines()[-3:],
                   "seconds": time.perf_counter() - t0})
             check(np.isfinite(img).all() and err < GOLDEN_RELMAE,
@@ -1299,6 +1334,30 @@ def pbrt_cli(tmp):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
+
+
+def small_vs_cpu(name, dev, phase):
+    """The scene file at PBRT_SMALL_RES², PBRT_SMALL_SPP on the card against
+    the CPU (relative MAE < RELMAE_MAX)."""
+    t0 = time.perf_counter()
+    with open(_scene_file(name)) as f:
+        text = re.sub(r'"integer xresolution" \[\d+\] "integer yresolution" \[\d+\]',
+                      f'"integer xresolution" [{PBRT_SMALL_RES}] '
+                      f'"integer yresolution" [{PBRT_SMALL_RES}]', f.read())
+    imgs = {}
+    for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        sc, mt, ap = parse_string(text, device=where,
+                                  search_path=os.path.join(ROOT, "scenes"))
+        imgs[side] = render(sc, mt, ap.integrator_config, spp=PBRT_SMALL_SPP,
+                            device=where)[0].cpu().numpy()
+    err = relative_mae(imgs["card"], imgs["cpu"])
+    emit({"phase": phase, "scene": name, "res": PBRT_SMALL_RES, "spp": PBRT_SMALL_SPP,
+          "kind": ap.integrator_config.kind, "relative_mae": err,
+          "bitwise_equal": bool(np.array_equal(imgs["card"], imgs["cpu"])),
+          "seconds": time.perf_counter() - t0})
+    check(imgs["card"].shape == (PBRT_SMALL_RES, PBRT_SMALL_RES, 3)
+          and np.isfinite(imgs["card"]).all() and err < RELMAE_MAX,
+          f"{name} on the card differs from the CPU (relative MAE {err})")
 
 
 @contextlib.contextmanager
@@ -1381,25 +1440,232 @@ def pbrt_phases(dev, gpu):
         del scene
 
         # the card against the CPU at a reduced size
+        small_vs_cpu(name, dev, "pbrt_vs_cpu")
+
+
+@contextlib.contextmanager
+def role_waves(waves):
+    """Records in `waves`, for each (kernel, role), the launch with the most
+    live rays that the integrator's waves hand a kernel, as {(kernel, role):
+    (live, tables, (o, d, tmin, tmax), keywords)}: role is the integrator's
+    (integrator.WAVES: camera, continuation, bsdf, shadow, occlusion), the
+    rays as the kernel receives them (binned or not, dead lanes inert), the
+    walk with roots among them (the instanced sweep's rounds)."""
+    role = [None]
+    wrapped = (integ.scene_intersect, integ.scene_intersect_p)
+    kernels = (isect.bvh4_traverse, instanced.bvh4_traverse, isect.brute_intersect)
+
+    def named(fn):
+        def run(*args, **kw):
+            role[0] = kw.get("role", "continuation" if fn is wrapped[0] else "shadow")
+            return fn(*args, **kw)
+        return run
+
+    def record(kernel, tables, rays, kw):
+        if rays[0].device.type != "cuda":          # the CPU's plain version
+            return
+        live = int((rays[3] > rays[2]).sum())
+        key = (kernel, role[0])
+        if live and live > waves.get(key, (0,))[0]:
+            keep = {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
+            waves[key] = (live, tables, tuple(a.detach().clone() for a in rays), keep)
+
+    def walk(fn):
+        def run(nodes, tris, o, d, tmin, tmax, any_hit=False, **kw):
+            name = (b4.KERNELS if kw.get("roots") is None else b4.ROOT_KERNELS)[int(any_hit)]
+            record(name, (nodes, tris), (o, d, tmin, tmax), dict(kw, any_hit=any_hit))
+            return fn(nodes, tris, o, d, tmin, tmax, any_hit, **kw)
+        return run
+
+    def brute(tris9, o, d, tmin, tmax, any_hit=False):
+        record(bi.KERNELS[int(any_hit)], (tris9,), (o, d, tmin, tmax), {"any_hit": any_hit})
+        return kernels[2](tris9, o, d, tmin, tmax, any_hit)
+
+    integ.scene_intersect, integ.scene_intersect_p = map(named, wrapped)
+    isect.bvh4_traverse, instanced.bvh4_traverse = walk(kernels[0]), walk(kernels[1])
+    isect.brute_intersect = brute
+    try:
+        yield waves
+    finally:
+        integ.scene_intersect, integ.scene_intersect_p = wrapped
+        isect.bvh4_traverse, instanced.bvh4_traverse, isect.brute_intersect = kernels
+
+
+def wave_parity(source, kernel, role, tables, rays, kw):
+    """A captured wave through its kernel and its plain version on the card,
+    bitwise; emits the parity line and returns the max |difference|."""
+    with torch.no_grad():
+        if kernel in bi.KERNELS:
+            kern = bi.brute_intersect(tables[0], *rays, kw["any_hit"])
+            plain = bi.brute_intersect_plain(tables[0], *rays, kw["any_hit"])
+        else:
+            kern = b4.bvh4_traverse(*tables, *rays, **kw)
+            plain = b4.bvh4_traverse_plain(*tables, *rays, **kw)[:4]
+        torch.cuda.synchronize()
+    n_bad, errs, bitwise = compare(kern, plain, kw["any_hit"])
+    emit({"phase": "direct_parity", "source": source, "kernel": kernel, "wave": role,
+          "rays": rays[0].shape[0], "live_rays": int((rays[3] > rays[2]).sum()),
+          "hits": int((kern[1] >= 0).sum()), "prim_mismatch": n_bad,
+          "max_abs_diff": errs, "bitwise_equal": bitwise})
+    check(bitwise, f"{kernel} is not bitwise equal to its plain version on "
+                   f"{source}'s {role} wave")
+    return max(errs.values())
+
+
+def expected_waves(cfg, meta):
+    """The waves of one megawave's li by role (integrator.WAVES): every
+    bounce at full width for direct and whitted, one shadow wave a light
+    sampled (all of them under "all" and whitted), one BSDF-branch wave each
+    where the scene has an area or infinite light."""
+    if cfg.kind == "ao":
+        return dict(camera=1, continuation=0, bsdf=0, shadow=0, occlusion=cfg.ao_samples)
+    bounces = cfg.max_depth + 1
+    lights = (meta.n_lights if cfg.kind == "whitted" or cfg.light_strategy == "all"
+              else 1)
+    mis = cfg.kind == "direct" and bool({AREA, INFINITE} & set(meta.light_types))
+    return dict(camera=1, continuation=bounces - 1, bsdf=bounces * lights if mis else 0,
+                shadow=bounces * lights, occlusion=0)
+
+
+def busy_share(scene, meta, cfg, spp, dev, wall):
+    """(kernel ms, launches, busy share) of one render under torch.profiler:
+    the card's kernel time over the unprofiled wall time `wall`."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        render(scene, meta, cfg, spp=spp, device=dev)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    return kernel_ms, sum(e.count for e in kernels), kernel_ms / (wall * 1e3)
+
+
+def _launch_counts():
+    return dict(b4.LAUNCHES, **bi.LAUNCHES, **bs.LAUNCHES)
+
+
+def _reset_counts():
+    for counts in (bs.LAUNCHES, b4.LAUNCHES, bi.LAUNCHES, CLOSEST_WAVES, WAVES):
+        counts.update(dict.fromkeys(counts, 0))
+
+
+def direct_phases(dev, gpu):
+    """The direct group: the seven goldens of kind direct, whitted and ao
+    through the command line and against the CPU; the full-size renders of
+    the new kinds; every kernel on the busiest wave of each (kernel, role)
+    these renders hand it, against its plain version. Returns {kernel:
+    launches} over the group's renders (parity launches apart)."""
+    t_group = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        pbrt_cli(tmp, DIRECT_GOLDENS, "direct_cli")
+    total = dict.fromkeys(DIRECT_KERNELS, 0)
+    waves = {}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    with role_waves(waves):
+        for name in DIRECT_GOLDENS:
+            _reset_counts()
+            small_vs_cpu(name, dev, "direct_vs_cpu")
+            add(_launch_counts())
+        # the area light's BSDF branch on brute force, card against CPU
         t0 = time.perf_counter()
-        with open(_scene_file(name)) as f:
-            text = re.sub(r'"integer xresolution" \[\d+\] "integer yresolution" \[\d+\]',
-                          f'"integer xresolution" [{PBRT_SMALL_RES}] '
-                          f'"integer yresolution" [{PBRT_SMALL_RES}]', f.read())
         imgs = {}
         for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
-            sc, mt, ap = parse_string(text, device=where,
-                                      search_path=os.path.join(ROOT, "scenes"))
-            imgs[side] = render(sc, mt, ap.integrator_config, spp=PBRT_SMALL_SPP,
-                                device=where)[0].cpu().numpy()
+            sc, mt, _ = cornell_box(PBRT_SMALL_RES, PBRT_SMALL_RES, PBRT_SMALL_SPP,
+                                    device=where)
+            _reset_counts()
+            imgs[side] = render(sc, mt, DIRECT_POWER, device=where)[0].cpu().numpy()
+            if side == "card":
+                add(_launch_counts())
+                got_waves = dict(WAVES)
         err = relative_mae(imgs["card"], imgs["cpu"])
-        emit({"phase": "pbrt_vs_cpu", "scene": name, "res": PBRT_SMALL_RES,
-              "spp": PBRT_SMALL_SPP, "relative_mae": err,
+        emit({"phase": "direct_vs_cpu", "scene": "cornell", "kind": "direct",
+              "light_strategy": "power", "res": PBRT_SMALL_RES, "spp": PBRT_SMALL_SPP,
+              "relative_mae": err, "waves": got_waves,
+              "expected_waves": expected_waves(DIRECT_POWER, mt),
               "bitwise_equal": bool(np.array_equal(imgs["card"], imgs["cpu"])),
               "seconds": time.perf_counter() - t0})
-        check(imgs["card"].shape == (PBRT_SMALL_RES, PBRT_SMALL_RES, 3)
-              and np.isfinite(imgs["card"]).all() and err < RELMAE_MAX,
-              f"{name} on the card differs from the CPU (relative MAE {err})")
+        check(np.isfinite(imgs["card"]).all() and err < RELMAE_MAX
+              and got_waves == expected_waves(DIRECT_POWER, mt),
+              f"Cornell direct/power on the card: relative MAE {err}, waves {got_waves}")
+
+        scenes = {}
+        for label, preset, cfg in DIRECT_RENDERS:
+            t0 = time.perf_counter()
+            if preset not in scenes:
+                scenes.clear()
+                make = (functools.partial(mesh_scene, grid=MESH_GRID) if preset == "mesh"
+                        else cornell_box)
+                scenes[preset] = make(256, 256, 16, device=dev)[:2]
+            scene, meta = scenes[preset]
+            spp = meta.sampler.spp
+            _reset_counts()
+            render(scene, meta, cfg, spp=spp, device=dev)     # captures its waves
+            got_waves = dict(WAVES)
+            times, launches, _, img, peak, held = bench_render(scene, meta, cfg, spp, dev)
+            add(launches[0])
+            wall = statistics.median(times)
+            kernel_ms, n_launch, busy = busy_share(scene, meta, cfg, spp, dev, wall)
+            closest = "brute_intersect" if preset == "cornell" else "bvh4_closest"
+            any_hit = bi.KERNELS[1] if preset == "cornell" else "bvh4_any_hit"
+            want = expected_waves(cfg, meta)
+            by_wave = {"camera": want["camera"], "continuation": want["continuation"],
+                       "bsdf": want["bsdf"]}
+            expected = dict.fromkeys(launches[0], 0)
+            expected[closest] = sum(by_wave.values())
+            expected[any_hit] = want["shadow"] + want["occlusion"]
+            emit({"phase": "direct_bench", "render": label, "kind": cfg.kind,
+                  "light_strategy": cfg.light_strategy, "ao_samples": cfg.ao_samples,
+                  "res": 256, "spp": spp, "max_depth": cfg.max_depth,
+                  "triangles": meta.n_tris, "render_seconds": times,
+                  "camera_rays_per_sec": meta.xres * meta.yres * spp / wall,
+                  "launches_per_render": launches, "expected_launches": expected,
+                  "closest_hit_by_wave": by_wave, "waves": got_waves,
+                  "device_kernel_ms": kernel_ms, "device_launches": n_launch,
+                  "device_busy_share": busy, "image_mean": float(img.mean()),
+                  "peak_memory_bytes": peak, "held_before_render_bytes": held, "gpu": gpu,
+                  "seconds": time.perf_counter() - t0})
+            if cfg.kind != "ao":
+                # the scene has no delta lobe, so bounces 1-5 are dead waves:
+                # depth 0 renders the same image, and the rate beside it is
+                # what they cost
+                shallow = dataclasses.replace(cfg, max_depth=0)
+                times0, _, _, img0, _, _ = bench_render(scene, meta, shallow, spp, dev)
+                emit({"phase": "direct_bench_depth0", "render": label,
+                      "render_seconds": times0,
+                      "camera_rays_per_sec": meta.xres * meta.yres * spp
+                      / statistics.median(times0),
+                      "image_bitwise_equal_depth5": bool(np.array_equal(img0, img))})
+                check(np.array_equal(img0, img),
+                      f"{label} at depth 0 differs from depth 5 (dead bounces add light)")
+            check(got_waves == want, f"{label} made waves {got_waves}, want {want}")
+            check(all(n == expected for n in launches),
+                  f"{label} renders launched {launches}, want {expected}")
+            check(np.isfinite(img).all() and img.shape == (256, 256, 3) and img.mean() > 0.0,
+                  f"{label}'s image is not finite and positive")
+        scenes.clear()
+
+    # the group's renders went through every kernel of its path
+    emit({"phase": "direct_launches", "launches": total})
+    check(all(total[k] > 0 for k in DIRECT_KERNELS),
+          f"a kernel of the direct path was not launched: {total}")
+    # parity on the busiest wave of each (kernel, role)
+    t0 = time.perf_counter()
+    max_err = dict.fromkeys(DIRECT_KERNELS, 0.0)
+    for (kernel, role), (_, tables, rays, kw) in sorted(waves.items(), key=lambda w: w[0]):
+        max_err[kernel] = max(max_err[kernel],
+                              wave_parity("direct", kernel, role, tables, rays, kw))
+    for need in (("bvh4_closest", "bsdf"), ("bvh4_any_hit", "shadow"),
+                 ("bvh4_any_hit", "occlusion"), ("brute_intersect_any_hit", "shadow"),
+                 ("brute_intersect", "bsdf"), ("bvh4_closest_roots", "camera")):
+        check(need in waves, f"the direct group's renders made no {need} wave")
+    emit({"phase": "direct_parity", "cases": [list(k) for k in sorted(waves)],
+          "seconds": time.perf_counter() - t0})
+    del waves
+    emit({"phase": "direct", "seconds": time.perf_counter() - t_group})
+    return total
 
 
 def main():
@@ -1437,6 +1703,9 @@ def main():
     kernels += inst_phases(dev, gpu)
     grad_phases(dev, gpu)
     pbrt_phases(dev, gpu)
+    direct = direct_phases(dev, gpu)
+    for entry in kernels:
+        entry["launches_direct"] = direct[entry["name"]] if entry["name"] in direct else 0
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(gpu, flush=True)
     emit({"kernels": kernels})

@@ -1,6 +1,7 @@
 """Command line renderer (port of grail/cli/main.py; pbrt src/main/pbrt.cpp):
-parse .pbrt scene files, render each with the path integrator, write the
-image (EXR or PFM; 8-bit formats need PIL).
+parse .pbrt scene files, render each with the integrator its
+SurfaceIntegrator line names (path, directlighting, whitted or
+ambientocclusion), write the image (EXR or PFM; 8-bit formats need PIL).
 
     python -m grail_torch.cli.main [options] scene.pbrt [scene2.pbrt ...]
     python -m grail_torch.cli.main --outfile out.exr --quick scene.pbrt

@@ -114,6 +114,19 @@ def sample_distribution_1d_continuous(dist, u):
     return x, pdf, off
 
 
+def sample_distribution_1d_discrete(dist, u):
+    """u (N,) -> (index, pmf) for a 1-D distribution (pbrt
+    Distribution1D::SampleDiscrete)."""
+    off = batched_searchsorted(dist["cdf"], u)
+    return off, distribution_1d_pdf_discrete(dist, off)
+
+
+def distribution_1d_pdf_discrete(dist, idx):
+    """The pmf of entry idx: func[idx] / (func_int * n)."""
+    func = dist["func"]
+    return func[idx] / torch.clamp_min(dist["func_int"] * func.shape[-1], 1e-12)
+
+
 def build_distribution_2d(func):
     """func (nv, nu) -> marginal over v + conditional over u (pbrt
     Distribution2D)."""

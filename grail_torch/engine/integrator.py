@@ -1,22 +1,34 @@
-"""Path integrator as a masked wavefront loop (port of grail/engine/integrator.py
-for kind="path" with the uniform one-light strategy).
+"""Surface integrators as a masked wavefront loop (port of
+grail/engine/integrator.py for the kinds "path", "direct", "whitted" and
+"ao", with the light strategies "one", "power" and "all").
 
 Each bounce is one stage over the whole ray batch with an `active` mask:
 intersect -> environment escape -> shade (texture eval + lobe gather) ->
-direct lighting (light branch; the continuation ray doubles as the MIS-BSDF
-strategy, "path-vertex reuse") -> sample the continuation -> Russian
-roulette. Bounce 0 is peeled, as in the reference: only it reads the camera
+direct lighting -> sample the continuation -> Russian roulette (path only).
+Bounce 0 is peeled, as in the reference: only it reads the camera
 differentials (texture filtering) and its camera wave skips ray binning.
-Survivors are repacked into narrower waves at static split points
-(multi-split compaction), exactly as the reference does. The bounce loop is
-a Python loop; the reference's `lax.cond` on the survivor count is a Python
-`if` on the count read back from the device. On a scene with instances the
-camera rays' time rides along with every lane (secondary and shadow rays
-keep their camera ray's time), to pick the animated instance transforms;
-elsewhere no stage reads it and it is not carried.
 
-Not ported yet: the other integrator kinds, light_strategy "power"/"all",
-alpha cutouts, bump mapping, media and material-sorted shading.
+kind="path" takes direct lighting's BSDF strategy from its continuation ray
+("path-vertex reuse": emission found at the next hit or escape is
+MIS-weighted against the light strategy), and repacks survivors into
+narrower waves at static split points (multi-split compaction), exactly as
+the reference does; the reference's `lax.cond` on the survivor count is a
+Python `if` on the count read back from the device. kind="direct"
+(directlighting.cpp) runs both branches of EstimateDirect, each BSDF sample
+traced by its own closest-hit wave, and kind="whitted" (whitted.cpp) samples
+every light once without MIS; both follow only specular continuations, add
+emission and escaped radiance only after a specular bounce, run no Russian
+roulette and, like the reference, run every bounce at full width (dead lanes
+get tmax = 0). kind="ao" (ambientocclusion.cpp) shoots ao_samples cosine
+rays from the first hit. On a scene with instances the camera rays' time
+rides along with every lane (secondary and shadow rays keep their camera
+ray's time), to pick the animated instance transforms; elsewhere no stage
+reads it and it is not carried. WAVES counts the waves each stage hands the
+intersect dispatch, by role.
+
+Not ported yet: the other integrator kinds (igi, photon mapping, PRT, the
+irradiance cache, subsurface), alpha cutouts, bump mapping, media and
+material-sorted shading; they raise.
 """
 from __future__ import annotations
 
@@ -51,12 +63,25 @@ _D_BSDF_DIR = 4    # 2D
 _D_RR = 5
 _D_MIS_COMP = 6
 _D_MIS_DIR = 7     # 2D
+_LIGHT_STRIDE = 100   # the dimension offset of each light row (strategy "all", whitted)
+
+KINDS = ("path", "direct", "whitted", "ao")
+STRATEGIES = ("one", "power", "all")
+# the reference's other integrator kinds
+UNPORTED_KINDS = ("igi", "photon", "diffuseprt", "glossyprt", "useprobes",
+                  "irradiancecache", "dipole")
+
+# waves handed to the intersect dispatch, by role: closest hit on the camera
+# wave (or AO's first hit), on specular or path continuations, and on the BSDF
+# branch of estimate_direct; any hit on light shadow rays and AO occlusion rays
+WAVES = {"camera": 0, "continuation": 0, "bsdf": 0, "shadow": 0, "occlusion": 0}
 
 
 @dataclasses.dataclass(frozen=True)
 class IntegratorConfig:
-    """The fields kind="path" reads (names and defaults as the reference)."""
-    kind: str = "path"
+    """The fields the ported kinds read (names and defaults as the
+    reference)."""
+    kind: str = "path"            # path | direct | whitted | ao
     max_depth: int = 5
     rr_depth: int = 3             # Russian roulette after this many bounces
     # wavefront compaction: after the first Russian-roulette bounce, repack
@@ -65,30 +90,46 @@ class IntegratorConfig:
     compact: bool = True
     compact_frac: float = 0.25
     compact_min: int = 8192       # lane count below which compaction is skipped
-    light_strategy: str = "one"
+    light_strategy: str = "one"   # one (uniform) | power | all
+    ao_samples: int = 1
+    ao_maxdist: float = 1.0e7
 
 
 def _bdim(bounce, off):
     return _BOUNCE_BASE + bounce * _BOUNCE_STRIDE + off
 
 
-def _sample_1d(meta, pix, samp, bounce, off):
-    """A bounce slot's 1D draw. The reference peels bounce 0 with a concrete
-    index and runs later bounces inside lax.fori_loop, where the dimension is
-    traced and the HALTON sampler takes base 2 for it (rng.sample_1d)."""
-    return rngmod.sample_1d(meta.sampler, pix, samp, _bdim(bounce, off),
+def _sample_1d(meta, pix, samp, bounce, off, lrow=0):
+    """A bounce slot's 1D draw (light row lrow's, for the per-light slots).
+    The reference peels bounce 0 with a concrete index and runs later
+    bounces inside lax.fori_loop, where the dimension is traced and the
+    HALTON sampler takes base 2 for it (rng.sample_1d)."""
+    return rngmod.sample_1d(meta.sampler, pix, samp,
+                            _bdim(bounce, off) + _LIGHT_STRIDE * lrow,
                             traced=bounce > 0)
 
 
-def scene_intersect(scene, meta, o, d, tmax, sort=None, time=None):
+def _sample_2d(meta, pix, samp, bounce, off, lrow=0):
+    return rngmod.sample_2d(meta.sampler, pix, samp,
+                            _bdim(bounce, off) + _LIGHT_STRIDE * lrow)
+
+
+def _count(role, o):
+    if o.shape[0]:
+        WAVES[role] += 1
+
+
+def scene_intersect(scene, meta, o, d, tmax, sort=None, time=None, role="continuation"):
     """Scene::Intersect (no alpha cutouts in the ported scenes). sort: the
     ray-binning hint (False for camera waves, already in tile order); time:
-    the rays' times (animated instances)."""
+    the rays' times (animated instances); role: the WAVES entry."""
+    _count(role, o)
     return isect.intersect(scene, o, d, tmax, device=o.device, sort=sort, time=time)
 
 
-def scene_intersect_p(scene, meta, o, d, tmax, time=None):
+def scene_intersect_p(scene, meta, o, d, tmax, time=None, role="shadow"):
     """Scene::IntersectP."""
+    _count(role, o)
     return isect.intersect_p(scene, o, d, tmax, device=o.device, time=time)
 
 
@@ -114,11 +155,16 @@ def _detach(x):
 
 
 def estimate_direct(scene, meta, sg, lobes, wo_local, light_idx, light_pmf,
-                    u_light, u_tri, active, time=None):
-    """One-light direct lighting, light-sampling branch with the power
-    heuristic against the BSDF pdf (pbrt EstimateDirect part 1). The BSDF
-    branch is the next bounce's continuation ray (path-vertex reuse), which
-    is the only form kind="path" runs. Returns Ld (N,3) / light_pmf."""
+                    u_light, u_tri, u_comp, u_dir, active, time=None,
+                    bsdf_branch=True):
+    """One-light direct lighting with MIS (pbrt EstimateDirect): the
+    light-sampling branch with the power heuristic against the BSDF pdf,
+    then, where the scene has an area or infinite light and the chosen
+    light is not a delta light, the BSDF-sampling branch (a non-specular
+    BSDF sample traced by a closest-hit wave, MIS-weighted against the
+    chosen light's pdf in that direction). bsdf_branch=False drops the BSDF
+    branch and its wave: kind="path" takes that strategy from its
+    continuation ray (path-vertex reuse). Returns Ld (N,3) / light_pmf."""
     present = meta.lobe_types
     p = sg["p"]
     eps = sg["ray_eps"]
@@ -141,16 +187,113 @@ def estimate_direct(scene, meta, sg, lobes, wo_local, light_idx, light_pmf,
         f_l * ls["radiance"]
         * (cos_l * w_l / _detach(torch.clamp_min(ls["pdf"], 1e-12)))[..., None],
         0.0)
+
+    if bsdf_branch and (lt.AREA in meta.light_types or lt.INFINITE in meta.light_types):
+        bs = bx.bsdf_sample(lobes, wo_local, u_dir[0], u_dir[1], u_comp, present,
+                            include_specular=False)
+        wi_w = geom.local_to_world(sg, bs["wi"])
+        cos_b = absdot(wi_w, sg["ns"])
+        ltype = scene["lights"]["type"][light_idx]
+        can = active & bs["valid"] & (bs["pdf"] > 0.0) & ~lt.is_delta(ltype)
+        hit2 = scene_intersect(scene, meta, p + wi_w * eps[..., None], wi_w,
+                               torch.where(can, BIG, 0.0), time=time, role="bsdf")
+        light_pdf_dir = torch.zeros_like(bs["pdf"])
+        Li2 = torch.zeros_like(Ld)
+        hit_light = torch.zeros_like(can)
+        if lt.AREA in meta.light_types:
+            hg2 = geom.hit_geometric(scene, hit2)
+            chosen = (hit2["prim"] >= 0) & (hg2["light"] == light_idx)
+            # t is read on hits of the chosen light only; elsewhere it may be
+            # the miss sentinel, whose square overflows and would turn the
+            # gradient into NaN (the reference's fault, ROADMAP C.4)
+            lp = lt.area_light_pdf_dir(scene, light_idx, p, wi_w,
+                                       torch.where(chosen, hit2["t"], 0.0),
+                                       dot(hg2["ng"], -wi_w))
+            light_pdf_dir = torch.where(chosen, lp, light_pdf_dir)
+            Li2 = torch.where(chosen[..., None],
+                              lt.area_light_emitted(scene, hg2, -wi_w), Li2)
+            hit_light = hit_light | chosen
+        if lt.INFINITE in meta.light_types:
+            m = (ltype == lt.INFINITE) & (hit2["prim"] < 0)
+            light_pdf_dir = torch.where(m, lt.env_pdf(scene, light_idx, wi_w),
+                                        light_pdf_dir)
+            Li2 = torch.where(m[..., None], lt.env_radiance(scene, light_idx, wi_w), Li2)
+            hit_light = hit_light | m
+        w_b = mc.power_heuristic(1.0, bs["pdf"], 1.0, light_pdf_dir)
+        Ld = Ld + torch.where(
+            (can & hit_light & (light_pdf_dir > 0.0))[..., None],
+            bs["f"] * Li2
+            * (cos_b * w_b / _detach(torch.clamp_min(bs["pdf"], 1e-12)))[..., None],
+            0.0)
     return Ld / _detach(torch.clamp_min(light_pmf, 1e-12))[..., None]
 
 
-def _pick_light(meta, pix, samp, bounce):
-    """UniformSampleOneLight light choice."""
-    n_lights = meta.n_lights
+def _pick_light(scene, meta, cfg, pix, samp, bounce):
+    """UniformSampleOneLight's light choice, or by power."""
     u = _sample_1d(meta, pix, samp, bounce, _D_LIGHT_SEL)
+    if cfg.light_strategy == "power":
+        idx, pmf = mc.sample_distribution_1d_discrete(scene["light_power_dist"], u)
+        return idx.to(torch.int32), pmf
+    n_lights = meta.n_lights
     idx = torch.clamp_max((u * n_lights).to(torch.int32), n_lights - 1)
     pmf = torch.full(u.shape, 1.0 / n_lights, dtype=torch.float32, device=u.device)
     return idx, pmf
+
+
+def _direct_light(scene, meta, cfg, pix, samp, bounce, sg, lobes, wo_local,
+                  active, time, path_reuse):
+    """Direct lighting at the bounce's hits, before the throughput: one
+    light (by the strategy), or every light ("all", pmf 1, each light row
+    with its own dimensions). With path-vertex reuse no BSDF branch runs,
+    whatever the strategy: the reference runs it under "all" besides the
+    reuse, which counts the BSDF strategy twice (ROADMAP C.7)."""
+    # the BSDF branch's draws only where it runs
+    mis = not path_reuse and (lt.AREA in meta.light_types
+                              or lt.INFINITE in meta.light_types)
+
+    def one(lidx, pmf, lrow=0):
+        return estimate_direct(
+            scene, meta, sg, lobes, wo_local, lidx, pmf,
+            _sample_2d(meta, pix, samp, bounce, _D_LIGHT_POS, lrow),
+            _sample_1d(meta, pix, samp, bounce, _D_LIGHT_TRI, lrow),
+            _sample_1d(meta, pix, samp, bounce, _D_MIS_COMP, lrow) if mis else None,
+            _sample_2d(meta, pix, samp, bounce, _D_MIS_DIR, lrow) if mis else None,
+            active, time, bsdf_branch=mis)
+
+    if cfg.light_strategy != "all":
+        return one(*_pick_light(scene, meta, cfg, pix, samp, bounce))
+    n = active.shape[0]
+    pmf = torch.ones(n, dtype=torch.float32, device=active.device)
+    Ld = sg["p"].new_zeros((n, 3))
+    for lrow in range(meta.n_lights):
+        Ld = Ld + one(torch.full((n,), lrow, dtype=torch.int32, device=active.device),
+                      pmf, lrow)
+    return Ld
+
+
+def _whitted_light(scene, meta, pix, samp, bounce, sg, lobes, wo_local, active, time):
+    """whitted.cpp: every light sampled once, no MIS and no BSDF branch."""
+    eps = sg["ray_eps"]
+    Ld = sg["p"].new_zeros(sg["p"].shape)
+    for lrow in range(meta.n_lights):
+        lidx = torch.full(active.shape, lrow, dtype=torch.int32, device=active.device)
+        u2d = _sample_2d(meta, pix, samp, bounce, _D_LIGHT_POS, lrow)
+        ls = lt.sample_li(scene, lidx, sg["p"], u2d[0], u2d[1],
+                          _sample_1d(meta, pix, samp, bounce, _D_LIGHT_TRI, lrow),
+                          meta.light_types)
+        f_l = bx.bsdf_f(lobes, wo_local, geom.world_to_local(sg, ls["wi"]),
+                        meta.lobe_types, include_specular=False)
+        cos_l = absdot(ls["wi"], sg["ns"])
+        ok = active & (ls["pdf"] > 0.0) & (cos_l > 0.0)
+        occluded = scene_intersect_p(
+            scene, meta, sg["p"] + ls["wi"] * eps[..., None], ls["wi"],
+            torch.where(ok, ls["dist"] - 2.0 * eps, 0.0), time=time)
+        Ld = Ld + torch.where(
+            (ok & ~occluded)[..., None],
+            f_l * ls["radiance"]
+            * (cos_l / _detach(torch.clamp_min(ls["pdf"], 1e-12)))[..., None],
+            0.0)
+    return Ld
 
 
 def _make_bounce_body(scene, meta, cfg, pix, samp, camdiff=None, time=None):
@@ -158,56 +301,66 @@ def _make_bounce_body(scene, meta, cfg, pix, samp, camdiff=None, time=None):
     tail instantiates it again at a narrower width). camdiff: the camera
     differential rays, passed to the peeled bounce 0 only; time: the lanes'
     ray times, or None."""
+    path_reuse = cfg.kind == "path"
 
     def bounce_body(bounce, state):
         o, d, L, throughput, active, spec_bounce, pdf_prev = state
         # the camera wave arrives in tile order: no ray binning for it
         hit = scene_intersect(scene, meta, o, d, torch.where(active, BIG, 0.0),
-                              sort=False if bounce == 0 else None, time=time)
+                              sort=False if bounce == 0 else None, time=time,
+                              role="camera" if bounce == 0 else "continuation")
         miss = hit["prim"] < 0
         # escaped rays take the environment's radiance: camera and specular
-        # rays unweighted, other continuations MIS-weighted against the
-        # light strategy's env pdf (path-vertex reuse)
+        # rays unweighted; with path-vertex reuse, other continuations
+        # MIS-weighted against the light strategy's env pdf
         if lt.INFINITE in meta.light_types:
-            env_row = scene["env_row"].expand(o.shape[0])
-            w_env = torch.where(spec_bounce, 1.0, mc.power_heuristic(
-                1.0, pdf_prev, 1.0, lt.env_pdf(scene, env_row, d)))
-            L = L + torch.where((active & miss)[..., None],
-                                throughput * w_env[..., None]
-                                * lt.escaped_radiance(scene, d, meta.light_types),
-                                0.0)
+            Le = lt.escaped_radiance(scene, d, meta.light_types)
+            if path_reuse:
+                env_row = scene["env_row"].expand(o.shape[0])
+                w_env = torch.where(spec_bounce, 1.0, mc.power_heuristic(
+                    1.0, pdf_prev, 1.0, lt.env_pdf(scene, env_row, d)))
+                L = L + torch.where((active & miss)[..., None],
+                                    throughput * w_env[..., None] * Le, 0.0)
+            else:
+                L = L + torch.where((active & miss & spec_bounce)[..., None],
+                                    throughput * Le, 0.0)
         active = active & ~miss
 
         sg, lobes, wo_local = _shade_context(scene, meta, hit, o, d, camdiff, time)
 
-        # emitted at hit: camera/specular vertices unweighted, other vertices
-        # MIS-weighted by the light strategy's per-point pdf at this hit
+        # emitted at hit: camera/specular vertices unweighted; with
+        # path-vertex reuse, other vertices MIS-weighted by the light
+        # strategy's per-point pdf at this hit
         if lt.AREA in meta.light_types:
-            cos_at = dot(sg["ng"], -d)
-            on_light = sg["light"] >= 0
-            # the pdf is read on light hits only; elsewhere t may be the miss
-            # sentinel, whose square overflows and would turn the gradient
-            # into NaN (the reference's fault, ROADMAP C.4)
-            lp = lt.area_light_pdf_dir(scene, torch.clamp_min(sg["light"], 0), o, d,
-                                       torch.where(on_light, hit["t"], 0.0), cos_at)
-            w_em = torch.where(spec_bounce | ~on_light, 1.0,
-                               mc.power_heuristic(1.0, pdf_prev, 1.0, lp))
-            L = L + torch.where(active[..., None],
-                                throughput * w_em[..., None]
-                                * lt.area_light_emitted(scene, sg, -d), 0.0)
+            Le = lt.area_light_emitted(scene, sg, -d)
+            if path_reuse:
+                cos_at = dot(sg["ng"], -d)
+                on_light = sg["light"] >= 0
+                # the pdf is read on light hits only; elsewhere t may be the
+                # miss sentinel, whose square overflows and would turn the
+                # gradient into NaN (the reference's fault, ROADMAP C.4)
+                lp = lt.area_light_pdf_dir(scene, torch.clamp_min(sg["light"], 0), o, d,
+                                           torch.where(on_light, hit["t"], 0.0), cos_at)
+                w_em = torch.where(spec_bounce | ~on_light, 1.0,
+                                   mc.power_heuristic(1.0, pdf_prev, 1.0, lp))
+                L = L + torch.where(active[..., None],
+                                    throughput * w_em[..., None] * Le, 0.0)
+            else:
+                L = L + torch.where((active & spec_bounce)[..., None],
+                                    throughput * Le, 0.0)
 
         if meta.n_lights > 0:
-            lidx, pmf = _pick_light(meta, pix, samp, bounce)
-            Ld = estimate_direct(
-                scene, meta, sg, lobes, wo_local, lidx, pmf,
-                rngmod.sample_2d(meta.sampler, pix, samp, _bdim(bounce, _D_LIGHT_POS)),
-                _sample_1d(meta, pix, samp, bounce, _D_LIGHT_TRI),
-                active, time)
+            if cfg.kind == "whitted":
+                Ld = _whitted_light(scene, meta, pix, samp, bounce, sg, lobes,
+                                    wo_local, active, time)
+            else:
+                Ld = _direct_light(scene, meta, cfg, pix, samp, bounce, sg, lobes,
+                                   wo_local, active, time, path_reuse)
             L = L + torch.where(active[..., None], throughput * Ld, 0.0)
 
         # continuation: sample the BSDF (dead work on the final bounce, as in
         # the reference, whose loop exits before the next intersect)
-        u_dir = rngmod.sample_2d(meta.sampler, pix, samp, _bdim(bounce, _D_BSDF_DIR))
+        u_dir = _sample_2d(meta, pix, samp, bounce, _D_BSDF_DIR)
         u_comp = _sample_1d(meta, pix, samp, bounce, _D_BSDF_COMP)
         bs = bx.bsdf_sample(lobes, wo_local, u_dir[0], u_dir[1], u_comp,
                             meta.lobe_types, include_specular=True)
@@ -216,23 +369,26 @@ def _make_bounce_body(scene, meta, cfg, pix, samp, camdiff=None, time=None):
         contrib = bs["f"] * (cos_c
                              / _detach(torch.clamp_min(bs["pdf"], 1e-12)))[..., None]
         cont_ok = bs["valid"] & torch.any(bs["f"] != 0.0, dim=-1)
+        if not path_reuse:
+            cont_ok = cont_ok & bs["specular"]     # only specular recursion
         throughput = torch.where(cont_ok[..., None], throughput * contrib, throughput)
         active = active & cont_ok
         spec_bounce = bs["specular"]
-        # the light strategy's partner pdf for the next hit's emission
-        pdf_prev = torch.where(
-            bs["specular"], 0.0,
-            _detach(bx.bsdf_pdf(lobes, wo_local, geom.world_to_local(sg, wi_w),
-                                meta.lobe_types, include_specular=False)))
+        if path_reuse:
+            # the light strategy's partner pdf for the next hit's emission
+            pdf_prev = torch.where(
+                bs["specular"], 0.0,
+                _detach(bx.bsdf_pdf(lobes, wo_local, geom.world_to_local(sg, wi_w),
+                                    meta.lobe_types, include_specular=False)))
 
-        # Russian roulette (path.cpp: after rr_depth bounces)
-        if bounce >= cfg.rr_depth:
-            q = torch.clamp_max(luminance(_detach(throughput)), 0.5)
-        else:
-            q = torch.ones_like(pdf_prev)
-        u_rr = _sample_1d(meta, pix, samp, bounce, _D_RR)
-        active = active & (u_rr < q)
-        throughput = throughput / _detach(torch.clamp_min(q, 1e-6))[..., None]
+            # Russian roulette (path.cpp: after rr_depth bounces)
+            if bounce >= cfg.rr_depth:
+                q = torch.clamp_max(luminance(_detach(throughput)), 0.5)
+            else:
+                q = torch.ones_like(pdf_prev)
+            u_rr = _sample_1d(meta, pix, samp, bounce, _D_RR)
+            active = active & (u_rr < q)
+            throughput = throughput / _detach(torch.clamp_min(q, 1e-6))[..., None]
 
         o = sg["p"] + wi_w * sg["ray_eps"][..., None]
         return (o, wi_w, L, throughput, active, spec_bounce, pdf_prev)
@@ -254,12 +410,19 @@ def li(scene, meta, cfg: IntegratorConfig, rays, pix, samp):
     """Radiance for a batch of camera rays: the wavefront bounce loop.
     rays: dict from camera.generate_rays; pix, samp: sampler coordinates.
     Returns L (N,3)."""
-    if cfg.kind != "path":
-        raise NotImplementedError(f"integrator kind {cfg.kind!r} is not ported "
-                                  "yet (path only)")
-    if cfg.light_strategy != "one":
-        raise NotImplementedError(f"light_strategy {cfg.light_strategy!r} is not "
-                                  "ported yet (one only)")
+    if cfg.kind in UNPORTED_KINDS:
+        raise NotImplementedError(f"integrator kind {cfg.kind!r} is not ported yet "
+                                  f"(ported: {', '.join(KINDS)})")
+    if cfg.kind not in KINDS:
+        raise ValueError(f"unknown integrator kind {cfg.kind!r}; expected one of "
+                         f"{', '.join(KINDS)}")
+    if cfg.light_strategy not in STRATEGIES:
+        raise ValueError(f"unknown light_strategy {cfg.light_strategy!r}; expected "
+                         f"one of {', '.join(STRATEGIES)}")
+    # only instances read the time (a moving camera has used it already)
+    time = rays.get("time") if scene.get("inst") is not None else None
+    if cfg.kind == "ao":
+        return _ao_li(scene, meta, cfg, rays, pix, samp, time)
     o, d = rays["o"], rays["d"]
     n = o.shape[0]
     max_depth = cfg.max_depth
@@ -269,19 +432,19 @@ def li(scene, meta, cfg: IntegratorConfig, rays, pix, samp):
     spec_bounce = active                       # bounce-0 emission counts
     pdf_prev = torch.ones(n, dtype=torch.float32, device=o.device)
     state = (o, d, L, throughput, active, spec_bounce, pdf_prev)
-    # only instances read the time (a moving camera has used it already)
-    time = rays.get("time") if scene.get("inst") is not None else None
     state = _make_bounce_body(scene, meta, cfg, pix, samp,
                               rays.get("camdiff"), time)(0, state)
 
-    # multi-split compaction: the tail repacks survivors at static split
-    # points, each with an overflow guard (a wave whose live count exceeds a
-    # split's capacity skips it). The pre-RR split at bounce 2 runs for
-    # scenes with a BVH (the reference's stream-route scenes: open scenes
-    # whose wavefront goes dark early), the post-RR split for every scene.
+    # multi-split compaction (kind="path" only, as the reference: the other
+    # kinds run every bounce at full width): the tail repacks survivors at
+    # static split points, each with an overflow guard (a wave whose live
+    # count exceeds a split's capacity skips it). The pre-RR split at bounce
+    # 2 runs for scenes with a BVH (the reference's stream-route scenes: open
+    # scenes whose wavefront goes dark early), the post-RR split for every
+    # scene.
     k = min(cfg.rr_depth + 1, max_depth + 1)
     splits = []
-    if cfg.compact and n >= cfg.compact_min:
+    if cfg.compact and cfg.kind == "path" and n >= cfg.compact_min:
         if k > 2 and max_depth + 1 > 2 and scene.get("bvh") is not None:
             early = (int(n * min(0.5, 4.0 * cfg.compact_frac)) // 1024) * 1024
             if early >= 1024:
@@ -323,3 +486,28 @@ def li(scene, meta, cfg: IntegratorConfig, rays, pix, samp):
 
     L = tail(state, pix, samp, time, n, 1, splits)
     return L * rays["weight"][..., None]
+
+
+def _ao_li(scene, meta, cfg, rays, pix, samp, time):
+    """ambientocclusion.cpp: the fraction of ao_samples cosine-sampled rays
+    from the first hit, flipped to the side of the geometric normal, that
+    nothing occludes within ao_maxdist, in grey, times the ray weight. The
+    first hit takes the binned route, as in the reference. Lanes that miss
+    count nothing, and their occlusion rays are made inert (tmax 0)."""
+    o, d = rays["o"], rays["d"]
+    n = o.shape[0]
+    hit = scene_intersect(scene, meta, o, d, o.new_full((n,), BIG), time=time,
+                          role="camera")
+    sg = geom.shading_geometry(scene, hit, o, d, time=time)
+    active = hit["prim"] >= 0
+    tmax = torch.where(active, cfg.ao_maxdist, 0.0)
+    total = o.new_zeros(n)
+    for s in range(cfg.ao_samples):
+        u = rngmod.sample_2d(meta.sampler, pix, samp, _BOUNCE_BASE + s)
+        w = geom.local_to_world(sg, mc.cosine_sample_hemisphere(u[0], u[1]))
+        w = torch.where((dot(w, sg["ng"]) < 0.0)[..., None], -w, w)
+        occluded = scene_intersect_p(scene, meta, sg["p"] + w * sg["ray_eps"][..., None],
+                                     w, tmax, time=time, role="occlusion")
+        total = total + torch.where(active & ~occluded, 1.0, 0.0)
+    ao = total / cfg.ao_samples
+    return ao[:, None].expand(n, 3) * rays["weight"][..., None]

@@ -6,10 +6,12 @@ Statements flow as in the reference (options block -> WorldBegin ->
 attributes, materials, lights and shapes -> WorldEnd) and build the same
 rows in the same order, so that a parsed scene holds the reference's leaves.
 Ported: the transform directives, Camera "perspective", Film, Sampler,
-PixelFilter, SurfaceIntegrator "path", attributes and ReverseOrientation,
-Texture "constant"/"scale"/"mix"/"imagemap" (uv mapping), the materials
-matte, plastic, metal, mirror, glass, uber and mix (named or not),
-LightSource "point"/"infinite", AreaLightSource "diffuse", every shape of
+PixelFilter, SurfaceIntegrator "path", "directlighting", "whitted" and
+"ambientocclusion", attributes and ReverseOrientation, Texture
+"constant"/"scale"/"mix"/"imagemap" (uv mapping), the materials matte,
+plastic, metal, shinymetal, mirror, glass, uber and mix (named or not),
+LightSource "point"/"spot"/"distant"/"infinite", AreaLightSource "diffuse",
+every shape of
 scene/shapes.py and object instancing (ObjectBegin/ObjectEnd/ObjectInstance,
 animated transforms as single-instance objects). Everything else raises
 NotImplementedError where it is used, naming the directive or parameter.
@@ -45,10 +47,12 @@ log = logging.getLogger("grail_torch")
 COPPER_ETA = (0.2004, 0.9240, 1.1022)
 COPPER_K = (3.9129, 2.4528, 2.1421)
 
-# the SurfaceIntegrator names the reference knows besides "path" (an
-# unknown name renders with "path", as in the reference)
-UNPORTED_INTEGRATORS = ("directlighting", "whitted", "ambientocclusion", "igi",
-                        "photonmap", "exphotonmap", "diffuseprt", "glossyprt",
+# the SurfaceIntegrator names the port renders, with their integrator kind,
+# and the others the reference knows (an unknown name renders with "path",
+# as in the reference)
+INTEGRATORS = {"path": "path", "directlighting": "direct", "whitted": "whitted",
+               "ambientocclusion": "ao"}
+UNPORTED_INTEGRATORS = ("igi", "photonmap", "exphotonmap", "diffuseprt", "glossyprt",
                         "useprobes", "irradiancecache", "dipolesubsurface")
 SAMPLER_KINDS = {"lowdiscrepancy": ZERO_TWO, "02sequence": ZERO_TWO,
                  "stratified": STRATIFIED, "halton": HALTON, "random": RANDOM,
@@ -382,6 +386,20 @@ class PbrtAPI:
             return b.add_material([dict(type=bx.BLINN, s0=one, s1=eta, s2=k,
                                         fr=bx.FR_CONDUCTOR, f0=rough,
                                         f0_conv=CONV_INV)])
+        if mtype == "shinymetal":
+            ks = tp.get_spectrum_texture(b, "Ks", (1.0,) * 3)
+            kr = tp.get_spectrum_texture(b, "Kr", (1.0,) * 3)
+            rough = tp.get_float_texture(b, "roughness", 0.1)
+            # the conductor's eta and k from the constant Kr (shinymetal.cpp
+            # FresnelApproxEta/K), as the reference computes them: a textured
+            # Kr reads its constant row
+            kr_rgb = np.clip(b.tex_const[kr], 0.0, 0.999)
+            eta = b.const_tex((1.0 + np.sqrt(kr_rgb)) / (1.0 - np.sqrt(kr_rgb)))
+            k = b.const_tex(2.0 * np.sqrt(kr_rgb) / np.sqrt(np.maximum(1.0 - kr_rgb, 1e-5)))
+            return b.add_material([
+                dict(type=bx.BLINN, s0=ks, s1=eta, s2=k, fr=bx.FR_CONDUCTOR, f0=rough,
+                     f0_conv=CONV_INV),
+                dict(type=bx.SPEC_REFL, s0=kr, s1=eta, s2=k, fr=bx.FR_CONDUCTOR)])
         if mtype == "uber":
             kd = tp.get_spectrum_texture(b, "Kd", (0.25,) * 3)
             ks = tp.get_spectrum_texture(b, "Ks", (0.25,) * 3)
@@ -430,6 +448,18 @@ class PbrtAPI:
             i = params.find_one_rgb("I", (1, 1, 1)) * scale
             from_p = params.find_one_point("from", (0, 0, 0))
             b.add_point_light(tr.xform_p_np(l2w, from_p), i)
+        elif name == "spot":
+            i = params.find_one_rgb("I", (1, 1, 1)) * scale
+            from_p = params.find_one_point("from", (0, 0, 0))
+            to_p = params.find_one_point("to", (0, 0, 1))
+            cone = params.find_one_float("coneangle", 30.0)
+            delta = params.find_one_float("conedeltaangle", 5.0)
+            b.add_spot_light(l2w @ _spot_frame(from_p, to_p), i, cone, delta)
+        elif name == "distant":
+            L = params.find_one_rgb("L", (1, 1, 1)) * scale
+            from_p = params.find_one_point("from", (0, 0, 0))
+            to_p = params.find_one_point("to", (0, 0, 1))
+            b.add_distant_light(tr.xform_p_np(l2w, from_p), tr.xform_p_np(l2w, to_p), L)
         elif name == "infinite":
             L = params.find_one_rgb("L", (1, 1, 1)) * scale
             mapname = params.find_one_string("mapname", "")
@@ -668,13 +698,20 @@ class PbrtAPI:
             shutter_open=self.camera_params.find_one_float("shutteropen", 0.0),
             shutter_close=self.camera_params.find_one_float("shutterclose", 1.0))
 
-        if self.integrator_name in UNPORTED_INTEGRATORS:  # also the default one
-            raise _unported(f'SurfaceIntegrator "{self.integrator_name}"')
-        if self.integrator_name != "path":
+        kind = INTEGRATORS.get(self.integrator_name)
+        if kind is None:
             log.warning("Surface integrator %r not yet implemented; using path",
                         self.integrator_name)
+            kind = "path"
+        ip = self.integrator_params
+        strategy = ip.find_one_string("strategy", "all")
         self.integrator_config = IntegratorConfig(
-            kind="path", max_depth=self.integrator_params.find_one_int("maxdepth", 5))
+            kind=kind, max_depth=ip.find_one_int("maxdepth", 5),
+            # directlighting's "strategy": "one", or else "all"
+            light_strategy=("one" if strategy == "one" else "all")
+            if kind == "direct" else "one",
+            ao_samples=ip.find_one_int("nsamples", 2048) if kind == "ao" else 1,
+            ao_maxdist=ip.find_one_float("maxdist", 1e7))
         if self.renderer_name not in ("sampler", "aggregatetest", ""):
             log.warning("Renderer %r falls back to the sampler renderer",
                         self.renderer_name)
@@ -689,6 +726,19 @@ class PbrtAPI:
                          f'SurfaceIntegrator "{self.integrator_name}"')):
             ps.report_unused(ctx)
         return b.finalize(self.device)
+
+
+def _spot_frame(from_p, to_p):
+    """The spot light's frame: +z from `from` toward `to`, at `from` (the
+    reference's construction of spot.cpp's light-to-world)."""
+    d = to_p - from_p
+    d = d / max(np.linalg.norm(d), 1e-12)
+    up = np.array([0, 1, 0.0]) if abs(d[1]) < 0.9 else np.array([1, 0, 0.0])
+    x = np.cross(up, d)
+    x /= np.linalg.norm(x)
+    m = tr.identity()
+    m[:3, 0], m[:3, 1], m[:3, 2], m[:3, 3] = x, np.cross(d, x), d, from_p
+    return m
 
 
 def _check_no_alpha(shape_params):

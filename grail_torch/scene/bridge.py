@@ -5,7 +5,7 @@ converted to numpy (e.g. `jax.tree_util.tree_map(np.asarray, scene)`) and its
 SceneMeta, read by attribute name only, and returns the port's scene dict and
 SceneMeta on `device`: geometry, materials, textures with their images and
 MIP pyramids, lights with the environment map and its distribution, the
-camera, the 4-wide tables built from the reference's own binary tree
+world radius and the power-weighted light distribution, the camera, the 4-wide tables built from the reference's own binary tree
 (for a single record table and for clustered tables alike; the record
 table is the port's own, on request: buffers.attach_record_table), and the
 instance table, whose BLAS table is collapsed from the reference's own
@@ -29,8 +29,8 @@ from ..shade.textures import TexSpec
 from .buffers import SENTINEL_TRI, SceneMeta, to_torch, world_bounds
 
 _GEOMETRY = ("verts", "vnorm", "vuv", "tri_idx", "tri_mat", "tri_light", "tri_flags")
-_LIGHTS = ("type", "emit", "l2w", "w2l", "area", "av0", "av1", "av2", "aflip",
-           "acdf")
+_LIGHTS = ("type", "emit", "l2w", "w2l", "cos_total", "cos_falloff", "world_dir",
+           "area", "av0", "av1", "av2", "aflip", "acdf")
 _CAMERA = ("type", "raster2cam", "c2w", "lens_radius", "focal_distance", "shutter")
 _PYRAMID = ("flat", "h", "w", "off")
 _INSTANCE = ("obj", "t", "q", "s", "anim", "m0", "m0_inv", "swap", "wmin", "wmax")
@@ -115,6 +115,8 @@ def scene_from_numpy(scene_np, meta, device=None):
             dict({k: m[k] for k in _PYRAMID}, n_levels=int(m["n_levels"]))
             for m in scene_np["mipmaps"])
     scene["lights"] = {k: scene_np["lights"][k] for k in _LIGHTS}
+    scene["world_radius"] = scene_np["world_radius"]
+    scene["light_power_dist"] = scene_np["light_power_dist"]
     if INFINITE in meta.light_types:
         scene["env_row"] = scene_np["env_row"]
         scene["env_dist"] = scene_np["env_dist"]

@@ -1,20 +1,22 @@
 """SceneBuilder -> (scene dict, SceneMeta) (port of grail/scene/buffers.py for
-triangle-mesh scenes with point, area and environment lights, and instanced
-objects).
+triangle-mesh scenes with point, spot, distant, area and environment lights,
+and instanced objects).
 
 The scene compiles to structure-of-arrays tensors: one world-space triangle
 soup, a material lobe table, a texture table with its images and MIP
 pyramids, a light table with per-light area CDFs, pre-gathered
-light-triangle vertices and light transforms, the environment map and its
-Distribution2D, the camera pack and, above 64 triangles, the BVH's 4-wide
+light-triangle vertices, light transforms, spot cones and distant
+directions, the environment map and its Distribution2D, the world radius
+and the power-weighted light Distribution1D, the camera pack and, above 64
+triangles, the BVH's 4-wide
 node and triangle tables (its record table on request). Instanced objects
 (pbrt's ObjectBegin/ObjectInstance) append their object-space triangles
 once, after the base soup, and add the instance table ("inst"): one 4-wide
 table of every object's BLAS with each instance's root, its decomposed
 (possibly animated) transform and its motion-bound world box. Host-side
 work is numpy, as in the reference, so both packages hold the same bits.
-Media, the other light types and the power-weighted light distribution are
-not ported yet; a scene that would need them raises.
+Media and the projection and goniometric lights are not ported yet; a
+scene that would need them raises.
 """
 from __future__ import annotations
 
@@ -163,6 +165,12 @@ def world_bounds(base_verts, inst):
     return np.stack([lo, hi]).astype(np.float32)
 
 
+def world_radius(lo, hi):
+    """Half the diagonal of the world box, padded (the reference's
+    world_radius)."""
+    return np.float32(0.5 * np.linalg.norm(hi - lo) + 1e-3)
+
+
 def _vertex_rows(nv, normals, uvs, reverse_orientation, swaps_handedness):
     """A mesh's vertex normal and uv rows (zeros where it has none) and its
     triangles' flag bits."""
@@ -187,6 +195,16 @@ def to_torch(tree, device):
     if tree is None or type(tree) is int:
         return tree
     return torch.tensor(np.asarray(tree), device=device)
+
+
+def light_power_distribution(larr, radius):
+    """The power-weighted light Distribution1D (ComputeLightSamplingCDF) of
+    the light table's numpy columns and the world radius, as numpy
+    arrays."""
+    power = lt.light_power({k: torch.tensor(larr[k]) for k in
+                            ("type", "emit", "cos_total", "cos_falloff", "area")},
+                           torch.tensor(radius))
+    return {k: v.numpy() for k, v in mc.build_distribution_1d(power).items()}
 
 
 def env_distribution(env_map):
@@ -341,6 +359,23 @@ class SceneBuilder:
         self.lights.append({"type": lt.POINT, "emit": np.asarray(intensity, np.float32),
                             "l2w": tr.translate(np.asarray(p, np.float64))})
 
+    def add_spot_light(self, l2w, intensity, cone_angle=30.0, cone_delta=5.0):
+        """SpotLight (spot.cpp): intensity along the light's +z, full inside
+        cone_angle - cone_delta, falling off to 0 at cone_angle (degrees)."""
+        self.lights.append({
+            "type": lt.SPOT, "emit": np.asarray(intensity, np.float32), "l2w": l2w,
+            "cos_total": np.cos(np.radians(cone_angle)),
+            "cos_falloff": np.cos(np.radians(cone_angle - cone_delta))})
+
+    def add_distant_light(self, from_p, to_p, radiance):
+        """DistantLight (distant.cpp): radiance arriving along from -> to."""
+        d = np.asarray(to_p, np.float64) - np.asarray(from_p, np.float64)
+        d = d / np.linalg.norm(d)
+        self.lights.append({"type": lt.DISTANT,
+                            "emit": np.asarray(radiance, np.float32),
+                            "l2w": tr.identity(),
+                            "world_dir": (-d).astype(np.float32)})
+
     def add_infinite_light(self, l2w=None, radiance=(1.0, 1.0, 1.0), env_map=None):
         """InfiniteAreaLight; env_map (H,W,3) lat-long, importance
         luminance·sinθ."""
@@ -435,7 +470,7 @@ class SceneBuilder:
             scene["mipmaps"] = tuple(pack_pyramid(build_pyramid(im))
                                      for im in self.images)
 
-        # ---- light table (the columns area and infinite lights read)
+        # ---- light table
         L = max(len(self.lights), 1)
         at_max = max(max((len(lg.get("tris", ())) for lg in self.lights), default=0), 1)
         larr = {
@@ -443,6 +478,9 @@ class SceneBuilder:
             "emit": np.zeros((L, 3), np.float32),
             "l2w": np.tile(tr.identity(), (L, 1, 1)),
             "w2l": np.tile(tr.identity(), (L, 1, 1)),
+            "cos_total": np.zeros(L, np.float32),
+            "cos_falloff": np.zeros(L, np.float32),
+            "world_dir": np.zeros((L, 3), np.float32),
             "area": np.ones(L, np.float32),
             "av0": np.zeros((L, at_max, 3), np.float32),
             "av1": np.zeros((L, at_max, 3), np.float32),
@@ -455,6 +493,9 @@ class SceneBuilder:
             larr["emit"][i] = lg["emit"]
             larr["l2w"][i] = np.asarray(lg.get("l2w", tr.identity()), np.float32)
             larr["w2l"][i] = tr.inverse(lg.get("l2w", tr.identity()))
+            larr["cos_total"][i] = lg.get("cos_total", 0.0)
+            larr["cos_falloff"][i] = lg.get("cos_falloff", 0.0)
+            larr["world_dir"][i] = lg.get("world_dir", (0, 0, 1))
             if lg["type"] != lt.AREA:
                 continue
             tris = lg["tris"]
@@ -508,6 +549,12 @@ class SceneBuilder:
                                  bvh4_nodes=nodes, bvh4_tris=tris4, bvh4_stack=stack)
             scene["world_bounds"] = world_bounds(base_verts[:0] if has_sentinel
                                                  else base_verts, scene["inst"])
+        # the world's bounding radius (Scene::WorldBound: the base vertices
+        # and the instances' motion bounds), and the lights' power
+        lo, hi = (scene["world_bounds"] if "world_bounds" in scene
+                  else (base_verts.min(0), base_verts.max(0)))
+        scene["world_radius"] = world_radius(lo, hi)
+        scene["light_power_dist"] = light_power_distribution(larr, scene["world_radius"])
 
         meta = SceneMeta(
             tex_specs=tuple(self.tex_specs),

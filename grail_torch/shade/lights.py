@@ -1,14 +1,18 @@
-"""Light sampling (port of grail/shade/lights.py: POINT, AREA and INFINITE
-lights).
+"""Light sampling (port of grail/shade/lights.py: POINT, SPOT, DISTANT, AREA
+and INFINITE lights).
 
 Area lights pick a triangle from a per-light area CDF, then a uniform
 barycentric point, and convert to solid angle with the per-point pdf
 r^2/(|cos|·totalArea) — the area-domain MIS form the reference documents.
 The infinite light samples its lat-long map through a Distribution2D of
 luminance·sinθ (infinite.cpp). A point light is a delta light at the
-translation of its light-to-world matrix with radiance I/d². The static
-`present_types` branching is kept; other light types are not ported yet and
-raise.
+translation of its light-to-world matrix with radiance I/d²; a spot light
+is one whose intensity falls off smoothly between its cone angles around the
+light's +z (spot.cpp); a distant light is a delta direction toward the light
+with radiance L and the world-size shadow ray. The static `present_types`
+branching is kept; PROJECTION and GONIOMETRIC lights are not ported yet and
+raise. `light_power` is the power that the `power` light strategy samples
+lights by.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from ..core.vecmath import (PI, TWO_PI, cross, dot, length_sq, normalize,
                             spherical_direction, spherical_phi, spherical_theta)
 from ..core import montecarlo as mc
 from ..core import transform as tr
+from ..core.spectrum import luminance
 from .textures import image_bilinear
 
 POINT = 0
@@ -34,6 +39,20 @@ WORLD_BIG = 1.0e7
 def is_delta(light_type):
     return ((light_type == POINT) | (light_type == SPOT) | (light_type == DISTANT)
             | (light_type == PROJECTION) | (light_type == GONIOMETRIC))
+
+
+def _spot_falloff(lights, li, w_world):
+    """SpotLight::Falloff (spot.cpp): 1 inside the falloff cone, 0 outside
+    the total cone, delta^4 between."""
+    wl = tr.xform_v(lights["w2l"][li], w_world)
+    costheta = wl[..., 2] / torch.clamp_min(torch.sqrt(length_sq(wl)), 1e-12)
+    cos_total = lights["cos_total"][li]
+    cos_fall = lights["cos_falloff"][li]
+    delta = torch.clamp((costheta - cos_total)
+                        / torch.clamp_min(cos_fall - cos_total, 1e-6), 0.0, 1.0)
+    d2 = delta * delta
+    return torch.where(costheta < cos_total, 0.0,
+                       torch.where(costheta > cos_fall, 1.0, d2 * d2))
 
 
 def _area_sample(scene, li, p, u1, u2, u3):
@@ -67,10 +86,10 @@ def sample_li(scene, li, p, u1, u2, u3, present_types):
     li (N,) light row per shade point; (u1, u2) 2D sample; u3 picks the area
     light's triangle. Returns dict: wi (N,3), radiance (N,3), pdf (N,),
     dist (N,) shadow-ray length, delta (N,) bool."""
-    unported = sorted(set(present_types) - {POINT, AREA, INFINITE})
+    unported = sorted(set(present_types) - {POINT, SPOT, DISTANT, AREA, INFINITE})
     if unported:
         raise NotImplementedError(f"light types {unported} are not ported yet "
-                                  "(POINT, AREA, INFINITE)")
+                                  "(POINT, SPOT, DISTANT, AREA, INFINITE)")
     lights = scene["lights"]
     lt = lights["type"][li]
     n = p.shape[0]
@@ -80,15 +99,26 @@ def sample_li(scene, li, p, u1, u2, u3, present_types):
     dist = p.new_full((n,), WORLD_BIG)
     emit = lights["emit"][li]
 
-    if POINT in present_types:
+    if POINT in present_types or SPOT in present_types:
         vec = lights["l2w"][:, :3, 3][li] - p
         d2 = torch.clamp_min(length_sq(vec), 1e-20)
         dd = torch.sqrt(d2)
-        m = lt == POINT
-        wi = torch.where(m[..., None], vec / dd[..., None], wi)
-        radiance = torch.where(m[..., None], emit / d2[..., None], radiance)
+        wi_p = vec / dd[..., None]
+        base = emit / d2[..., None]
+        if SPOT in present_types:
+            fall = _spot_falloff(lights, li, -wi_p)
+            base = torch.where((lt == SPOT)[..., None], base * fall[..., None], base)
+        m = (lt == POINT) | (lt == SPOT)
+        wi = torch.where(m[..., None], wi_p, wi)
+        radiance = torch.where(m[..., None], base, radiance)
         pdf = torch.where(m, 1.0, pdf)
         dist = torch.where(m, dd, dist)
+
+    if DISTANT in present_types:
+        m = lt == DISTANT           # world_dir points toward the light
+        wi = torch.where(m[..., None], lights["world_dir"][li], wi)
+        radiance = torch.where(m[..., None], emit, radiance)
+        pdf = torch.where(m, 1.0, pdf)
 
     if AREA in present_types:
         wi_a, _, cos_l, pdf_a, dist_a = _area_sample(scene, li, p, u1, u2, u3)
@@ -160,3 +190,21 @@ def area_light_pdf_dir(scene, li, p, wi, hit_t, cos_at_light):
     r^2/(|cos|·totalArea), the same function the light branch divides by."""
     return (hit_t * hit_t) / torch.clamp_min(
         torch.abs(cos_at_light) * scene["lights"]["area"][li], 1e-12)
+
+
+def light_power(lights, world_radius):
+    """Approximate emitted power per light (pbrt Light::Power): the weights
+    of the power-weighted light distribution (ComputeLightSamplingCDF).
+    lights: the scene's light table; world_radius: the scene's bounding
+    sphere's radius (distant and infinite lights)."""
+    lt = lights["type"]
+    emit_y = luminance(lights["emit"])
+    p_point = 4.0 * PI * emit_y
+    p_spot = emit_y * 2.0 * PI * (1.0 - 0.5 * (lights["cos_falloff"]
+                                               + lights["cos_total"]))
+    p_dist = emit_y * PI * world_radius * world_radius
+    p_area = emit_y * lights["area"] * PI
+    power = torch.where(lt == SPOT, p_spot,
+                        torch.where((lt == DISTANT) | (lt == INFINITE), p_dist,
+                                    torch.where(lt == AREA, p_area, p_point)))
+    return torch.clamp_min(power, 1e-9)

@@ -2,7 +2,8 @@
 
     python3 -m grail_torch.tools.profile_render
         [--scene cornell|mesh|mesh1m|inst] [--res 256] [--spp 16] [--depth 5]
-        [--grid N]
+        [--grid N] [--kind path|direct|whitted|ao] [--strategy one|power|all]
+        [--ao-samples N]
     python3 -m grail_torch.tools.profile_render --pbrt scenes/envlight.pbrt
 
 Renders the Cornell box (or mesh_scene, the textured terrain of
@@ -11,7 +12,8 @@ mesh_scene_1m, the terrain at grid 708 seen through a thin lens by a moving
 camera: bench.py's mesh1m is --spp 4; or instbench's instanced scene, 100
 instances of a 50,176-triangle sphere: its bench is --spp 4 --depth 3; or a
 .pbrt scene file through the port's parser, at its authored resolution,
-samples and depth) once to warm up, once timed, then once under torch.profiler, and prints JSON
+samples, depth and integrator) with the path integrator unless --kind
+names another, once to warm up, once timed, then once under torch.profiler, and prints JSON
 lines: the render's wall time (unprofiled and
 profiled), the summed kernel time and the device's busy share (kernel time
 over the unprofiled wall time), the number of kernel launches; for each stage
@@ -64,7 +66,8 @@ _STAGES = {
     "bsdf_sample": (bsdf, ("bsdf_sample",)),
     "bsdf_eval": (bsdf, ("bsdf_f", "bsdf_pdf")),    # also inside bsdf_sample
     "sample_li": (lights, ("sample_li",)),
-    "direct_lighting": (integrator, ("estimate_direct",)),
+    "direct_lighting": (integrator, ("estimate_direct", "_whitted_light")),
+    "ambient_occlusion": (integrator, ("_ao_li",)),
     "compaction": (integrator, ("_compaction_take",)),
     "film": (film, ("add_samples_grid", "develop")),
 }
@@ -101,12 +104,17 @@ def main(argv=None):
     ap.add_argument("--pbrt", metavar="FILE",
                     help="a .pbrt scene at its authored settings (in place of "
                          "--scene, --res, --spp, --depth and --grid)")
+    ap.add_argument("--kind", choices=integrator.KINDS, default="path")
+    ap.add_argument("--strategy", choices=integrator.STRATEGIES, default="one")
+    ap.add_argument("--ao-samples", type=int, default=1)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_render: no CUDA device")
     dev = torch.device("cuda", 0)
-    cfg = integrator.IntegratorConfig(kind="path", max_depth=args.depth)
+    cfg = integrator.IntegratorConfig(kind=args.kind, max_depth=args.depth,
+                                      light_strategy=args.strategy,
+                                      ao_samples=args.ao_samples)
     if args.pbrt:
         scene, meta, api = parse_file(args.pbrt, device=dev)
         cfg = api.integrator_config
@@ -146,7 +154,8 @@ def main(argv=None):
                and not e.key.startswith("stage:")]
     kernel_us = sum(e.self_device_time_total for e in kernels)
     print(json.dumps({
-        "render": {"scene": args.scene, "n_tris": meta.n_tris,
+        "render": {"scene": args.scene, "kind": cfg.kind,
+                   "light_strategy": cfg.light_strategy, "n_tris": meta.n_tris,
                    "res": args.res, "spp": args.spp, "max_depth": args.depth,
                    "wall_ms": wall_plain * 1e3, "wall_ms_profiled": wall * 1e3,
                    "kernel_ms": kernel_us / 1e3,

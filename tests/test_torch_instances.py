@@ -368,7 +368,7 @@ def test_point_light_sample_li(scenes):
     assert got["delta"].all() and (got["pdf"] == 1.0).all()
     with pytest.raises(NotImplementedError, match="not ported"):
         tlights.sample_li(ts, torch.tensor(li), torch.tensor(p), *map(torch.tensor, u),
-                          (tlights.POINT, tlights.SPOT))
+                          (tlights.POINT, tlights.PROJECTION))
 
 
 def _camera_li(js, jm, cfg):
