@@ -108,8 +108,26 @@ failure ends the run with a non-zero exit code:
       bounces are dead waves); every kernel of the group's path launched;
       then each kernel against its plain version on the card, bitwise, on
       the busiest wave of each (kernel, role) those renders handed it.
-Then a {"kernels": [...]} line (each kernel's "launches_direct": its launches
-in the direct group's renders) and, last, {"ok": true, "device": {...}}.
+  the maps group (the orthographic and environment cameras, the procedural
+  textures and mappings, bump maps, alpha cutouts, the projection and
+  goniometric lights; every scene read from a copy of scenes/ that
+  grail_torch/tools/gen_assets.py writes the image assets into):
+  23. maps: the four goldens of these features (orthodisk, proctex, bump,
+      projgonio) through the command line, four processes at once, each EXR
+      against its golden; each of them and alphacut (a checkerboard alpha
+      cutout over a floor) at 32x32, 2 spp on the card against the CPU, and
+      envlight.pbrt's world under the environment camera at 64x32; the
+      five at 256x256, 16 spp (one megawave of 1,048,576 camera rays)
+      under their own integrator (directlighting), each with camera rays/s
+      (median of 3 after a warm-up), launches per render of each kernel,
+      the waves by role (the cutout's re-traces as "alpha"), the card's
+      busy share under torch.profiler and peak memory; then each kernel
+      against its plain version on the card, bitwise, on the busiest wave of
+      each (kernel, role), the re-traces with their per-ray tmin and
+      IntersectP run as closest hit among them.
+Then a {"kernels": [...]} line (each kernel's "launches_direct" and
+"launches_maps": its launches in the direct and maps groups' renders) and,
+last, {"ok": true, "device": {...}}.
 Needs a CUDA device and nvcc; imports nothing of JAX.
 """
 import contextlib
@@ -149,7 +167,7 @@ from grail_torch.scene.parser import parse_file, parse_string
 from grail_torch.scene.presets import cornell_box, mesh_scene, mesh_scene_1m
 from grail_torch.scene.shapes import sphere
 from grail_torch.shade.lights import AREA, INFINITE
-from grail_torch.tools import instbench
+from grail_torch.tools import gen_assets, instbench
 from grail_torch.tools.instbench import (N_INST, SPHERE_NU, SPHERE_NV, build_flattened,
                                          build_instanced)
 from grail_torch.tools.optimize import optimize_albedo
@@ -256,6 +274,20 @@ DIRECT_RENDERS = (
 DIRECT_POWER = IntegratorConfig(kind="direct", light_strategy="power")
 # the kernels of the group's path; each must launch in its renders
 DIRECT_KERNELS = bi.KERNELS + b4.KERNELS + b4.ROOT_KERNELS
+# the maps group: the goldens of the orthographic camera, the procedural
+# textures, bump mapping and the projection and goniometric lights, and the
+# alpha-cutout scene, read from a copy of scenes/ with the generated assets
+# (tools/gen_assets.py); their full-size renders (one megawave of 1,048,576
+# camera rays under the scene's own integrator); the environment camera on
+# envlight.pbrt's world; every scene takes the 4-wide kernels (rows 2, 4, 5)
+MAPS_GOLDENS = ("orthodisk", "proctex", "bump", "projgonio")
+MAPS_RENDERS = MAPS_GOLDENS + ("alphacut",)
+MAPS_RES, MAPS_SPP = 256, 16
+ENV_RES = (64, 32)
+MAPS_KERNELS = b4.KERNELS
+MAPS_WAVES = (("bvh4_closest", "camera"), ("bvh4_closest", "continuation"),
+              ("bvh4_any_hit", "shadow"), ("bvh4_closest", "shadow"),
+              ("bvh4_closest", "alpha"))
 BRUTE_SOURCE = "grail_torch/kernels/csrc/brute_intersect.cu"
 RAGGED = 37                # rays past 1M in the ragged parity case
 NODE_BYTES, TRI_BYTES = 128, 48
@@ -1298,24 +1330,25 @@ def grad_phases(dev, gpu):
           "inverse rendering did not recover the albedo")
 
 
-def _scene_file(name):
-    return os.path.join(ROOT, "scenes", name + ".pbrt")
+def _scene_file(name, scenes=None):
+    return os.path.join(scenes or os.path.join(ROOT, "scenes"), name + ".pbrt")
 
 
 def _golden(name):
     return read_image(os.path.join(ROOT, "tests", "goldens", name + ".exr"))
 
 
-def pbrt_cli(tmp, names=PBRT_SCENES, phase="pbrt_cli"):
-    """The command line on each scene of `names`, one process a scene, run
-    together; each must exit 0 and write an image near the golden."""
+def pbrt_cli(tmp, names=PBRT_SCENES, phase="pbrt_cli", scenes=None):
+    """The command line on each scene of `names` (read from directory
+    `scenes`, scenes/ by default), one process a scene, run together; each
+    must exit 0 and write an image near the golden."""
     t0 = time.perf_counter()
     outs = {name: os.path.join(tmp, name + ".exr") for name in names}
     procs = {}
     try:
         for name in names:
             procs[name] = subprocess.Popen(
-                [sys.executable, "-m", "grail_torch.cli.main", _scene_file(name),
+                [sys.executable, "-m", "grail_torch.cli.main", _scene_file(name, scenes),
                  "--outfile", outs[name]], cwd=ROOT, stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True)
         for name, proc in procs.items():
@@ -1336,26 +1369,37 @@ def pbrt_cli(tmp, names=PBRT_SCENES, phase="pbrt_cli"):
                 proc.wait()
 
 
-def small_vs_cpu(name, dev, phase):
-    """The scene file at PBRT_SMALL_RES², PBRT_SMALL_SPP on the card against
-    the CPU (relative MAE < RELMAE_MAX)."""
-    t0 = time.perf_counter()
-    with open(_scene_file(name)) as f:
+def _scene_text(name, res, scenes=None, spp=None):
+    """The scene file's text at res = (xres, yres) (and spp samples a
+    pixel, where given)."""
+    with open(_scene_file(name, scenes)) as f:
         text = re.sub(r'"integer xresolution" \[\d+\] "integer yresolution" \[\d+\]',
-                      f'"integer xresolution" [{PBRT_SMALL_RES}] '
-                      f'"integer yresolution" [{PBRT_SMALL_RES}]', f.read())
+                      f'"integer xresolution" [{res[0]}] "integer yresolution" [{res[1]}]',
+                      f.read())
+    if spp is not None:
+        text = re.sub(r'"integer pixelsamples" \[\d+\]', f'"integer pixelsamples" [{spp}]',
+                      text)
+    return text
+
+
+def small_vs_cpu(name, dev, phase, scenes=None, text=None,
+                 res=(PBRT_SMALL_RES, PBRT_SMALL_RES)):
+    """The scene file (or `text`, read against directory `scenes`) at res,
+    PBRT_SMALL_SPP on the card against the CPU (relative MAE < RELMAE_MAX)."""
+    t0 = time.perf_counter()
+    scenes = scenes or os.path.join(ROOT, "scenes")
+    text = text or _scene_text(name, res, scenes)
     imgs = {}
     for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
-        sc, mt, ap = parse_string(text, device=where,
-                                  search_path=os.path.join(ROOT, "scenes"))
+        sc, mt, ap = parse_string(text, device=where, search_path=scenes)
         imgs[side] = render(sc, mt, ap.integrator_config, spp=PBRT_SMALL_SPP,
                             device=where)[0].cpu().numpy()
     err = relative_mae(imgs["card"], imgs["cpu"])
-    emit({"phase": phase, "scene": name, "res": PBRT_SMALL_RES, "spp": PBRT_SMALL_SPP,
-          "kind": ap.integrator_config.kind, "relative_mae": err,
+    emit({"phase": phase, "scene": name, "res": list(res), "spp": PBRT_SMALL_SPP,
+          "kind": ap.integrator_config.kind, "camera": mt.cam_kind, "relative_mae": err,
           "bitwise_equal": bool(np.array_equal(imgs["card"], imgs["cpu"])),
           "seconds": time.perf_counter() - t0})
-    check(imgs["card"].shape == (PBRT_SMALL_RES, PBRT_SMALL_RES, 3)
+    check(imgs["card"].shape == (res[1], res[0], 3)
           and np.isfinite(imgs["card"]).all() and err < RELMAE_MAX,
           f"{name} on the card differs from the CPU (relative MAE {err})")
 
@@ -1448,18 +1492,16 @@ def role_waves(waves):
     """Records in `waves`, for each (kernel, role), the launch with the most
     live rays that the integrator's waves hand a kernel, as {(kernel, role):
     (live, tables, (o, d, tmin, tmax), keywords)}: role is the integrator's
-    (integrator.WAVES: camera, continuation, bsdf, shadow, occlusion), the
-    rays as the kernel receives them (binned or not, dead lanes inert), the
-    walk with roots among them (the instanced sweep's rounds)."""
+    (integrator.WAVES: camera, continuation, bsdf, shadow, occlusion,
+    alpha), the rays as the kernel receives them (binned or not, dead lanes
+    inert), the walk with roots among them (the instanced sweep's rounds)."""
     role = [None]
-    wrapped = (integ.scene_intersect, integ.scene_intersect_p)
+    trace = integ._trace
     kernels = (isect.bvh4_traverse, instanced.bvh4_traverse, isect.brute_intersect)
 
-    def named(fn):
-        def run(*args, **kw):
-            role[0] = kw.get("role", "continuation" if fn is wrapped[0] else "shadow")
-            return fn(*args, **kw)
-        return run
+    def named(*args, **kw):
+        role[0] = kw["role"]
+        return trace(*args, **kw)
 
     def record(kernel, tables, rays, kw):
         if rays[0].device.type != "cuda":          # the CPU's plain version
@@ -1481,17 +1523,17 @@ def role_waves(waves):
         record(bi.KERNELS[int(any_hit)], (tris9,), (o, d, tmin, tmax), {"any_hit": any_hit})
         return kernels[2](tris9, o, d, tmin, tmax, any_hit)
 
-    integ.scene_intersect, integ.scene_intersect_p = map(named, wrapped)
+    integ._trace = named
     isect.bvh4_traverse, instanced.bvh4_traverse = walk(kernels[0]), walk(kernels[1])
     isect.brute_intersect = brute
     try:
         yield waves
     finally:
-        integ.scene_intersect, integ.scene_intersect_p = wrapped
+        integ._trace = trace
         isect.bvh4_traverse, instanced.bvh4_traverse, isect.brute_intersect = kernels
 
 
-def wave_parity(source, kernel, role, tables, rays, kw):
+def wave_parity(source, kernel, role, tables, rays, kw, phase="direct_parity"):
     """A captured wave through its kernel and its plain version on the card,
     bitwise; emits the parity line and returns the max |difference|."""
     with torch.no_grad():
@@ -1503,7 +1545,7 @@ def wave_parity(source, kernel, role, tables, rays, kw):
             plain = b4.bvh4_traverse_plain(*tables, *rays, **kw)[:4]
         torch.cuda.synchronize()
     n_bad, errs, bitwise = compare(kern, plain, kw["any_hit"])
-    emit({"phase": "direct_parity", "source": source, "kernel": kernel, "wave": role,
+    emit({"phase": phase, "source": source, "kernel": kernel, "wave": role,
           "rays": rays[0].shape[0], "live_rays": int((rays[3] > rays[2]).sum()),
           "hits": int((kern[1] >= 0).sum()), "prim_mismatch": n_bad,
           "max_abs_diff": errs, "bitwise_equal": bitwise})
@@ -1516,15 +1558,30 @@ def expected_waves(cfg, meta):
     """The waves of one megawave's li by role (integrator.WAVES): every
     bounce at full width for direct and whitted, one shadow wave a light
     sampled (all of them under "all" and whitted), one BSDF-branch wave each
-    where the scene has an area or infinite light."""
+    where the scene has an area or infinite light; on a scene with alpha
+    cutouts, ALPHA_MAX_REJECT re-traces after every other wave."""
     if cfg.kind == "ao":
-        return dict(camera=1, continuation=0, bsdf=0, shadow=0, occlusion=cfg.ao_samples)
-    bounces = cfg.max_depth + 1
-    lights = (meta.n_lights if cfg.kind == "whitted" or cfg.light_strategy == "all"
-              else 1)
-    mis = cfg.kind == "direct" and bool({AREA, INFINITE} & set(meta.light_types))
-    return dict(camera=1, continuation=bounces - 1, bsdf=bounces * lights if mis else 0,
-                shadow=bounces * lights, occlusion=0)
+        want = dict(camera=1, continuation=0, bsdf=0, shadow=0, occlusion=cfg.ao_samples)
+    else:
+        bounces = cfg.max_depth + 1
+        lights = (meta.n_lights if cfg.kind == "whitted" or cfg.light_strategy == "all"
+                  else 1)
+        mis = cfg.kind == "direct" and bool({AREA, INFINITE} & set(meta.light_types))
+        want = dict(camera=1, continuation=bounces - 1,
+                    bsdf=bounces * lights if mis else 0, shadow=bounces * lights,
+                    occlusion=0)
+    want["alpha"] = integ.ALPHA_MAX_REJECT * sum(want.values()) if meta.alpha_rows else 0
+    return want
+
+
+def expected_launches(want, meta, kernels):
+    """Launches a render of each kernel of `kernels` (closest hit, any hit)
+    for the waves `want`: any hit on shadow and occlusion waves, closest hit
+    on the others, and on all of them where the scene has alpha cutouts
+    (IntersectP is then a closest-hit loop)."""
+    closest, any_hit = kernels
+    n_any = 0 if meta.alpha_rows else want["shadow"] + want["occlusion"]
+    return {closest: sum(want.values()) - n_any, any_hit: n_any}
 
 
 def busy_share(scene, meta, cfg, spp, dev, wall):
@@ -1614,8 +1671,7 @@ def direct_phases(dev, gpu):
             by_wave = {"camera": want["camera"], "continuation": want["continuation"],
                        "bsdf": want["bsdf"]}
             expected = dict.fromkeys(launches[0], 0)
-            expected[closest] = sum(by_wave.values())
-            expected[any_hit] = want["shadow"] + want["occlusion"]
+            expected.update(expected_launches(want, meta, (closest, any_hit)))
             emit({"phase": "direct_bench", "render": label, "kind": cfg.kind,
                   "light_strategy": cfg.light_strategy, "ao_samples": cfg.ao_samples,
                   "res": 256, "spp": spp, "max_depth": cfg.max_depth,
@@ -1668,6 +1724,88 @@ def direct_phases(dev, gpu):
     return total
 
 
+def maps_phases(dev, gpu):
+    """The maps group: the four goldens through the command line and
+    against the CPU, the environment camera against the CPU, the five
+    full-size renders, and each kernel on the busiest wave of each (kernel,
+    role) they hand it, against its plain version. Returns {kernel:
+    launches} over the group's renders (parity launches apart)."""
+    t_group = time.perf_counter()
+    total = dict.fromkeys(MAPS_KERNELS, 0)
+    waves = {}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        scenes = gen_assets.scene_copy(os.path.join(tmp, "scenes"))
+        pbrt_cli(tmp, MAPS_GOLDENS, "maps_cli", scenes)
+        with role_waves(waves):
+            for name in MAPS_RENDERS:
+                _reset_counts()
+                small_vs_cpu(name, dev, "maps_vs_cpu", scenes)
+                add(_launch_counts())
+            _reset_counts()
+            env = re.sub(r'^Camera "perspective".*$', 'Camera "environment"',
+                         _scene_text("envlight", ENV_RES), flags=re.M)
+            small_vs_cpu("envlight_environment", dev, "maps_vs_cpu", scenes, env, ENV_RES)
+            add(_launch_counts())
+
+            for name in MAPS_RENDERS:
+                t0 = time.perf_counter()
+                scene, meta, api = parse_string(
+                    _scene_text(name, (MAPS_RES, MAPS_RES), scenes, MAPS_SPP),
+                    device=dev, search_path=scenes)
+                cfg = api.integrator_config
+                _reset_counts()
+                render(scene, meta, cfg, spp=MAPS_SPP, device=dev)   # captures its waves
+                got_waves = dict(WAVES)
+                times, launches, routes, img, peak, held = bench_render(
+                    scene, meta, cfg, MAPS_SPP, dev)
+                add(launches[0])
+                wall = statistics.median(times)
+                kernel_ms, n_launch, busy = busy_share(scene, meta, cfg, MAPS_SPP, dev, wall)
+                want = expected_waves(cfg, meta)
+                expected = dict.fromkeys(launches[0], 0)
+                expected.update(expected_launches(want, meta, MAPS_KERNELS))
+                emit({"phase": "maps_bench", "render": name, "kind": cfg.kind,
+                      "light_strategy": cfg.light_strategy, "camera": meta.cam_kind,
+                      "res": MAPS_RES, "spp": MAPS_SPP, "max_depth": cfg.max_depth,
+                      "triangles": meta.n_tris, "light_types": list(meta.light_types),
+                      "texture_kinds": sorted({t.kind for t in meta.tex_specs}),
+                      "bump_rows": list(meta.bump_rows), "alpha_rows": list(meta.alpha_rows),
+                      "render_seconds": times,
+                      "camera_rays_per_sec": MAPS_RES * MAPS_RES * MAPS_SPP / wall,
+                      "launches_per_render": launches, "expected_launches": expected,
+                      "bvh4_closest_by_route": routes[0],
+                      "waves": got_waves, "expected_waves": want,
+                      "device_kernel_ms": kernel_ms, "device_launches": n_launch,
+                      "device_busy_share": busy, "image_mean": float(img.mean()),
+                      "peak_memory_bytes": peak, "held_before_render_bytes": held,
+                      "gpu": gpu, "seconds": time.perf_counter() - t0})
+                check(got_waves == want, f"{name} made waves {got_waves}, want {want}")
+                check(all(n == expected for n in launches),
+                      f"{name} renders launched {launches}, want {expected}")
+                check(np.isfinite(img).all() and img.shape == (MAPS_RES, MAPS_RES, 3)
+                      and img.mean() > 0.0, f"{name}'s image is not finite and positive")
+                del scene
+
+    emit({"phase": "maps_launches", "launches": total})
+    check(all(total[k] > 0 for k in MAPS_KERNELS),
+          f"a kernel of the maps path was not launched: {total}")
+    t0 = time.perf_counter()
+    for (kernel, role), (_, tables, rays, kw) in sorted(waves.items(), key=lambda w: w[0]):
+        wave_parity("maps", kernel, role, tables, rays, kw, "maps_parity")
+    for need in MAPS_WAVES:
+        check(need in waves, f"the maps group's renders made no {need} wave")
+    emit({"phase": "maps_parity", "cases": [list(k) for k in sorted(waves)],
+          "seconds": time.perf_counter() - t0})
+    del waves
+    emit({"phase": "maps", "seconds": time.perf_counter() - t_group})
+    return total
+
+
 def main():
     check(torch.cuda.is_available(), "no CUDA device")
     dev = torch.device("cuda", 0)
@@ -1704,8 +1842,10 @@ def main():
     grad_phases(dev, gpu)
     pbrt_phases(dev, gpu)
     direct = direct_phases(dev, gpu)
+    maps = maps_phases(dev, gpu)
     for entry in kernels:
-        entry["launches_direct"] = direct[entry["name"]] if entry["name"] in direct else 0
+        entry["launches_direct"] = direct.get(entry["name"], 0)
+        entry["launches_maps"] = maps.get(entry["name"], 0)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(gpu, flush=True)
     emit({"kernels": kernels})

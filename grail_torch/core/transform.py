@@ -83,6 +83,14 @@ def look_at(pos, look, up):
     return m.astype(np.float32)
 
 
+def orthographic(znear, zfar):
+    """Orthographic camera-to-screen (pbrt transform.cpp Orthographic)."""
+    m = np.eye(4, dtype=np.float32)
+    m[2, 2] = 1.0 / (zfar - znear)
+    m[2, 3] = -znear / (zfar - znear)
+    return m
+
+
 def perspective(fov_deg, n, f):
     """Projective camera-to-screen (pbrt transform.cpp Perspective)."""
     persp = np.array(

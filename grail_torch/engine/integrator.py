@@ -26,9 +26,17 @@ ray's time), to pick the animated instance transforms; elsewhere no stage
 reads it and it is not carried. WAVES counts the waves each stage hands the
 intersect dispatch, by role.
 
+Alpha cutouts (pbrt tests the alpha texture inside Triangle::Intersect) are
+the reference's wavefront form: intersect, evaluate the alpha texture at the
+hit, and re-trace the lanes that landed on a zero-alpha point with tmin
+pushed past the hit, ALPHA_MAX_REJECT rounds, every other lane dead; on a
+scene with cutouts IntersectP is that closest-hit loop. Bump mapping
+(Material::Bump) shears every shading pass's frame by the finite
+differences of the displacement texture at the reference's fixed offset.
+
 Not ported yet: the other integrator kinds (igi, photon mapping, PRT, the
-irradiance cache, subsurface), alpha cutouts, bump mapping, media and
-material-sorted shading; they raise.
+irradiance cache, subsurface), media and material-sorted shading; they
+raise.
 """
 from __future__ import annotations
 
@@ -36,7 +44,7 @@ import dataclasses
 
 import torch
 
-from ..core.vecmath import absdot, dot
+from ..core.vecmath import absdot, cross, dot, normalize
 from ..core import rng as rngmod
 from ..core import montecarlo as mc
 from ..core.spectrum import luminance
@@ -45,7 +53,7 @@ from ..shade import bsdf as bx
 from ..shade import lights as lt
 from ..shade import geometry as geom
 from ..shade import materials as mtl
-from ..shade.textures import eval_textures
+from ..shade.textures import eval_texture_rows, eval_textures
 
 BIG = 1.0e7
 
@@ -74,7 +82,12 @@ UNPORTED_KINDS = ("igi", "photon", "diffuseprt", "glossyprt", "useprobes",
 # waves handed to the intersect dispatch, by role: closest hit on the camera
 # wave (or AO's first hit), on specular or path continuations, and on the BSDF
 # branch of estimate_direct; any hit on light shadow rays and AO occlusion rays
-WAVES = {"camera": 0, "continuation": 0, "bsdf": 0, "shadow": 0, "occlusion": 0}
+# (closest hit on a scene with alpha cutouts); the alpha cutouts' re-traces
+WAVES = {"camera": 0, "continuation": 0, "bsdf": 0, "shadow": 0, "occlusion": 0,
+         "alpha": 0}
+# alpha cutout re-trace rounds a wave (the reference's ALPHA_MAX_REJECT)
+ALPHA_MAX_REJECT = 4
+BUMP_DU = 0.01      # Material::Bump's offset: the reference's fixed fallback
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,31 +127,107 @@ def _sample_2d(meta, pix, samp, bounce, off, lrow=0):
                             _bdim(bounce, off) + _LIGHT_STRIDE * lrow)
 
 
-def _count(role, o):
+def _trace(scene, o, d, tmax, tmin=None, sort=None, time=None, any_hit=False,
+           role="continuation"):
+    """One wave handed to the intersect dispatch, counted in WAVES[role]:
+    the hit record, or (any_hit) the occlusion bools."""
     if o.shape[0]:
         WAVES[role] += 1
+    if any_hit:
+        return isect.intersect_p(scene, o, d, tmax, tmin, device=o.device, time=time)
+    return isect.intersect(scene, o, d, tmax, tmin, device=o.device, sort=sort,
+                           time=time)
+
+
+def _alpha_at(scene, meta, hit, o, d):
+    """The alpha texture's value at each hit (1 for misses and triangles
+    without a cutout), as the reference evaluates it: shading geometry at
+    the shutter-open transforms, image rows bilinear."""
+    sg = geom.shading_geometry(scene, hit, o, d)
+    vals = eval_texture_rows(meta.tex_specs, scene["tex_data"], sg, meta.alpha_rows,
+                             scene.get("images", ()))
+    row = scene["tri_alpha"][torch.clamp_min(hit["prim"], 0)]
+    a = torch.ones_like(hit["t"])
+    for r in meta.alpha_rows:
+        a = torch.where(row == r, vals[r][:, 0], a)
+    return torch.where((hit["prim"] >= 0) & (row >= 0), a, 1.0)
 
 
 def scene_intersect(scene, meta, o, d, tmax, sort=None, time=None, role="continuation"):
-    """Scene::Intersect (no alpha cutouts in the ported scenes). sort: the
-    ray-binning hint (False for camera waves, already in tile order); time:
-    the rays' times (animated instances); role: the WAVES entry."""
-    _count(role, o)
-    return isect.intersect(scene, o, d, tmax, device=o.device, sort=sort, time=time)
+    """Scene::Intersect, with the alpha cutouts' re-traces where the scene
+    has cutouts (meta.alpha_rows). sort: the ray-binning hint (False for
+    camera waves, already in tile order); time: the rays' times (animated
+    instances); role: the WAVES entry of the first wave (re-traces count as
+    "alpha" and are binned as any other wave of their size)."""
+    hit = _trace(scene, o, d, tmax, sort=sort, time=time, role=role)
+    if not meta.alpha_rows:
+        return hit
+    for _ in range(ALPHA_MAX_REJECT):
+        cut = (hit["prim"] >= 0) & (_alpha_at(scene, meta, hit, o, d) <= 0.0)
+        # the cut lanes resume just past their hit; every other lane is dead
+        t2min = torch.where(cut, hit["t"] * (1.0 + 1e-4) + 1e-5, 3.0e37)
+        t2max = torch.where(cut, tmax, -3.0e37)
+        hit2 = _trace(scene, o, d, t2max, t2min, time=time, role="alpha")
+        hit = {k: torch.where(cut, hit2[k], hit[k]) for k in hit}
+    # still on a cutout after the last round: a miss
+    cut = (hit["prim"] >= 0) & (_alpha_at(scene, meta, hit, o, d) <= 0.0)
+    out = dict(hit, t=torch.where(cut, isect.BIG_T, hit["t"]),
+               prim=torch.where(cut, -1, hit["prim"]))
+    if "inst" in out:       # no instance id on a rejected hit
+        out["inst"] = torch.where(cut, -1, hit["inst"])
+    return out
 
 
 def scene_intersect_p(scene, meta, o, d, tmax, time=None, role="shadow"):
-    """Scene::IntersectP."""
-    _count(role, o)
-    return isect.intersect_p(scene, o, d, tmax, device=o.device, time=time)
+    """Scene::IntersectP: any hit, or the closest-hit loop of the cutouts
+    where the scene has them."""
+    if not meta.alpha_rows:
+        return _trace(scene, o, d, tmax, time=time, any_hit=True, role=role)
+    return scene_intersect(scene, meta, o, d, tmax, time=time, role=role)["prim"] >= 0
+
+
+def _apply_bump(scene, meta, sg):
+    """Material::Bump (material.cpp): finite differences of the displacement
+    texture along dpdu and dpdv at the reference's fixed offset BUMP_DU
+    (pbrt takes it from the differentials) shear the shading frame; lanes
+    whose material has no bump keep theirs."""
+    bump_tex = scene["materials"]["bump"][torch.clamp_min(sg["mat"], 0)]
+    has = (bump_tex >= 0)[..., None]
+
+    def displacement(sg_eval):
+        vals = eval_texture_rows(meta.tex_specs, scene["tex_data"], sg_eval,
+                                 meta.bump_rows, scene.get("images", ()))
+        d = torch.zeros_like(sg_eval["p"][..., 0])
+        for r in meta.bump_rows:
+            d = torch.where(bump_tex == r, vals[r][:, 0], d)
+        return d
+
+    du = BUMP_DU
+    d0 = displacement(sg)
+    d_u = displacement(dict(sg, p=sg["p"] + du * sg["dpdu"],
+                            uv=sg["uv"] + sg["uv"].new_tensor([du, 0.0])))
+    d_v = displacement(dict(sg, p=sg["p"] + du * sg["dpdv"],
+                            uv=sg["uv"] + sg["uv"].new_tensor([0.0, du])))
+    dpdu_b = sg["dpdu"] + ((d_u - d0) / du)[..., None] * sg["ns"]
+    dpdv_b = sg["dpdv"] + ((d_v - d0) / du)[..., None] * sg["ns"]
+    ns_b = normalize(cross(dpdu_b, dpdv_b))
+    # keep the orientation of the original shading normal
+    ns_b = torch.where((dot(ns_b, sg["ns"]) < 0.0)[..., None], -ns_b, ns_b)
+    ss_b = normalize(dpdu_b - ns_b * dot(ns_b, dpdu_b)[..., None])
+    ts_b = cross(ns_b, ss_b)
+    return dict(sg, ns=torch.where(has, ns_b, sg["ns"]),
+                ss=torch.where(has, ss_b, sg["ss"]),
+                ts=torch.where(has, ts_b, sg["ts"]))
 
 
 def _shade_context(scene, meta, hit, o, d, camdiff=None, time=None):
     """Post-hit work: shading geometry (with uv screen derivatives from the
-    camera differential rays when given), textures, lobes, local wo."""
+    camera differential rays when given), bump, textures, lobes, local wo."""
     sg = geom.shading_geometry(scene, hit, o, d, time=time)
     if camdiff is not None:
         sg["duvdx"], sg["duvdy"] = geom.uv_differentials(sg, *camdiff)
+    if meta.bump_rows:
+        sg = _apply_bump(scene, meta, sg)
     tex_values = eval_textures(meta.tex_specs, scene["tex_data"], sg,
                                scene.get("images", ()), scene.get("mipmaps", ()))
     lobes = mtl.gather_lobes(scene, sg, tex_values)
@@ -169,7 +258,7 @@ def estimate_direct(scene, meta, sg, lobes, wo_local, light_idx, light_pmf,
     p = sg["p"]
     eps = sg["ray_eps"]
     ls = lt.sample_li(scene, light_idx, p, u_light[0], u_light[1], u_tri,
-                      meta.light_types)
+                      meta.light_types, meta.light_image_rows)
     wi_l = geom.world_to_local(sg, ls["wi"])
     f_l = bx.bsdf_f(lobes, wo_local, wi_l, present, include_specular=False)
     cos_l = absdot(ls["wi"], sg["ns"])
@@ -280,7 +369,7 @@ def _whitted_light(scene, meta, pix, samp, bounce, sg, lobes, wo_local, active, 
         u2d = _sample_2d(meta, pix, samp, bounce, _D_LIGHT_POS, lrow)
         ls = lt.sample_li(scene, lidx, sg["p"], u2d[0], u2d[1],
                           _sample_1d(meta, pix, samp, bounce, _D_LIGHT_TRI, lrow),
-                          meta.light_types)
+                          meta.light_types, meta.light_image_rows)
         f_l = bx.bsdf_f(lobes, wo_local, geom.world_to_local(sg, ls["wi"]),
                         meta.lobe_types, include_specular=False)
         cos_l = absdot(ls["wi"], sg["ns"])

@@ -5,20 +5,24 @@ stacks and string-keyed factories, building the port's SceneBuilder.
 Statements flow as in the reference (options block -> WorldBegin ->
 attributes, materials, lights and shapes -> WorldEnd) and build the same
 rows in the same order, so that a parsed scene holds the reference's leaves.
-Ported: the transform directives, Camera "perspective", Film, Sampler,
-PixelFilter, SurfaceIntegrator "path", "directlighting", "whitted" and
-"ambientocclusion", attributes and ReverseOrientation, Texture
-"constant"/"scale"/"mix"/"imagemap" (uv mapping), the materials matte,
-plastic, metal, shinymetal, mirror, glass, uber and mix (named or not),
-LightSource "point"/"spot"/"distant"/"infinite", AreaLightSource "diffuse",
-every shape of
-scene/shapes.py and object instancing (ObjectBegin/ObjectEnd/ObjectInstance,
-animated transforms as single-instance objects). Everything else raises
-NotImplementedError where it is used, naming the directive or parameter.
-The reference's own name mappings stay: an unknown filter is a box filter,
-an unknown sampler and "bestcandidate" are the (0,2)-sequence, an unknown
-integrator is "path", an unknown accelerator or renderer is the BVH and
-the sampler renderer, each with a warning.
+Ported: the transform directives, Camera "perspective", "orthographic" and
+"environment", Film, Sampler, PixelFilter, SurfaceIntegrator "path",
+"directlighting", "whitted" and "ambientocclusion", attributes and
+ReverseOrientation, Texture "constant", "scale", "mix", "bilerp", "uv",
+"checkerboard", "dots", "fbm", "wrinkled", "windy", "marble" and
+"imagemap" (uv, spherical, cylindrical and planar mappings), the materials
+matte, plastic, metal, shinymetal, mirror, glass, uber and mix (named or
+not) with a "bumpmap", LightSource "point", "spot", "distant", "infinite",
+"projection" and "goniometric", AreaLightSource "diffuse", every shape of
+scene/shapes.py with its "alpha" cutout, and object instancing
+(ObjectBegin/ObjectEnd/ObjectInstance, animated transforms as
+single-instance objects). Everything else raises NotImplementedError where
+it is used, naming the directive or parameter; a missing image file raises
+(the reference substitutes a constant or drops the map). The reference's
+own name mappings stay: an unknown camera is the perspective camera, an
+unknown filter is a box filter, an unknown sampler and "bestcandidate" are
+the (0,2)-sequence, an unknown integrator is "path", an unknown accelerator
+or renderer is the BVH and the sampler renderer, each with a warning.
 """
 from __future__ import annotations
 
@@ -58,6 +62,8 @@ SAMPLER_KINDS = {"lowdiscrepancy": ZERO_TWO, "02sequence": ZERO_TWO,
                  "stratified": STRATIFIED, "halton": HALTON, "random": RANDOM,
                  "bestcandidate": ZERO_TWO}
 FILTERS = ("box", "triangle", "gaussian", "mitchell", "sinc")
+CAMERAS = {"perspective": cam.PERSPECTIVE, "orthographic": cam.ORTHOGRAPHIC,
+           "environment": cam.ENVIRONMENT}
 UNPORTED_RENDERERS = ("metropolis", "createprobes", "surfacepoints")
 
 
@@ -191,8 +197,8 @@ class PbrtAPI:
 
     # ----------------------------------------------------------- options block
     def camera(self, name, params):
-        if name != "perspective":
-            raise _unported(f'Camera "{name}"')
+        if name not in CAMERAS:
+            log.warning("Camera %r mapped to perspective", name)
         self.camera_name = name
         self.camera_params = params
         # camera-to-world = inverse(CTM); also the "camera" coordinate system
@@ -290,10 +296,42 @@ class PbrtAPI:
             t2 = tp.get_spectrum_texture(b, "tex2", (1, 1, 1))
             amt = tp.get_float_texture(b, "amount", 0.5)
             return b.add_texture(TexSpec(kind="mix", inputs=(t1, t2, amt)), w2t=w2t)
+        if texclass == "bilerp":
+            vs = [tp.get_spectrum_texture(b, k, (0, 0, 0))
+                  for k in ("v00", "v01", "v10", "v11")]
+            return b.add_texture(
+                TexSpec(kind="bilerp", inputs=tuple(vs), **self._mapping_kwargs(tp)),
+                w2t=w2t)
+        if texclass == "uv":
+            return b.add_texture(TexSpec(kind="uv", **self._mapping_kwargs(tp)), w2t=w2t)
+        if texclass == "checkerboard":
+            dim = tp.find_one_float("dimension", 2)
+            t1 = tp.get_spectrum_texture(b, "tex1", (1, 1, 1))
+            t2 = tp.get_spectrum_texture(b, "tex2", (0, 0, 0))
+            aa = tp.find_one_string("aamode", "closedform")
+            kw = self._mapping_kwargs(tp) if dim == 2 else {}
+            return b.add_texture(TexSpec(kind="checkerboard", inputs=(t1, t2),
+                                         dim=int(dim), aa=aa, **kw), w2t=w2t)
+        if texclass == "dots":
+            t1 = tp.get_spectrum_texture(b, "inside", (1, 1, 1))
+            t2 = tp.get_spectrum_texture(b, "outside", (0, 0, 0))
+            return b.add_texture(
+                TexSpec(kind="dots", inputs=(t1, t2), **self._mapping_kwargs(tp)),
+                w2t=w2t)
+        if texclass in ("fbm", "wrinkled"):
+            return b.add_texture(TexSpec(kind=texclass,
+                                         octaves=tp.find_one_int("octaves", 8),
+                                         omega=tp.find_one_float("roughness", 0.5)),
+                                 w2t=w2t)
+        if texclass == "windy":
+            return b.add_texture(TexSpec(kind="windy"), w2t=w2t)
+        if texclass == "marble":
+            return b.add_texture(
+                TexSpec(kind="marble", octaves=tp.find_one_int("octaves", 8),
+                        omega=tp.find_one_float("roughness", 0.5),
+                        scale=tp.find_one_float("scale", 1.0),
+                        variation=tp.find_one_float("variation", 0.2)), w2t=w2t)
         if texclass == "imagemap":
-            mapping = tp.find_one_string("mapping", "uv")
-            if mapping != "uv":
-                raise _unported(f'Texture "imagemap" with "mapping" "{mapping}"')
             fname = self._resolve(tp.find_one_string("filename", ""))
             scale = tp.find_one_float("scale", 1.0)
             g = tp.geom.find_floats("gamma")
@@ -306,13 +344,24 @@ class PbrtAPI:
             return b.add_texture(
                 TexSpec(kind="image", image_id=img_id, filt=filt,
                         maxaniso=tp.find_one_float("maxanisotropy", 8.0),
-                        mapping=mapping,
-                        su=tp.find_one_float("uscale", 1.0),
-                        sv=tp.find_one_float("vscale", 1.0),
-                        du=tp.find_one_float("udelta", 0.0),
-                        dv=tp.find_one_float("vdelta", 0.0)),
+                        **self._mapping_kwargs(tp)),
                 w2t=w2t)
         raise _unported(f'Texture "{texclass}"')
+
+    @staticmethod
+    def _mapping_kwargs(tp):
+        """A 2D texture's mapping parameters (TextureMapping2D): uv,
+        spherical, cylindrical or planar, with its scales and offsets, and
+        the planar mapping's axes."""
+        mapping = tp.find_one_string("mapping", "uv")
+        kw = dict(mapping=mapping, su=tp.find_one_float("uscale", 1.0),
+                  sv=tp.find_one_float("vscale", 1.0),
+                  du=tp.find_one_float("udelta", 0.0),
+                  dv=tp.find_one_float("vdelta", 0.0))
+        if mapping == "planar":
+            kw["v1"] = tuple(tp.geom.find_one_point("v1", (1, 0, 0)))
+            kw["v2"] = tuple(tp.geom.find_one_point("v2", (0, 1, 0)))
+        return kw
 
     def _resolve(self, fname):
         if fname and not os.path.isabs(fname):
@@ -347,45 +396,46 @@ class PbrtAPI:
         return self._build_material(self.gs.material, tp)
 
     def _build_material(self, mtype, tp):
-        """One material row, its textures built in the reference's order."""
+        """One material row with its bump map, its textures built in the
+        reference's order (the bump map's first)."""
+        bump = tp.get_float_texture_or_none(self.builder, "bumpmap")
+        return self.builder.add_material(self._material_lobes(mtype, tp), bump=bump)
+
+    def _material_lobes(self, mtype, tp):
+        """The lobe stack of a material."""
         b = self.builder
-        if tp.get_float_texture_or_none(b, "bumpmap") is not None:
-            raise NotImplementedError("bump mapping (a material's bumpmap) is "
-                                      "not ported yet")
         if mtype in ("", "none"):
-            return b.add_material([])
+            return []
         if mtype == "matte":
             kd = tp.get_spectrum_texture(b, "Kd", (0.5, 0.5, 0.5))
             sigma = tp.get_float_texture(b, "sigma", 0.0)
-            return b.add_material([dict(type=bx.OREN_NAYAR, s0=kd, f0=sigma,
-                                        f0_conv=CONV_RADIANS)])
+            return [dict(type=bx.OREN_NAYAR, s0=kd, f0=sigma, f0_conv=CONV_RADIANS)]
         if mtype == "plastic":
             kd = tp.get_spectrum_texture(b, "Kd", (0.25,) * 3)
             ks = tp.get_spectrum_texture(b, "Ks", (0.25,) * 3)
             rough = tp.get_float_texture(b, "roughness", 0.1)
             ior = b.const_tex((1.5,) * 3)
-            return b.add_material([
+            return [
                 dict(type=bx.LAMBERT, s0=kd),
                 dict(type=bx.BLINN, s0=ks, fr=bx.FR_DIELECTRIC, f0=rough,
-                     f0_conv=CONV_INV, f2=ior)])
+                     f0_conv=CONV_INV, f2=ior)]
         if mtype == "glass":
             kr = tp.get_spectrum_texture(b, "Kr", (1.0,) * 3)
             kt = tp.get_spectrum_texture(b, "Kt", (1.0,) * 3)
             index = tp.get_float_texture(b, "index", 1.5)
-            return b.add_material([
+            return [
                 dict(type=bx.SPEC_REFL, s0=kr, fr=bx.FR_DIELECTRIC, f2=index),
-                dict(type=bx.SPEC_TRANS, s0=kt, f2=index)])
+                dict(type=bx.SPEC_TRANS, s0=kt, f2=index)]
         if mtype == "mirror":
             kr = tp.get_spectrum_texture(b, "Kr", (0.9,) * 3)
-            return b.add_material([dict(type=bx.SPEC_REFL, s0=kr, fr=bx.FR_NOOP)])
+            return [dict(type=bx.SPEC_REFL, s0=kr, fr=bx.FR_NOOP)]
         if mtype == "metal":
             eta = tp.get_spectrum_texture(b, "eta", COPPER_ETA)
             k = tp.get_spectrum_texture(b, "k", COPPER_K)
             rough = tp.get_float_texture(b, "roughness", 0.01)
             one = b.const_tex((1.0,) * 3)
-            return b.add_material([dict(type=bx.BLINN, s0=one, s1=eta, s2=k,
-                                        fr=bx.FR_CONDUCTOR, f0=rough,
-                                        f0_conv=CONV_INV)])
+            return [dict(type=bx.BLINN, s0=one, s1=eta, s2=k, fr=bx.FR_CONDUCTOR,
+                         f0=rough, f0_conv=CONV_INV)]
         if mtype == "shinymetal":
             ks = tp.get_spectrum_texture(b, "Ks", (1.0,) * 3)
             kr = tp.get_spectrum_texture(b, "Kr", (1.0,) * 3)
@@ -396,10 +446,10 @@ class PbrtAPI:
             kr_rgb = np.clip(b.tex_const[kr], 0.0, 0.999)
             eta = b.const_tex((1.0 + np.sqrt(kr_rgb)) / (1.0 - np.sqrt(kr_rgb)))
             k = b.const_tex(2.0 * np.sqrt(kr_rgb) / np.sqrt(np.maximum(1.0 - kr_rgb, 1e-5)))
-            return b.add_material([
+            return [
                 dict(type=bx.BLINN, s0=ks, s1=eta, s2=k, fr=bx.FR_CONDUCTOR, f0=rough,
                      f0_conv=CONV_INV),
-                dict(type=bx.SPEC_REFL, s0=kr, s1=eta, s2=k, fr=bx.FR_CONDUCTOR)])
+                dict(type=bx.SPEC_REFL, s0=kr, s1=eta, s2=k, fr=bx.FR_CONDUCTOR)]
         if mtype == "uber":
             kd = tp.get_spectrum_texture(b, "Kd", (0.25,) * 3)
             ks = tp.get_spectrum_texture(b, "Ks", (0.25,) * 3)
@@ -414,13 +464,13 @@ class PbrtAPI:
             oks = b.add_texture(TexSpec(kind="scale", inputs=(opacity, ks)))
             okr = b.add_texture(TexSpec(kind="scale", inputs=(opacity, kr)))
             unity_ior = b.const_tex((1.0,) * 3)
-            return b.add_material([
+            return [
                 dict(type=bx.LAMBERT, s0=okd),
                 dict(type=bx.BLINN, s0=oks, fr=bx.FR_DIELECTRIC, f0=rough,
                      f0_conv=CONV_INV, f2=index),
                 dict(type=bx.SPEC_REFL, s0=okr, fr=bx.FR_DIELECTRIC, f2=index),
                 # opacity pass-through: (1-op)·SpecularTransmission with ior 1
-                dict(type=bx.SPEC_TRANS, s0=inv_op, f2=unity_ior)])
+                dict(type=bx.SPEC_TRANS, s0=inv_op, f2=unity_ior)]
         if mtype == "mix":
             m1 = tp.find_one_string("namedmaterial1", "")
             m2 = tp.find_one_string("namedmaterial2", "")
@@ -436,7 +486,7 @@ class PbrtAPI:
                 for lobe in rows:
                     lobes.append(dict(lobe, s0=b.add_texture(
                         TexSpec(kind="scale", inputs=(weight, lobe["s0"])))))
-            return b.add_material(lobes)
+            return lobes
         raise _unported(f'Material "{mtype}"')
 
     # ------------------------------------------------------------------- lights
@@ -465,9 +515,24 @@ class PbrtAPI:
             mapname = params.find_one_string("mapname", "")
             env = read_image(self._resolve(mapname)) if mapname else None
             b.add_infinite_light(l2w, L, env)
+        elif name == "projection":
+            i = params.find_one_rgb("I", (1, 1, 1)) * scale
+            fov = params.find_one_float("fov", 45.0)
+            b.add_projection_light(l2w, i, fov=fov, image_id=self._light_image(params))
+        elif name == "goniometric":
+            i = params.find_one_rgb("I", (1, 1, 1)) * scale
+            b.add_goniometric_light(l2w, i, image_id=self._light_image(params))
         else:
             raise _unported(f'LightSource "{name}"')
         params.report_unused(f'LightSource "{name}"')
+
+    def _light_image(self, params):
+        """A light's "mapname" image added to the builder, or -1 without
+        one."""
+        mapname = params.find_one_string("mapname", "")
+        if not mapname:
+            return -1
+        return self.builder.add_image(read_image(self._resolve(mapname)))
 
     def area_light_source(self, name, params):
         if name != "diffuse":
@@ -490,11 +555,11 @@ class PbrtAPI:
     def _emit_shape(self, verts, idx, normals, uvs, gs, ctm, shape_params):
         b = self.builder
         m = ctm.t[0]
-        _check_no_alpha(shape_params)
         if ctm.is_animated() and gs.area_light is None:
             # object motion blur (TransformedPrimitive with an animated
             # PrimitiveToWorld): a single-instance object with object-space
-            # geometry and the transform pair on the instance
+            # geometry and the transform pair on the instance (without an
+            # alpha cutout, as in the reference)
             nrm = normals
             if nrm is not None:
                 nrm = nrm / np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-12)
@@ -522,7 +587,22 @@ class PbrtAPI:
         b.add_mesh(verts, idx, mat_id, normals=normals, uvs=uvs,
                    reverse_orientation=gs.reverse_orientation,
                    swaps_handedness=bool(tr.swaps_handedness(m)),
-                   area_light_emit=emit, n_samples=nsamp)
+                   area_light_emit=emit, n_samples=nsamp,
+                   alpha_tex=self._alpha_tex_for(shape_params, gs))
+
+    def _alpha_tex_for(self, shape_params, gs):
+        """A shape's alpha-cutout float texture row ("texture alpha" or
+        "float alpha", Triangle::Intersect's alpha test); -1: opaque."""
+        ref = shape_params.find_texture("alpha")
+        if ref is not None:
+            if ref not in gs.float_textures:
+                log.warning('alpha texture "%s" not found', ref)
+                return -1
+            return gs.float_textures[ref]
+        a = shape_params.find_one_float("alpha", 1.0)
+        if a != 1.0:
+            return self.builder.const_tex((a, a, a))
+        return -1
 
     def _material_id_for_state(self, gs, shape_params):
         saved = self.gs
@@ -630,7 +710,6 @@ class PbrtAPI:
         if obj_id is None:
             obj_id = b.add_object()
             for verts, idx, normals, uvs, gs, obj_ctm, shape_params in shapes:
-                _check_no_alpha(shape_params)
                 m = obj_ctm.t[0]
                 if obj_ctm.is_animated():
                     log.warning("Animated CTM inside ObjectBegin %r: using the "
@@ -647,7 +726,8 @@ class PbrtAPI:
                 mat_id = self._material_id_for_state(gs, shape_params)
                 b.add_object_mesh(obj_id, ov, idx, mat_id, normals=on, uvs=uvs,
                                   reverse_orientation=gs.reverse_orientation,
-                                  swaps_handedness=bool(tr.swaps_handedness(m)))
+                                  swaps_handedness=bool(tr.swaps_handedness(m)),
+                                  alpha_tex=self._alpha_tex_for(shape_params, gs))
             self._tlas_objects[name] = obj_id
         b.add_instance(obj_id, inst_ctm.t[0].copy(), inst_ctm.t[1].copy())
 
@@ -689,7 +769,7 @@ class PbrtAPI:
 
         sw = self.camera_params.find_floats("screenwindow")
         b.camera = cam.build_camera(
-            cam.PERSPECTIVE, self.camera_to_world.t[0], self.camera_to_world.t[1],
+            CAMERAS.get(self.camera_name, cam.PERSPECTIVE), self.camera_to_world.t[0], self.camera_to_world.t[1],
             b.xres, b.yres,
             fov=self.camera_params.find_one_float("fov", 90.0),
             screen_window=list(sw) if sw is not None and len(sw) == 4 else None,
@@ -740,8 +820,3 @@ def _spot_frame(from_p, to_p):
     m[:3, 0], m[:3, 1], m[:3, 2], m[:3, 3] = x, np.cross(d, x), d, from_p
     return m
 
-
-def _check_no_alpha(shape_params):
-    """Alpha cutouts ("float alpha" / "texture alpha") are not ported yet."""
-    if "alpha" in shape_params.items:
-        raise _unported('Shape parameter "alpha"')

@@ -3,10 +3,14 @@
 `scene_from_numpy` takes the JAX package's finalized scene with every leaf
 converted to numpy (e.g. `jax.tree_util.tree_map(np.asarray, scene)`) and its
 SceneMeta, read by attribute name only, and returns the port's scene dict and
-SceneMeta on `device`: geometry, materials, textures with their images and
-MIP pyramids, lights with the environment map and its distribution, the
-world radius and the power-weighted light distribution, the camera, the 4-wide tables built from the reference's own binary tree
-(for a single record table and for clustered tables alike; the record
+SceneMeta on `device`: geometry with its alpha-cutout rows, materials with
+their bump rows, textures with their images and MIP pyramids, lights with
+the projection frusta and light image rows and the environment map and its
+distribution, the world radius and the power-weighted light distribution,
+the camera (an environment camera given the film resolution that the
+reference's pack lacks, ROADMAP C.8), the 4-wide tables built from the
+reference's own binary tree (for a single record table and for clustered
+tables alike; the record
 table is the port's own, on request: buffers.attach_record_table), and the
 instance table, whose BLAS table is collapsed from the reference's own
 per-object binary trees. Leaves the port does not read are dropped; a scene
@@ -20,6 +24,7 @@ import dataclasses
 import numpy as np
 
 from ..core.rng import SamplerConfig
+from ..engine.camera import ENVIRONMENT
 from ..device import resolve_device
 from ..engine.filters import FilterConfig
 from ..kernels.bvh4 import build_bvh4_blas, build_bvh4_tables
@@ -28,16 +33,17 @@ from ..shade.materials import MAT_FIELDS
 from ..shade.textures import TexSpec
 from .buffers import SENTINEL_TRI, SceneMeta, to_torch, world_bounds
 
-_GEOMETRY = ("verts", "vnorm", "vuv", "tri_idx", "tri_mat", "tri_light", "tri_flags")
+_GEOMETRY = ("verts", "vnorm", "vuv", "tri_idx", "tri_mat", "tri_light", "tri_flags",
+             "tri_alpha")
 _LIGHTS = ("type", "emit", "l2w", "w2l", "cos_total", "cos_falloff", "world_dir",
-           "area", "av0", "av1", "av2", "aflip", "acdf")
+           "area", "av0", "av1", "av2", "aflip", "acdf", "proj", "proj_hither", "screen",
+           "image_row")
 _CAMERA = ("type", "raster2cam", "c2w", "lens_radius", "focal_distance", "shutter")
 _PYRAMID = ("flat", "h", "w", "off")
 _INSTANCE = ("obj", "t", "q", "s", "anim", "m0", "m0_inv", "swap", "wmin", "wmax")
 # reference-side features whose routes are not ported yet
 _UNPORTED_LEAVES = ("ring", "media")
-_UNPORTED_META = {"media_kinds": (), "has_bump": False, "alpha_rows": (),
-                  "light_image_rows": (), "crop": (0.0, 1.0, 0.0, 1.0)}
+_UNPORTED_META = {"media_kinds": (), "crop": (0.0, 1.0, 0.0, 1.0)}
 
 
 def _same_fields(cls, obj):
@@ -63,6 +69,10 @@ def meta_from(meta) -> SceneMeta:
         yres=int(meta.yres),
         has_env_map=bool(meta.has_env_map),
         n_images=int(meta.n_images),
+        has_bump=bool(meta.has_bump),
+        bump_rows=tuple(int(r) for r in meta.bump_rows),
+        light_image_rows=tuple((int(r), int(i)) for r, i in meta.light_image_rows),
+        alpha_rows=tuple(int(r) for r in meta.alpha_rows),
     )
 
 
@@ -107,7 +117,7 @@ def scene_from_numpy(scene_np, meta, device=None):
         if len(scene_np.get(key, ())) > 0:
             raise NotImplementedError(f"scene has {key!r}: not ported yet")
     scene = {k: scene_np[k] for k in _GEOMETRY}
-    scene["materials"] = {k: scene_np["materials"][k] for k in MAT_FIELDS}
+    scene["materials"] = {k: scene_np["materials"][k] for k in MAT_FIELDS + ("bump",)}
     scene["tex_data"] = {k: scene_np["tex_data"][k] for k in ("const", "w2t")}
     if len(scene_np.get("images", ())) > 0:
         scene["images"] = tuple(scene_np["images"])
@@ -123,6 +133,9 @@ def scene_from_numpy(scene_np, meta, device=None):
         if scene_np.get("env_map") is not None:
             scene["env_map"] = scene_np["env_map"]
     scene["camera"] = {k: scene_np["camera"][k] for k in _CAMERA}
+    if int(meta.cam_kind) == ENVIRONMENT:
+        scene["camera"]["xres"] = np.float32(meta.xres)
+        scene["camera"]["yres"] = np.float32(meta.yres)
     bvh = scene_np.get("bvh")
     if bvh is not None:
         # one 4-wide table from the binary tree, whether the reference packed

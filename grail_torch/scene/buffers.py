@@ -1,22 +1,24 @@
 """SceneBuilder -> (scene dict, SceneMeta) (port of grail/scene/buffers.py for
-triangle-mesh scenes with point, spot, distant, area and environment lights,
-and instanced objects).
+triangle-mesh scenes with point, spot, distant, area, environment, projection
+and goniometric lights, bump-mapped materials, alpha cutouts and instanced
+objects).
 
 The scene compiles to structure-of-arrays tensors: one world-space triangle
-soup, a material lobe table, a texture table with its images and MIP
-pyramids, a light table with per-light area CDFs, pre-gathered
-light-triangle vertices, light transforms, spot cones and distant
-directions, the environment map and its Distribution2D, the world radius
-and the power-weighted light Distribution1D, the camera pack and, above 64
-triangles, the BVH's 4-wide
+soup (each triangle with its alpha-cutout texture row, -1 for none), a
+material lobe table with each material's bump texture row, a texture table
+with its images and MIP pyramids, a light table with per-light area CDFs,
+pre-gathered light-triangle vertices, light transforms, spot cones, distant
+directions, the projection lights' frusta and the projection and
+goniometric lights' image rows, the environment map and its
+Distribution2D, the world radius and the power-weighted light
+Distribution1D, the camera pack and, above 64 triangles, the BVH's 4-wide
 node and triangle tables (its record table on request). Instanced objects
 (pbrt's ObjectBegin/ObjectInstance) append their object-space triangles
 once, after the base soup, and add the instance table ("inst"): one 4-wide
 table of every object's BLAS with each instance's root, its decomposed
 (possibly animated) transform and its motion-bound world box. Host-side
 work is numpy, as in the reference, so both packages hold the same bits.
-Media and the projection and goniometric lights are not ported yet; a
-scene that would need them raises.
+Media are not ported yet.
 """
 from __future__ import annotations
 
@@ -83,6 +85,10 @@ class SceneMeta:
     yres: int
     has_env_map: bool = False
     n_images: int = 0
+    has_bump: bool = False
+    bump_rows: Tuple[int, ...] = ()
+    light_image_rows: Tuple[Tuple[int, int], ...] = ()   # (light row, image id)
+    alpha_rows: Tuple[int, ...] = ()    # the alpha-cutout texture rows in use
 
 
 def _motion_bounds(m0, m1, omin, omax, steps=16):
@@ -231,12 +237,14 @@ class SceneBuilder:
         self.tri_mat = []
         self.tri_light = []
         self.tri_flags = []
+        self.tri_alpha = []
         self.n_verts = 0
         self.tex_specs = []
         self.tex_const = []
         self.tex_w2t = []
         self.images = []
         self.mat_rows = []       # list of list-of-lobe dicts
+        self.mat_bump = []       # a material's bump float-texture row (-1 none)
         self.lights = []         # list of dicts
         self.env_map = None      # (H,W,3) lat-long map of the infinite light
         self.env_row = -1
@@ -268,10 +276,12 @@ class SceneBuilder:
         return len(self.images) - 1
 
     # ------------------------------------------------------------------ materials
-    def add_material(self, lobes):
+    def add_material(self, lobes, bump=None):
         """lobes: list of dicts with keys type, fr, s0, s1, s2, f0, f1, f2,
-        f0_conv, f1_conv (texture ids for s*/f*; missing keys defaulted)."""
+        f0_conv, f1_conv (texture ids for s*/f*; missing keys defaulted).
+        bump: a float texture row, the displacement of Material::Bump."""
         self.mat_rows.append(list(lobes))
+        self.mat_bump.append(-1 if bump is None else int(bump))
         return len(self.mat_rows) - 1
 
     def matte(self, kd_tex=None, kd=(0.5, 0.5, 0.5)):
@@ -283,9 +293,10 @@ class SceneBuilder:
     # -------------------------------------------------------------------- geometry
     def add_mesh(self, verts, idx, material, normals=None, uvs=None,
                  reverse_orientation=False, swaps_handedness=False,
-                 area_light_emit=None, n_samples=1):
+                 area_light_emit=None, n_samples=1, alpha_tex=-1):
         """Append a world-space triangle mesh. With area_light_emit every
-        triangle becomes part of one DiffuseAreaLight."""
+        triangle becomes part of one DiffuseAreaLight; alpha_tex: the float
+        texture row of its alpha cutout (-1: opaque)."""
         verts = np.asarray(verts, np.float32).reshape(-1, 3)
         idx = np.asarray(idx, np.int64).reshape(-1, 3)
         nv = verts.shape[0]
@@ -317,6 +328,7 @@ class SceneBuilder:
         self.tri_mat.append(np.full(ntri, material, np.int64))
         self.tri_light.append(np.full(ntri, light_id, np.int64))
         self.tri_flags.append(np.full(ntri, flags, np.int64))
+        self.tri_alpha.append(np.full(ntri, alpha_tex, np.int64))
         return light_id
 
     # ------------------------------------------------------------------- instances
@@ -324,14 +336,16 @@ class SceneBuilder:
         """Open a reusable object-space geometry bucket (pbrtObjectBegin);
         returns its id for add_object_mesh and add_instance."""
         self.inst_objects.append({"verts": [], "vnorm": [], "vuv": [], "tri_idx": [],
-                                  "tri_mat": [], "tri_flags": [], "n_verts": 0})
+                                  "tri_mat": [], "tri_flags": [], "tri_alpha": [],
+                                  "n_verts": 0})
         return len(self.inst_objects) - 1
 
     def add_object_mesh(self, obj_id, verts, idx, material, normals=None, uvs=None,
-                        reverse_orientation=False, swaps_handedness=False):
+                        reverse_orientation=False, swaps_handedness=False,
+                        alpha_tex=-1):
         """Append an object-space mesh to an object: stored once whatever the
         number of instances (area lights inside objects are not supported,
-        as in the reference)."""
+        as in the reference); alpha_tex as add_mesh's."""
         ob = self.inst_objects[obj_id]
         verts = np.asarray(verts, np.float32).reshape(-1, 3)
         idx = np.asarray(idx, np.int64).reshape(-1, 3)
@@ -345,6 +359,7 @@ class SceneBuilder:
         ob["tri_idx"].append(idx + ob["n_verts"])
         ob["tri_mat"].append(np.full(ntri, material, np.int64))
         ob["tri_flags"].append(np.full(ntri, flags, np.int64))
+        ob["tri_alpha"].append(np.full(ntri, alpha_tex, np.int64))
         ob["n_verts"] += nv
 
     def add_instance(self, obj_id, m0, m1=None):
@@ -366,6 +381,32 @@ class SceneBuilder:
             "type": lt.SPOT, "emit": np.asarray(intensity, np.float32), "l2w": l2w,
             "cos_total": np.cos(np.radians(cone_angle)),
             "cos_falloff": np.cos(np.radians(cone_angle - cone_delta))})
+
+    def add_projection_light(self, l2w, intensity, fov=45.0, image_id=-1):
+        """ProjectionLight (projection.cpp): intensity projected through a
+        perspective frustum of `fov` degrees along the light's +z; image_id:
+        the builder image it projects (-1: none), whose aspect sets the
+        screen window."""
+        aspect = 1.0
+        if image_id >= 0:
+            im = self.images[image_id]
+            aspect = im.shape[1] / im.shape[0]
+        if aspect > 1.0:
+            screen = (-aspect, aspect, -1.0, 1.0)
+        else:
+            screen = (-1.0, 1.0, -1.0 / aspect, 1.0 / aspect)
+        self.lights.append({
+            "type": lt.PROJECTION, "emit": np.asarray(intensity, np.float32),
+            "l2w": l2w, "proj": tr.perspective(fov, 1e-3, 1e30),
+            "proj_hither": 1e-3, "screen": np.asarray(screen, np.float32),
+            "image_id": int(image_id)})
+
+    def add_goniometric_light(self, l2w, intensity, image_id=-1):
+        """GonioPhotometricLight (goniometric.cpp): a point intensity scaled
+        by the lat-long image `image_id` (-1: none)."""
+        self.lights.append({"type": lt.GONIOMETRIC,
+                            "emit": np.asarray(intensity, np.float32),
+                            "l2w": l2w, "image_id": int(image_id)})
 
     def add_distant_light(self, from_p, to_p, radiance):
         """DistantLight (distant.cpp): radiance arriving along from -> to."""
@@ -405,7 +446,8 @@ class SceneBuilder:
         base_verts = np.concatenate(self.verts)
         base_idx = np.concatenate(self.tri_idx)
         parts = {k: [np.concatenate(getattr(self, k))]
-                 for k in ("vnorm", "vuv", "tri_mat", "tri_light", "tri_flags")}
+                 for k in ("vnorm", "vuv", "tri_mat", "tri_light", "tri_flags",
+                           "tri_alpha")}
         parts["verts"], parts["tri_idx"] = [base_verts], [base_idx]
         # objects' object-space triangles, appended once after the base soup,
         # so that prim ids are the reference's
@@ -421,7 +463,9 @@ class SceneBuilder:
                 continue
             parts["verts"].append(ov)
             parts["tri_idx"].append(np.concatenate(ob["tri_idx"]) + n_verts)
-            for k in ("vnorm", "vuv", "tri_mat", "tri_flags"):
+            # instanced shapes keep their alpha cutout (TransformedPrimitive
+            # defers to the inner shape)
+            for k in ("vnorm", "vuv", "tri_mat", "tri_flags", "tri_alpha"):
                 parts[k].append(np.concatenate(ob[k]))
             parts["tri_light"].append(np.full(nt, -1, np.int64))
             n_verts += len(ov)
@@ -437,6 +481,7 @@ class SceneBuilder:
             "tri_mat": np.concatenate(parts["tri_mat"]).astype(np.int32),
             "tri_light": np.concatenate(parts["tri_light"]).astype(np.int32),
             "tri_flags": tri_flags.astype(np.int32),
+            "tri_alpha": np.concatenate(parts["tri_alpha"]).astype(np.int32),
         }
 
         # ---- materials table
@@ -452,6 +497,8 @@ class SceneBuilder:
                     fields[slot][mi, ki] = lobe.get(slot, zero_tex)
                 fields["f0_conv"][mi, ki] = lobe.get("f0_conv", CONV_ID)
                 fields["f1_conv"][mi, ki] = lobe.get("f1_conv", CONV_ID)
+        fields["bump"] = np.full(M, -1, np.int32)
+        fields["bump"][:len(self.mat_bump)] = self.mat_bump
         scene["materials"] = fields
         lobe_types = tuple(sorted({int(t) for r in self.mat_rows
                                    for t in (lb.get("type", bx.NONE) for lb in r)}
@@ -487,7 +534,12 @@ class SceneBuilder:
             "av2": np.zeros((L, at_max, 3), np.float32),
             "aflip": np.zeros((L, at_max), np.int32),
             "acdf": np.tile(np.linspace(0, 1, at_max + 1, dtype=np.float32), (L, 1)),
+            "proj": np.tile(tr.identity(), (L, 1, 1)),
+            "proj_hither": np.full(L, 1e-3, np.float32),
+            "screen": np.tile(np.asarray([-1, 1, -1, 1], np.float32), (L, 1)),
+            "image_row": np.full(L, -1, np.int32),
         }
+        light_image_rows = {}
         for i, lg in enumerate(self.lights):
             larr["type"][i] = lg["type"]
             larr["emit"][i] = lg["emit"]
@@ -496,6 +548,13 @@ class SceneBuilder:
             larr["cos_total"][i] = lg.get("cos_total", 0.0)
             larr["cos_falloff"][i] = lg.get("cos_falloff", 0.0)
             larr["world_dir"][i] = lg.get("world_dir", (0, 0, 1))
+            if "proj" in lg:
+                larr["proj"][i] = np.asarray(lg["proj"], np.float32)
+                larr["proj_hither"][i] = lg["proj_hither"]
+                larr["screen"][i] = lg["screen"]
+            if lg.get("image_id", -1) >= 0:
+                larr["image_row"][i] = i
+                light_image_rows[i] = lg["image_id"]
             if lg["type"] != lt.AREA:
                 continue
             tris = lg["tris"]
@@ -569,5 +628,10 @@ class SceneBuilder:
             yres=self.yres,
             has_env_map=self.env_map is not None,
             n_images=len(self.images),
+            has_bump=any(bt >= 0 for bt in self.mat_bump),
+            bump_rows=tuple(sorted({bt for bt in self.mat_bump if bt >= 0})),
+            light_image_rows=tuple(sorted(light_image_rows.items())),
+            alpha_rows=tuple(sorted({int(a) for a in np.unique(scene["tri_alpha"])
+                                     if a >= 0})),
         )
         return to_torch(scene, device), meta

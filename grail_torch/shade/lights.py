@@ -1,5 +1,5 @@
-"""Light sampling (port of grail/shade/lights.py: POINT, SPOT, DISTANT, AREA
-and INFINITE lights).
+"""Light sampling (port of grail/shade/lights.py: POINT, SPOT, DISTANT, AREA,
+INFINITE, PROJECTION and GONIOMETRIC lights).
 
 Area lights pick a triangle from a per-light area CDF, then a uniform
 barycentric point, and convert to solid angle with the per-point pdf
@@ -9,12 +9,20 @@ luminance·sinθ (infinite.cpp). A point light is a delta light at the
 translation of its light-to-world matrix with radiance I/d²; a spot light
 is one whose intensity falls off smoothly between its cone angles around the
 light's +z (spot.cpp); a distant light is a delta direction toward the light
-with radiance L and the world-size shadow ray. The static `present_types`
-branching is kept; PROJECTION and GONIOMETRIC lights are not ported yet and
-raise. `light_power` is the power that the `power` light strategy samples
-lights by.
+with radiance L and the world-size shadow ray. A projection light is a
+point light whose intensity is its image seen through a perspective frustum
+along the light's +z (projection.cpp), zero outside the frustum; a
+goniometric light is a point light whose intensity is scaled by its
+lat-long image at the light-space direction (goniometric.cpp, with the
+reference's axes: no y/z swap, ROADMAP C). The static `present_types`
+branching is kept. `light_power` is the power that the `power` light
+strategy samples lights by (a projection or goniometric light counts as a
+point light, as in the reference).
 """
 from __future__ import annotations
+
+import functools
+import operator
 
 import torch
 
@@ -55,6 +63,40 @@ def _spot_falloff(lights, li, w_world):
                        torch.where(costheta > cos_fall, 1.0, d2 * d2))
 
 
+def _projection_factor(lights, li, w_world, images, light_image_rows):
+    """ProjectionLight::Projection (projection.cpp): the light-space direction
+    through the light's perspective matrix onto its screen window; outside
+    the frustum 0, inside the image bilinearly or, for a light with no image,
+    1 (as pbrt: the reference crashes there, ROADMAP C.2)."""
+    wl = tr.xform_v(lights["w2l"][li], w_world)
+    behind = wl[..., 2] < lights["proj_hither"][li]
+    pw = tr.xform_p(lights["proj"][li], wl)
+    scr = lights["screen"][li]
+    s = (pw[..., 0] - scr[:, 0]) / (scr[:, 1] - scr[:, 0])
+    t = (pw[..., 1] - scr[:, 2]) / (scr[:, 3] - scr[:, 2])
+    inside = (~behind) & (s >= 0) & (s <= 1) & (t >= 0) & (t <= 1)
+    val = w_world.new_ones(w_world.shape)
+    for row, img in light_image_rows:
+        m = lights["image_row"][li] == row
+        val = torch.where(m[..., None], image_bilinear(images[img], s, t), val)
+    return torch.where(inside[..., None], val, 0.0)
+
+
+def _gonio_factor(lights, li, w_world, images, light_image_rows):
+    """GonioPhotometricLight::Scale (goniometric.cpp): the light's lat-long
+    image at the light-space direction; 1 for a light with no image."""
+    val = w_world.new_ones(w_world.shape)
+    if not light_image_rows:
+        return val
+    wl = normalize(tr.xform_v(lights["w2l"][li], w_world))
+    s = spherical_phi(wl) / TWO_PI
+    t = spherical_theta(wl) / PI
+    for row, img in light_image_rows:
+        m = lights["image_row"][li] == row
+        val = torch.where(m[..., None], image_bilinear(images[img], s, t), val)
+    return val
+
+
 def _area_sample(scene, li, p, u1, u2, u3):
     """Sample a point on area light li: tri via area CDF, uniform barycentric.
     Returns (wi, n_l, cos_l, pdf_solidangle, dist)."""
@@ -80,16 +122,14 @@ def _area_sample(scene, li, p, u1, u2, u3):
     return wi, n_l, cos_l, pdf, dist
 
 
-def sample_li(scene, li, p, u1, u2, u3, present_types):
+def sample_li(scene, li, p, u1, u2, u3, present_types, light_image_rows=()):
     """Light::Sample_L(p) masked over the present light types.
 
     li (N,) light row per shade point; (u1, u2) 2D sample; u3 picks the area
-    light's triangle. Returns dict: wi (N,3), radiance (N,3), pdf (N,),
-    dist (N,) shadow-ray length, delta (N,) bool."""
-    unported = sorted(set(present_types) - {POINT, SPOT, DISTANT, AREA, INFINITE})
-    if unported:
-        raise NotImplementedError(f"light types {unported} are not ported yet "
-                                  "(POINT, SPOT, DISTANT, AREA, INFINITE)")
+    light's triangle; light_image_rows: SceneMeta.light_image_rows, the
+    (light row, image id) of each projection or goniometric light's map.
+    Returns dict: wi (N,3), radiance (N,3), pdf (N,), dist (N,) shadow-ray
+    length, delta (N,) bool."""
     lights = scene["lights"]
     lt = lights["type"][li]
     n = p.shape[0]
@@ -99,16 +139,24 @@ def sample_li(scene, li, p, u1, u2, u3, present_types):
     dist = p.new_full((n,), WORLD_BIG)
     emit = lights["emit"][li]
 
-    if POINT in present_types or SPOT in present_types:
+    positional = {POINT, SPOT, PROJECTION, GONIOMETRIC} & set(present_types)
+    if positional:
         vec = lights["l2w"][:, :3, 3][li] - p
         d2 = torch.clamp_min(length_sq(vec), 1e-20)
         dd = torch.sqrt(d2)
         wi_p = vec / dd[..., None]
         base = emit / d2[..., None]
-        if SPOT in present_types:
+        images = scene.get("images", ())
+        if SPOT in positional:
             fall = _spot_falloff(lights, li, -wi_p)
             base = torch.where((lt == SPOT)[..., None], base * fall[..., None], base)
-        m = (lt == POINT) | (lt == SPOT)
+        if PROJECTION in positional:
+            proj = _projection_factor(lights, li, -wi_p, images, light_image_rows)
+            base = torch.where((lt == PROJECTION)[..., None], base * proj, base)
+        if GONIOMETRIC in positional:
+            gon = _gonio_factor(lights, li, -wi_p, images, light_image_rows)
+            base = torch.where((lt == GONIOMETRIC)[..., None], base * gon, base)
+        m = functools.reduce(operator.or_, (lt == t for t in sorted(positional)))
         wi = torch.where(m[..., None], wi_p, wi)
         radiance = torch.where(m[..., None], base, radiance)
         pdf = torch.where(m, 1.0, pdf)

@@ -5,14 +5,16 @@
         [--grid N] [--kind path|direct|whitted|ao] [--strategy one|power|all]
         [--ao-samples N]
     python3 -m grail_torch.tools.profile_render --pbrt scenes/envlight.pbrt
+        [--res N] [--spp N]
 
 Renders the Cornell box (or mesh_scene, the textured terrain of
 2(grid-1)^2 triangles under an environment light, grid 224 unless given; or
 mesh_scene_1m, the terrain at grid 708 seen through a thin lens by a moving
 camera: bench.py's mesh1m is --spp 4; or instbench's instanced scene, 100
 instances of a 50,176-triangle sphere: its bench is --spp 4 --depth 3; or a
-.pbrt scene file through the port's parser, at its authored resolution,
-samples, depth and integrator) with the path integrator unless --kind
+.pbrt scene file through the port's parser, at its authored depth and
+integrator, and its authored resolution and samples unless --res (a square
+film) or --spp name others) with the path integrator unless --kind
 names another, once to warm up, once timed, then once under torch.profiler, and prints JSON
 lines: the render's wall time (unprofiled and
 profiled), the summed kernel time and the device's busy share (kernel time
@@ -29,6 +31,8 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import os
+import re
 import time
 
 import torch
@@ -39,9 +43,9 @@ from ..core import rng
 from ..engine import camera, film, integrator, render as rnd
 from ..kernels import intersect
 from ..kernels import instanced
-from ..scene.parser import parse_file
+from ..scene.parser import parse_string
 from ..scene.presets import cornell_box, mesh_scene, mesh_scene_1m
-from ..shade import bsdf, geometry, lights, materials
+from ..shade import bsdf, geometry, lights, materials, textures
 from .instbench import build_instanced
 
 # stage name -> (module, function names) wrapped in a profiler range
@@ -60,6 +64,9 @@ _STAGES = {
     "blas_walk": (instanced, ("bvh4_traverse",)),
     "uv_differentials": (geometry, ("uv_differentials",)),
     "textures": (integrator, ("eval_textures",)),
+    "noise": (textures, ("noise",)),                # Perlin noise, inside textures
+    "bump": (integrator, ("_apply_bump",)),
+    "alpha": (integrator, ("_alpha_at",)),          # the cutouts' alpha lookups
     "environment": (lights, ("env_pdf", "escaped_radiance")),
     "shading_geometry": (geometry, ("shading_geometry",)),
     "textures_lobes": (materials, ("gather_lobes",)),
@@ -98,12 +105,14 @@ def main(argv=None):
     ap.add_argument("--scene", choices=("cornell", "mesh", "mesh1m", "inst"),
                     default="cornell")
     ap.add_argument("--grid", type=int, help="terrain grid (default: the preset's)")
-    ap.add_argument("--res", type=int, default=256)
-    ap.add_argument("--spp", type=int, default=16)
+    ap.add_argument("--res", type=int, help="film side (default 256, or the "
+                                            "scene file's)")
+    ap.add_argument("--spp", type=int, help="samples a pixel (default 16, or the "
+                                            "scene file's)")
     ap.add_argument("--depth", type=int, default=5)
     ap.add_argument("--pbrt", metavar="FILE",
                     help="a .pbrt scene at its authored settings (in place of "
-                         "--scene, --res, --spp, --depth and --grid)")
+                         "--scene, --depth and --grid)")
     ap.add_argument("--kind", choices=integrator.KINDS, default="path")
     ap.add_argument("--strategy", choices=integrator.STRATEGIES, default="one")
     ap.add_argument("--ao-samples", type=int, default=1)
@@ -116,18 +125,30 @@ def main(argv=None):
                                       light_strategy=args.strategy,
                                       ao_samples=args.ao_samples)
     if args.pbrt:
-        scene, meta, api = parse_file(args.pbrt, device=dev)
+        with open(args.pbrt) as f:
+            text = f.read()
+        if args.res:
+            text = re.sub(r'"integer xresolution" \[\d+\] "integer yresolution" \[\d+\]',
+                          f'"integer xresolution" [{args.res}] '
+                          f'"integer yresolution" [{args.res}]', text)
+        if args.spp:
+            text = re.sub(r'"integer pixelsamples" \[\d+\]',
+                          f'"integer pixelsamples" [{args.spp}]', text)
+        scene, meta, api = parse_string(text, device=dev,
+                                        search_path=os.path.dirname(args.pbrt))
         cfg = api.integrator_config
         args.scene, args.res, args.spp, args.depth = (
             args.pbrt, meta.xres, meta.sampler.spp, cfg.max_depth)
-    elif args.scene == "inst":
-        scene, meta = build_instanced(args.res, dev)
-    elif args.scene != "cornell":
-        preset = mesh_scene if args.scene == "mesh" else mesh_scene_1m
-        grid = {} if args.grid is None else {"grid": args.grid}
-        scene, meta, _ = preset(args.res, args.res, args.spp, device=dev, **grid)
     else:
-        scene, meta, _ = cornell_box(args.res, args.res, args.spp, device=dev)
+        args.res, args.spp = args.res or 256, args.spp or 16
+        if args.scene == "inst":
+            scene, meta = build_instanced(args.res, dev)
+        elif args.scene != "cornell":
+            preset = mesh_scene if args.scene == "mesh" else mesh_scene_1m
+            grid = {} if args.grid is None else {"grid": args.grid}
+            scene, meta, _ = preset(args.res, args.res, args.spp, device=dev, **grid)
+        else:
+            scene, meta, _ = cornell_box(args.res, args.res, args.spp, device=dev)
     rnd.render(scene, meta, cfg, spp=args.spp, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()

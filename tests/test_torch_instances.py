@@ -366,9 +366,11 @@ def test_point_light_sample_li(scenes):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), rtol=1e-6,
                                    atol=1e-7, err_msg=k)
     assert got["delta"].all() and (got["pdf"] == 1.0).all()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tlights.sample_li(ts, torch.tensor(li), torch.tensor(p), *map(torch.tensor, u),
-                          (tlights.POINT, tlights.PROJECTION))
+    # a light type the scene lacks changes no point light's sample
+    more = tlights.sample_li(ts, torch.tensor(li), torch.tensor(p), *map(torch.tensor, u),
+                             (tlights.POINT, tlights.PROJECTION, tlights.GONIOMETRIC))
+    for k in ("wi", "radiance", "pdf", "dist", "delta"):
+        assert torch.equal(more[k], got[k]), k
 
 
 def _camera_li(js, jm, cfg):

@@ -153,7 +153,7 @@ def _textures(rs, scene, meta, ts, tm):
         ss, tt = jtex.apply_mapping(spec, None, sgj)
         _close(jtex.image_lookup(spec, scene["images"], scene["mipmaps"], sgj, ss, tt),
                ttex.image_lookup(spec, ts["images"], ts["mipmaps"], sgt,
-                                 *ttex.apply_mapping(spec, sgt)), "image_lookup")
+                                 *ttex.apply_mapping(spec, None, sgt)), "image_lookup")
 
 
 def _uv_differentials(rs, scene, meta, ts, tm):

@@ -5,17 +5,20 @@ render build leaf for leaf the scene that scene_from_numpy carries across
 from the reference's (integers exact, floats to rtol 1e-6, the BVH tables
 bit for bit: both build on the host in numpy, so they hold the same bits),
 with the same SceneMeta and integrator settings. Every other scene makes
-the port raise NotImplementedError naming the directive it lacks (bump.pbrt
-from a copy of scenes/ that holds the bump map git leaves out). The world
-blocks of more scenes are held the same way with their integrator line
-rewritten to "path". Below the parser: the tokenizer, ParamSet's spectrum
+the port raise NotImplementedError naming the directive it lacks. Scenes
+are read from a copy of scenes/ that holds the image assets git leaves out
+(grail_torch/tools/gen_assets.py; bump.pbrt and projgonio.pbrt read them).
+The world blocks of more scenes are held the same way with their
+integrator line rewritten to "path". Snippets that use an alpha cutout,
+a bump map, a goniometric light, a uv texture or a non-uv image mapping
+build leaf for leaf too, and those that use a directive the port still
+lacks raise. Below the parser: the tokenizer, ParamSet's spectrum
 conversions, every shape tessellator (bitwise) and the EXR and PFM codecs;
 above it, the command line.
 """
 import dataclasses
 import os
 import re
-import shutil
 
 import numpy as np
 import pytest
@@ -37,6 +40,7 @@ from grail_torch.scene import paramset as tps
 from grail_torch.scene import parser as tparser
 from grail_torch.scene import shapes as tshapes
 from grail_torch.scene.bridge import scene_from_numpy
+from grail_torch.tools import gen_assets
 
 torch.set_num_threads(2)
 
@@ -44,34 +48,32 @@ SCENES = os.path.join(os.path.dirname(__file__), os.pardir, "scenes")
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 
 # the scenes the port renders: leaf for leaf the reference's
-MATCHING = ("ao", "cornell", "dof", "envlight", "glossy", "heightfield", "instances",
-            "nurbs", "subdiv", "whittedigi")
+MATCHING = ("ao", "bump", "cornell", "dof", "envlight", "glossy", "heightfield",
+            "instances", "nurbs", "orthodisk", "proctex", "projgonio", "subdiv",
+            "whittedigi")
 # the others, with the directive the port refuses them at
 REFUSED = {
-    "bump": "bump mapping",
     "dipole": 'SurfaceIntegrator "dipolesubsurface"',
     "irradcache": 'SurfaceIntegrator "irradiancecache"',
     "measured": 'Material "measured"',
     "mlt": 'Renderer "metropolis"',
-    "orthodisk": 'Camera "orthographic"',
     "photon": 'SurfaceIntegrator "photonmap"',
-    "proctex": 'Texture "checkerboard"',
-    "projgonio": 'LightSource "projection"',
     "prtteapot": 'SurfaceIntegrator "diffuseprt"',
     "spotfog": 'VolumeIntegrator "single"',
     "useprobes": 'SurfaceIntegrator "useprobes"',
 }
-# refused scenes whose world block the port builds once the integrator
-# (or renderer) line reads "path": quadrics, glass and mirror, plastic,
-# point and infinite lights
-WORLD_MATCHING = ("irradcache", "mlt", "photon", "prtteapot", "useprobes")
+# the scenes of the orthographic camera, procedural textures, projection
+# and goniometric lights and bump maps, which the port renders whole
+MAPS = ("bump", "orthodisk", "proctex", "projgonio")
+# the scenes whose world block the port builds once the integrator (or
+# renderer) line reads "path": refused scenes (quadrics, glass and mirror,
+# plastic, point and infinite lights) and MAPS
+WORLD_MATCHING = ("bump", "irradcache", "mlt", "orthodisk", "photon", "proctex",
+                  "projgonio", "prtteapot", "useprobes")
 # ... and where the rest then stop
 WORLD_REFUSED = {
     "dipole": 'Material "subsurface"',
     "measured": 'Material "measured"',
-    "orthodisk": 'Camera "orthographic"',
-    "proctex": 'Texture "checkerboard"',
-    "projgonio": 'LightSource "projection"',
     "spotfog": 'VolumeIntegrator "single"',
 }
 
@@ -79,16 +81,24 @@ WORLD_REFUSED = {
 def test_lists_cover_every_scene():
     names = {f[:-5] for f in os.listdir(SCENES) if f.endswith(".pbrt")}
     assert set(MATCHING) | set(REFUSED) == names and not set(MATCHING) & set(REFUSED)
-    assert set(WORLD_MATCHING) | set(WORLD_REFUSED) | {"bump"} == set(REFUSED)
+    assert set(WORLD_MATCHING) | set(WORLD_REFUSED) == set(REFUSED) | set(MAPS)
+    assert not set(WORLD_MATCHING) & set(WORLD_REFUSED) and set(MAPS) <= set(MATCHING)
 
 
-def _scene_path(name):
-    return os.path.join(SCENES, name + ".pbrt")
+@pytest.fixture(scope="module")
+def scene_dir(tmp_path_factory):
+    """A copy of scenes/ with the image assets that git leaves out (ROADMAP
+    C.1), written by grail_torch/tools/gen_assets.py."""
+    return gen_assets.scene_copy(str(tmp_path_factory.mktemp("parser") / "scenes"))
 
 
-def _path_text(name):
+def _scene_path(name, scenes=SCENES):
+    return os.path.join(scenes, name + ".pbrt")
+
+
+def _path_text(name, scenes=SCENES):
     """The scene's text with its integrator (or renderer) line reading path."""
-    with open(_scene_path(name)) as f:
+    with open(_scene_path(name, scenes)) as f:
         text = f.read()
     return re.sub(r'^(SurfaceIntegrator|Renderer) "\w+"', 'SurfaceIntegrator "path"',
                   text, flags=re.M)
@@ -133,34 +143,22 @@ def assert_same_scene(ported, reference):
 
 
 @pytest.mark.parametrize("name", MATCHING)
-def test_scene_matches_reference(name):
-    assert_same_scene(tparser.parse_file(_scene_path(name), device="cpu"),
-                      jparser.parse_file(_scene_path(name)))
-
-
-@pytest.fixture(scope="module")
-def scene_dir(tmp_path_factory):
-    """A copy of scenes/ with the bump map that git leaves out (ROADMAP
-    C.1), made with scenes/gen_assets.py's array."""
-    out = tmp_path_factory.mktemp("scenes")
-    shutil.copytree(SCENES, out, dirs_exist_ok=True)
-    yy, xx = np.mgrid[0:32, 0:32] / 31.0
-    bump = (0.04 * np.sin(xx * 6 * np.pi) * np.sin(yy * 6 * np.pi)).astype(np.float32)
-    tio.write_image(str(out / "assets" / "bumps.pfm"), np.repeat(bump[..., None], 3, -1))
-    return out
+def test_scene_matches_reference(name, scene_dir):
+    path = _scene_path(name, scene_dir)
+    assert_same_scene(tparser.parse_file(path, device="cpu"), jparser.parse_file(path))
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_unported_scene_raises(name, scene_dir):
     with pytest.raises(NotImplementedError, match=re.escape(REFUSED[name])):
-        tparser.parse_file(str(scene_dir / (name + ".pbrt")), device="cpu")
+        tparser.parse_file(_scene_path(name, scene_dir), device="cpu")
 
 
 @pytest.mark.parametrize("name", WORLD_MATCHING)
-def test_world_block_matches_reference(name):
-    text = _path_text(name)
-    assert_same_scene(tparser.parse_string(text, device="cpu", search_path=SCENES),
-                      jparser.parse_string(text, search_path=SCENES))
+def test_world_block_matches_reference(name, scene_dir):
+    text = _path_text(name, scene_dir)
+    assert_same_scene(tparser.parse_string(text, device="cpu", search_path=scene_dir),
+                      jparser.parse_string(text, search_path=scene_dir))
 
 
 @pytest.mark.parametrize("name", sorted(WORLD_REFUSED))
@@ -178,25 +176,37 @@ WorldBegin
 """
 _QUAD = ('Shape "trianglemesh" "integer indices" [0 1 2 0 2 3] '
          '"point P" [-1 0 1  1 0 1  1 0 -1  -1 0 -1] {extra}\n')
+# parameters and directives of the cutouts, bump maps, goniometric lights
+# and textures, each in a scene that uses it
+PORTED_SNIPPETS = {
+    "alpha": 'LightSource "point"\n' + _QUAD.format(extra='"float alpha" [0.5]'),
+    "bumpmap": ('Texture "b" "float" "constant" "float value" [1]\n'
+                'Material "matte" "texture bumpmap" "b"\n' + _QUAD.format(extra="")),
+    "goniometric": 'LightSource "goniometric"\n' + _QUAD.format(extra=""),
+    "uv_texture": ('Texture "t" "color" "uv"\nMaterial "matte" "texture Kd" "t"\n'
+                   + _QUAD.format(extra="")),
+    "mapping": ('Texture "t" "color" "imagemap" "string mapping" "spherical" '
+                '"string filename" "assets/slide.pfm"\n'
+                'Material "matte" "texture Kd" "t"\nLightSource "point"\n'
+                + _QUAD.format(extra="")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PORTED_SNIPPETS))
+def test_ported_snippet_matches_reference(case, scene_dir):
+    text = (_HEADER.format(film="", sampler="lowdiscrepancy") + PORTED_SNIPPETS[case]
+            + "WorldEnd\n")
+    assert_same_scene(tparser.parse_string(text, device="cpu", search_path=scene_dir),
+                      jparser.parse_string(text, search_path=scene_dir))
+
+
 # parameters and directives that the port refuses where they are used
 UNPORTED_SNIPPETS = {
-    "alpha": ("", "lowdiscrepancy", 'LightSource "point"\n'
-              + _QUAD.format(extra='"float alpha" [0.5]'), 'Shape parameter "alpha"'),
-    "bumpmap": ("", "lowdiscrepancy", 'Texture "b" "float" "constant" "float value" [1]\n'
-                'Material "matte" "texture bumpmap" "b"\n' + _QUAD.format(extra=""),
-                "bump mapping"),
     "cropwindow": ('"float cropwindow" [0 0.5 0 0.5]', "lowdiscrepancy", "",
                    'Film "cropwindow"'),
     "adaptive": ("", "adaptive", "", 'Sampler "adaptive"'),
-    # (the spot light is ported; this case holds a light that is not)
-    "spot": ("", "lowdiscrepancy", 'LightSource "goniometric"\n',
-             'LightSource "goniometric"'),
     "area": ("", "lowdiscrepancy", 'AreaLightSource "other"\n', 'AreaLightSource "other"'),
     "volume": ("", "lowdiscrepancy", 'Volume "homogeneous"\n', 'Volume "homogeneous"'),
-    "uv_texture": ("", "lowdiscrepancy", 'Texture "t" "color" "uv"\n', 'Texture "uv"'),
-    "mapping": ("", "lowdiscrepancy",
-                'Texture "t" "color" "imagemap" "string mapping" "spherical"\n',
-                '"mapping" "spherical"'),
     "transform_times": ("", "lowdiscrepancy", "TransformTimes 0 1\n", "TransformTimes"),
 }
 
@@ -350,6 +360,6 @@ def test_cli_renders_and_refuses(tmp_path):
                      "--outfile", out]) == 0
     img = tio.read_image(out)
     assert img.shape == (64, 64, 3) and np.isfinite(img).all() and img.mean() > 0
-    assert cli_main([_scene_path("orthodisk"), "--cpu", "--quiet"]) == 1
+    assert cli_main([_scene_path("spotfog"), "--cpu", "--quiet"]) == 1
     assert cli_main([_scene_path("envlight"), "--cpu", "--quiet",
                      "--checkpoint", str(tmp_path / "ck")]) == 2
