@@ -125,9 +125,26 @@ failure ends the run with a non-zero exit code:
       against its plain version on the card, bitwise, on the busiest wave of
       each (kernel, role), the re-traces with their per-ray tmin and
       IntersectP run as closest hit among them.
-Then a {"kernels": [...]} line (each kernel's "launches_direct" and
-"launches_maps": its launches in the direct and maps groups' renders) and,
-last, {"ok": true, "device": {...}}.
+  the media group (participating media, measured BRDFs, the dipole
+  subsurface integrator):
+  24. media: the three goldens of these features (spotfog, measured,
+      dipole) through the command line, three processes at once, each EXR
+      against its golden; each at 32x32, 2 spp on the card against the CPU,
+      and spotfog's world with its fog made a seeded density grid and an
+      exponential region (the GRID and EXPONENTIAL marches); the three at
+      256x256, 16 spp (one megawave of 1,048,576 camera rays) under their
+      own integrator (directlighting with VolumeIntegrator "single",
+      directlighting, dipolesubsurface), each with camera rays/s (median
+      of 3 after a warm-up), launches per render of each kernel, the waves
+      by role (the march's "medium" waves, the dipole preprocess's
+      "irradiance" waves), the card's busy share under torch.profiler and
+      peak memory, and the dipole's preprocess seconds apart; the dipole's
+      Mo contraction alone at 1,048,576 lanes (ms, peak memory); then each
+      kernel against its plain version on the card, bitwise, on the
+      busiest wave of each (kernel, role).
+Then a {"kernels": [...]} line (each kernel's "launches_direct",
+"launches_maps" and "launches_media": its launches in the direct, maps and
+media groups' renders) and, last, {"ok": true, "device": {...}}.
 Needs a CUDA device and nvcc; imports nothing of JAX.
 """
 import contextlib
@@ -151,7 +168,9 @@ from grail_torch.engine import camera
 from grail_torch.engine.film import develop, new_film
 from grail_torch.engine import integrator as integ
 from grail_torch.engine.integrator import WAVES, IntegratorConfig
-from grail_torch.engine.render import camera_rays, megawave_lanes, render, render_wave
+from grail_torch.engine import subsurface
+from grail_torch.engine.render import (camera_rays, megawave_lanes, preprocess, render,
+                                       render_wave)
 from grail_torch.kernels import brute_intersect as bi
 from grail_torch.kernels import bvh4 as b4
 from grail_torch.kernels import bvh_stream as bs
@@ -166,6 +185,7 @@ from grail_torch.scene.buffers import SceneBuilder, attach_record_table
 from grail_torch.scene.parser import parse_file, parse_string
 from grail_torch.scene.presets import cornell_box, mesh_scene, mesh_scene_1m
 from grail_torch.scene.shapes import sphere
+from grail_torch.shade import media
 from grail_torch.shade.lights import AREA, INFINITE
 from grail_torch.tools import gen_assets, instbench
 from grail_torch.tools.instbench import (N_INST, SPHERE_NU, SPHERE_NV, build_flattened,
@@ -288,6 +308,20 @@ MAPS_KERNELS = b4.KERNELS
 MAPS_WAVES = (("bvh4_closest", "camera"), ("bvh4_closest", "continuation"),
               ("bvh4_any_hit", "shadow"), ("bvh4_closest", "shadow"),
               ("bvh4_closest", "alpha"))
+# the media group: the goldens of participating media (spotfog), a measured
+# BRDF (measured) and the dipole integrator (dipole); spotfog's world under a
+# seeded density grid and under an exponential region; their full-size
+# renders (one megawave of 1,048,576 camera rays under the scene's own
+# integrator); every scene takes the 4-wide kernels (rows 2, 4, 5)
+MEDIA_GOLDENS = ("spotfog", "measured", "dipole")
+MEDIA_RES, MEDIA_SPP = 256, 16
+MEDIA_KERNELS = b4.KERNELS
+# the waves with live rays the renders must make (their continuations are
+# dead: no specular surface)
+MEDIA_WAVES = (("bvh4_closest", "camera"), ("bvh4_closest", "bsdf"),
+               ("bvh4_any_hit", "shadow"), ("bvh4_any_hit", "medium"),
+               ("bvh4_any_hit", "irradiance"))
+GRID_SEED = 10
 BRUTE_SOURCE = "grail_torch/kernels/csrc/brute_intersect.cu"
 RAGGED = 37                # rays past 1M in the ragged parity case
 NODE_BYTES, TRI_BYTES = 128, 48
@@ -1559,9 +1593,18 @@ def expected_waves(cfg, meta):
     bounce at full width for direct and whitted, one shadow wave a light
     sampled (all of them under "all" and whitted), one BSDF-branch wave each
     where the scene has an area or infinite light; on a scene with alpha
-    cutouts, ALPHA_MAX_REJECT re-traces after every other wave."""
+    cutouts, ALPHA_MAX_REJECT re-traces after every other wave. The
+    single-scattering march traces MAX_MARCH_STEPS "medium" waves a region
+    on the camera segment. kind="dipole" makes one camera wave, one light's
+    shadow wave and BSDF branch, and, once a render (one megawave in the
+    renders here), n_samples (4) "irradiance" waves a light in its
+    preprocess."""
     if cfg.kind == "ao":
         want = dict(camera=1, continuation=0, bsdf=0, shadow=0, occlusion=cfg.ao_samples)
+    elif cfg.kind == "dipole":
+        mis = bool({AREA, INFINITE} & set(meta.light_types))
+        want = dict(camera=1, continuation=0, bsdf=int(mis), shadow=int(meta.n_lights > 0),
+                    occlusion=0)
     else:
         bounces = cfg.max_depth + 1
         lights = (meta.n_lights if cfg.kind == "whitted" or cfg.light_strategy == "all"
@@ -1571,6 +1614,9 @@ def expected_waves(cfg, meta):
                     bsdf=bounces * lights if mis else 0, shadow=bounces * lights,
                     occlusion=0)
     want["alpha"] = integ.ALPHA_MAX_REJECT * sum(want.values()) if meta.alpha_rows else 0
+    marches = (cfg.kind != "ao" and cfg.vol == "single" and meta.n_lights > 0)
+    want["medium"] = media.MAX_MARCH_STEPS * len(meta.media_kinds) if marches else 0
+    want["irradiance"] = 4 * meta.n_lights if cfg.kind == "dipole" else 0
     return want
 
 
@@ -1578,9 +1624,11 @@ def expected_launches(want, meta, kernels):
     """Launches a render of each kernel of `kernels` (closest hit, any hit)
     for the waves `want`: any hit on shadow and occlusion waves, closest hit
     on the others, and on all of them where the scene has alpha cutouts
-    (IntersectP is then a closest-hit loop)."""
+    (IntersectP is then a closest-hit loop); the march's and the dipole
+    preprocess's waves are any hit in every scene (they skip cutouts)."""
     closest, any_hit = kernels
-    n_any = 0 if meta.alpha_rows else want["shadow"] + want["occlusion"]
+    n_any = (0 if meta.alpha_rows else want["shadow"] + want["occlusion"]) \
+        + want["medium"] + want["irradiance"]
     return {closest: sum(want.values()) - n_any, any_hit: n_any}
 
 
@@ -1806,6 +1854,129 @@ def maps_phases(dev, gpu):
     return total
 
 
+def spotfog_variants():
+    """spotfog's world at 32x32 with its homogeneous region made a
+    volumegrid (an 8x4x8 density drawn from GRID_SEED) and an exponential
+    region, the other parameters kept: the GRID and EXPONENTIAL marches of
+    tau and single_scatter_li."""
+    text = _scene_text("spotfog", (PBRT_SMALL_RES, PBRT_SMALL_RES))
+    dens = np.random.default_rng(GRID_SEED).uniform(0.0, 2.0, 8 * 4 * 8)
+    grid = ('Volume "volumegrid" "integer nx" [8] "integer ny" [4] "integer nz" [8] '
+            '"float density" [%s]' % " ".join(f"{v:.4f}" for v in dens))
+    expo = 'Volume "exponential" "float a" [1.5] "float b" [0.8] "vector updir" [0 1 0]'
+    return {"spotfog_grid": text.replace('Volume "homogeneous"', grid),
+            "spotfog_exponential": text.replace('Volume "homogeneous"', expo)}
+
+
+def dipole_contraction(dev, gpu, aux, cfg):
+    """The dipole's Mo contraction alone at a full megawave (1,048,576 lanes
+    against the render's point cloud): ms a call on the card's clock and
+    the peak memory above what it is given."""
+    p = torch.rand((N_RAYS, 3), device=dev, generator=torch.Generator(device=dev).manual_seed(3))
+    args = (p, aux, p.new_tensor(cfg.sss_sigma_a), p.new_tensor(cfg.sss_sigma_s),
+            float(cfg.sss_eta))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = cuda_ms(lambda: subsurface._mo(*args), 3)
+    emit({"phase": "media_dipole_contraction", "lanes": N_RAYS,
+          "points": int(aux["p"].shape[0]), "lane_chunk": subsurface.LANE_CHUNK,
+          "point_chunk": subsurface.POINT_CHUNK, "ms": ms,
+          "peak_above_held_bytes": torch.cuda.max_memory_allocated(dev) - held, "gpu": gpu})
+
+
+def media_phases(dev, gpu):
+    """The media group: the three goldens through the command line and
+    against the CPU, spotfog's grid and exponential variants against the
+    CPU, the three full-size renders, the dipole's contraction alone, and
+    each kernel on the busiest wave of each (kernel, role) the renders hand
+    it, against its plain version. Returns {kernel: launches} over the
+    group's renders (parity launches apart)."""
+    t_group = time.perf_counter()
+    total = dict.fromkeys(MEDIA_KERNELS, 0)
+    waves = {}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pbrt_cli(tmp, MEDIA_GOLDENS, "media_cli")
+    with role_waves(waves):
+        for name in MEDIA_GOLDENS:
+            _reset_counts()
+            small_vs_cpu(name, dev, "media_vs_cpu")
+            add(_launch_counts())
+        for name, text in spotfog_variants().items():
+            _reset_counts()
+            small_vs_cpu(name, dev, "media_vs_cpu", text=text)
+            add(_launch_counts())
+
+        scenes = os.path.join(ROOT, "scenes")
+        for name in MEDIA_GOLDENS:
+            t0 = time.perf_counter()
+            scene, meta, api = parse_string(
+                _scene_text(name, (MEDIA_RES, MEDIA_RES), spp=MEDIA_SPP), device=dev,
+                search_path=scenes)
+            cfg = api.integrator_config
+            _reset_counts()
+            render(scene, meta, cfg, spp=MEDIA_SPP, device=dev)   # captures its waves
+            got_waves = dict(WAVES)
+            extra = {}
+            if cfg.kind == "dipole":
+                # the preprocess apart (each render below runs it once)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                aux = preprocess(scene, meta, cfg)
+                torch.cuda.synchronize()
+                extra["preprocess_seconds"] = time.perf_counter() - t1
+                dipole_contraction(dev, gpu, aux, cfg)
+                del aux
+            times, launches, routes, img, peak, held = bench_render(
+                scene, meta, cfg, MEDIA_SPP, dev)
+            add(launches[0])
+            wall = statistics.median(times)
+            kernel_ms, n_launch, busy = busy_share(scene, meta, cfg, MEDIA_SPP, dev, wall)
+            want = expected_waves(cfg, meta)
+            expected = dict.fromkeys(launches[0], 0)
+            expected.update(expected_launches(want, meta, MEDIA_KERNELS))
+            emit(dict({"phase": "media_bench", "render": name, "kind": cfg.kind,
+                       "vol": cfg.vol, "media_kinds": list(meta.media_kinds),
+                       "lobe_types": list(meta.lobe_types),
+                       "light_strategy": cfg.light_strategy, "res": MEDIA_RES,
+                       "spp": MEDIA_SPP, "max_depth": cfg.max_depth,
+                       "triangles": meta.n_tris, "light_types": list(meta.light_types),
+                       "render_seconds": times,
+                       "camera_rays_per_sec": MEDIA_RES * MEDIA_RES * MEDIA_SPP / wall,
+                       "launches_per_render": launches, "expected_launches": expected,
+                       "bvh4_closest_by_route": routes[0],
+                       "waves": got_waves, "expected_waves": want,
+                       "device_kernel_ms": kernel_ms, "device_launches": n_launch,
+                       "device_busy_share": busy, "image_mean": float(img.mean()),
+                       "peak_memory_bytes": peak, "held_before_render_bytes": held,
+                       "gpu": gpu, "seconds": time.perf_counter() - t0}, **extra))
+            check(got_waves == want, f"{name} made waves {got_waves}, want {want}")
+            check(all(n == expected for n in launches),
+                  f"{name} renders launched {launches}, want {expected}")
+            check(np.isfinite(img).all() and img.shape == (MEDIA_RES, MEDIA_RES, 3)
+                  and img.mean() > 0.0, f"{name}'s image is not finite and positive")
+            del scene
+
+    emit({"phase": "media_launches", "launches": total})
+    check(all(total[k] > 0 for k in MEDIA_KERNELS),
+          f"a kernel of the media path was not launched: {total}")
+    t0 = time.perf_counter()
+    for (kernel, role), (_, tables, rays, kw) in sorted(waves.items(), key=lambda w: w[0]):
+        wave_parity("media", kernel, role, tables, rays, kw, "media_parity")
+    for need in MEDIA_WAVES:
+        check(need in waves, f"the media group's renders made no {need} wave")
+    emit({"phase": "media_parity", "cases": [list(k) for k in sorted(waves)],
+          "seconds": time.perf_counter() - t0})
+    del waves
+    emit({"phase": "media", "seconds": time.perf_counter() - t_group})
+    return total
+
+
 def main():
     check(torch.cuda.is_available(), "no CUDA device")
     dev = torch.device("cuda", 0)
@@ -1843,9 +2014,11 @@ def main():
     pbrt_phases(dev, gpu)
     direct = direct_phases(dev, gpu)
     maps = maps_phases(dev, gpu)
+    media_launches = media_phases(dev, gpu)
     for entry in kernels:
         entry["launches_direct"] = direct.get(entry["name"], 0)
         entry["launches_maps"] = maps.get(entry["name"], 0)
+        entry["launches_media"] = media_launches.get(entry["name"], 0)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(gpu, flush=True)
     emit({"kernels": kernels})

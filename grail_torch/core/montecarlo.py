@@ -6,7 +6,7 @@ import math
 
 import torch
 
-from .vecmath import PI
+from .vecmath import INV_FOURPI, PI, TWO_PI, coordinate_system
 
 _COUNT_MAX = 64   # counting search up to this table width, as the reference
 
@@ -38,6 +38,28 @@ def uniform_sample_triangle(u1, u2):
     """Barycentrics (b0, b1) (pbrt UniformSampleTriangle)."""
     su1 = torch.sqrt(u1)
     return 1.0 - su1, u2 * su1
+
+
+def sample_hg(w, u1, u2, g):
+    """A direction about w distributed as the Henyey-Greenstein phase
+    function (pbrt SampleHG); |g| < 1e-3 samples the sphere uniformly."""
+    costheta_iso = 1.0 - 2.0 * u1
+    sq = (1.0 - g * g) / torch.clamp_min(1.0 - g + 2.0 * g * u1, 1e-8)
+    costheta_hg = (1.0 + g * g - sq * sq) / torch.clamp_min(2.0 * torch.abs(g), 1e-8)
+    costheta = torch.where(torch.abs(g) < 1e-3, costheta_iso, costheta_hg)
+    sintheta = torch.sqrt(torch.clamp_min(1.0 - costheta * costheta, 0.0))
+    phi = TWO_PI * u2
+    v1, v2 = coordinate_system(w)
+    return ((sintheta * torch.cos(phi))[..., None] * v1
+            + (sintheta * torch.sin(phi))[..., None] * v2 + costheta[..., None] * w)
+
+
+def hg_pdf(cos_theta, g):
+    """The Henyey-Greenstein phase function, which is its own pdf (pbrt
+    PhaseHG)."""
+    denom = 1.0 + g * g + 2.0 * g * cos_theta
+    return INV_FOURPI * (1.0 - g * g) / torch.clamp_min(
+        denom * torch.sqrt(torch.clamp_min(denom, 1e-12)), 1e-12)
 
 
 def power_heuristic(nf, f_pdf, ng, g_pdf):

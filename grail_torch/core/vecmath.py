@@ -10,6 +10,7 @@ import torch
 INV_PI = 0.31830988618379067154
 INV_TWOPI = 0.15915494309189533577
 PI = 3.14159265358979323846
+INV_FOURPI = 0.07957747154594766788
 TWO_PI = 6.28318530717958647692
 
 

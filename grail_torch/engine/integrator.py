@@ -34,9 +34,17 @@ scene with cutouts IntersectP is that closest-hit loop. Bump mapping
 (Material::Bump) shears every shading pass's frame by the finite
 differences of the displacement texture at the reference's fixed offset.
 
+Participating media (shade/media.py) enter the shared bounce loop as the
+reference's renderer does: the camera segment (bounce 0, a Python int here
+where the reference takes a lax.cond) adds the volume integrator's Lv and
+multiplies the throughput by its transmittance ("emission", or "single",
+whose march traces a "medium" wave a step), later segments only attenuate;
+estimate_direct multiplies each light sample by the transmittance to the
+light. kind="dipole" (engine/subsurface.py) has its own Li, which
+render.py dispatches to.
+
 Not ported yet: the other integrator kinds (igi, photon mapping, PRT, the
-irradiance cache, subsurface), media and material-sorted shading; they
-raise.
+irradiance cache) and material-sorted shading; they raise.
 """
 from __future__ import annotations
 
@@ -53,6 +61,7 @@ from ..shade import bsdf as bx
 from ..shade import lights as lt
 from ..shade import geometry as geom
 from ..shade import materials as mtl
+from ..shade import media as med
 from ..shade.textures import eval_texture_rows, eval_textures
 
 BIG = 1.0e7
@@ -77,14 +86,17 @@ KINDS = ("path", "direct", "whitted", "ao")
 STRATEGIES = ("one", "power", "all")
 # the reference's other integrator kinds
 UNPORTED_KINDS = ("igi", "photon", "diffuseprt", "glossyprt", "useprobes",
-                  "irradiancecache", "dipole")
+                  "irradiancecache")
 
 # waves handed to the intersect dispatch, by role: closest hit on the camera
-# wave (or AO's first hit), on specular or path continuations, and on the BSDF
-# branch of estimate_direct; any hit on light shadow rays and AO occlusion rays
-# (closest hit on a scene with alpha cutouts); the alpha cutouts' re-traces
+# wave (or AO's and the dipole's first hit), on specular or path
+# continuations, and on the BSDF branch of estimate_direct; any hit on light
+# shadow rays and AO occlusion rays (closest hit on a scene with alpha
+# cutouts); the alpha cutouts' re-traces; any hit on the single-scattering
+# march's shadow rays ("medium") and on the dipole preprocess's rays from its
+# surface points to the lights ("irradiance")
 WAVES = {"camera": 0, "continuation": 0, "bsdf": 0, "shadow": 0, "occlusion": 0,
-         "alpha": 0}
+         "alpha": 0, "medium": 0, "irradiance": 0}
 # alpha cutout re-trace rounds a wave (the reference's ALPHA_MAX_REJECT)
 ALPHA_MAX_REJECT = 4
 BUMP_DU = 0.01      # Material::Bump's offset: the reference's fixed fallback
@@ -106,6 +118,14 @@ class IntegratorConfig:
     light_strategy: str = "one"   # one (uniform) | power | all
     ao_samples: int = 1
     ao_maxdist: float = 1.0e7
+    vol: str = "emission"         # volume integrator: emission | single
+    vol_stepsize: float = 0.1     # read by nothing: the march is 32 fixed steps
+    # dipole subsurface (dipolesubsurface.cpp)
+    sss_npoints: int = 1024       # surface sample points (surfacepoints.cpp)
+    sss_maxerror: float = 0.05    # read by nothing: the contraction is dense
+    sss_sigma_a: tuple = (0.0011, 0.0024, 0.014)    # the skin1 defaults (volume.cpp)
+    sss_sigma_s: tuple = (2.55, 3.21, 3.77)
+    sss_eta: float = 1.3
 
 
 def _bdim(bounce, off):
@@ -260,7 +280,8 @@ def estimate_direct(scene, meta, sg, lobes, wo_local, light_idx, light_pmf,
     ls = lt.sample_li(scene, light_idx, p, u_light[0], u_light[1], u_tri,
                       meta.light_types, meta.light_image_rows)
     wi_l = geom.world_to_local(sg, ls["wi"])
-    f_l = bx.bsdf_f(lobes, wo_local, wi_l, present, include_specular=False)
+    tables = scene.get("brdf_tables", ())
+    f_l = bx.bsdf_f(lobes, wo_local, wi_l, present, include_specular=False, tables=tables)
     cos_l = absdot(ls["wi"], sg["ns"])
     contrib_possible = (active & (ls["pdf"] > 0.0) & (cos_l > 0.0)
                         & torch.any(ls["radiance"] > 0.0, dim=-1)
@@ -268,18 +289,23 @@ def estimate_direct(scene, meta, sg, lobes, wo_local, light_idx, light_pmf,
     occluded = scene_intersect_p(
         scene, meta, p + ls["wi"] * eps[..., None], ls["wi"],
         torch.where(contrib_possible, ls["dist"] - 2.0 * eps, 0.0), time=time)
+    radiance = ls["radiance"]
+    if scene.get("media") is not None:
+        # VisibilityTester::Transmittance through the media
+        radiance = radiance * med.transmittance(scene, meta, p, ls["wi"], ls["dist"],
+                                                torch.full_like(cos_l, 0.5))
     bsdf_pdf_l = bx.bsdf_pdf(lobes, wo_local, wi_l, present, include_specular=False)
     w_l = torch.where(ls["delta"], 1.0,
                       mc.power_heuristic(1.0, ls["pdf"], 1.0, bsdf_pdf_l))
     Ld = torch.where(
         (contrib_possible & ~occluded)[..., None],
-        f_l * ls["radiance"]
+        f_l * radiance
         * (cos_l * w_l / _detach(torch.clamp_min(ls["pdf"], 1e-12)))[..., None],
         0.0)
 
     if bsdf_branch and (lt.AREA in meta.light_types or lt.INFINITE in meta.light_types):
         bs = bx.bsdf_sample(lobes, wo_local, u_dir[0], u_dir[1], u_comp, present,
-                            include_specular=False)
+                            include_specular=False, tables=tables)
         wi_w = geom.local_to_world(sg, bs["wi"])
         cos_b = absdot(wi_w, sg["ns"])
         ltype = scene["lights"]["type"][light_idx]
@@ -371,7 +397,8 @@ def _whitted_light(scene, meta, pix, samp, bounce, sg, lobes, wo_local, active, 
                           _sample_1d(meta, pix, samp, bounce, _D_LIGHT_TRI, lrow),
                           meta.light_types, meta.light_image_rows)
         f_l = bx.bsdf_f(lobes, wo_local, geom.world_to_local(sg, ls["wi"]),
-                        meta.lobe_types, include_specular=False)
+                        meta.lobe_types, include_specular=False,
+                        tables=scene.get("brdf_tables", ()))
         cos_l = absdot(ls["wi"], sg["ns"])
         ok = active & (ls["pdf"] > 0.0) & (cos_l > 0.0)
         occluded = scene_intersect_p(
@@ -385,12 +412,30 @@ def _whitted_light(scene, meta, pix, samp, bounce, sg, lobes, wo_local, active, 
     return Ld
 
 
+def _segment_media(scene, meta, cfg, o, d, seg_t, pix, samp, bounce):
+    """The media's (Lv, T) on a bounce's segments: on the camera segment the
+    volume integrator's (samplerrenderer.cpp: T Lsurf + Lv), "single" with
+    its march's shadow rays as "medium" waves; later segments only
+    attenuate (Renderer::Transmittance), with a jitter drawn at a traced
+    dimension in the reference (HALTON's base 2)."""
+    if bounce == 0:
+        if cfg.vol == "single" and meta.n_lights > 0:
+            def trace(o_s, d_s, tmax):
+                return _trace(scene, o_s, d_s, tmax, any_hit=True, role="medium")
+            return med.single_scatter_li(scene, meta, o, d, seg_t, pix, samp, trace)
+        return med.emission_li(scene, meta, o, d, seg_t, pix, samp)
+    u_j = rngmod.sample_1d(meta.sampler, pix, samp,
+                           med.MEDIA_DIM + 1 + med.SEGMENT_STRIDE * bounce, traced=True)
+    return o.new_zeros((o.shape[0], 3)), med.transmittance(scene, meta, o, d, seg_t, u_j)
+
+
 def _make_bounce_body(scene, meta, cfg, pix, samp, camdiff=None, time=None):
     """The per-bounce stage over the lanes of `pix`/`samp` (the compacted
     tail instantiates it again at a narrower width). camdiff: the camera
     differential rays, passed to the peeled bounce 0 only; time: the lanes'
     ray times, or None."""
     path_reuse = cfg.kind == "path"
+    has_media = scene.get("media") is not None
 
     def bounce_body(bounce, state):
         o, d, L, throughput, active, spec_bounce, pdf_prev = state
@@ -399,6 +444,11 @@ def _make_bounce_body(scene, meta, cfg, pix, samp, camdiff=None, time=None):
                               sort=False if bounce == 0 else None, time=time,
                               role="camera" if bounce == 0 else "continuation")
         miss = hit["prim"] < 0
+        if has_media:
+            Lv, T_seg = _segment_media(scene, meta, cfg, o, d,
+                                       torch.where(miss, BIG, hit["t"]), pix, samp, bounce)
+            L = L + torch.where(active[..., None], Lv, 0.0)
+            throughput = throughput * torch.where(active[..., None], T_seg, 1.0)
         # escaped rays take the environment's radiance: camera and specular
         # rays unweighted; with path-vertex reuse, other continuations
         # MIS-weighted against the light strategy's env pdf
@@ -452,7 +502,8 @@ def _make_bounce_body(scene, meta, cfg, pix, samp, camdiff=None, time=None):
         u_dir = _sample_2d(meta, pix, samp, bounce, _D_BSDF_DIR)
         u_comp = _sample_1d(meta, pix, samp, bounce, _D_BSDF_COMP)
         bs = bx.bsdf_sample(lobes, wo_local, u_dir[0], u_dir[1], u_comp,
-                            meta.lobe_types, include_specular=True)
+                            meta.lobe_types, include_specular=True,
+                            tables=scene.get("brdf_tables", ()))
         wi_w = geom.local_to_world(sg, bs["wi"])
         cos_c = absdot(wi_w, sg["ns"])
         contrib = bs["f"] * (cos_c
@@ -501,7 +552,10 @@ def li(scene, meta, cfg: IntegratorConfig, rays, pix, samp):
     Returns L (N,3)."""
     if cfg.kind in UNPORTED_KINDS:
         raise NotImplementedError(f"integrator kind {cfg.kind!r} is not ported yet "
-                                  f"(ported: {', '.join(KINDS)})")
+                                  f"(ported: {', '.join(KINDS)}, dipole)")
+    if cfg.kind == "dipole":
+        raise ValueError("kind 'dipole' needs its preprocess: render it through "
+                         "engine.render (subsurface.dipole_li)")
     if cfg.kind not in KINDS:
         raise ValueError(f"unknown integrator kind {cfg.kind!r}; expected one of "
                          f"{', '.join(KINDS)}")

@@ -8,6 +8,12 @@ wave in sample order, so the image is bitwise the same however the chunks
 fall. `render` is the serving path and runs under torch.no_grad();
 `render_wave` records gradients when a scene leaf requires them, as the
 reference's render_wave is differentiated (tools/optimize.py).
+
+kind="dipole" has a preprocess (engine/subsurface.py: the surface points and
+their irradiance), which `render` builds once and hands every megawave as
+`aux`, and its own Li. The reference's other preprocessed kinds (photon
+mapping, PRT, probes, the irradiance cache) are not ported yet: li raises
+on them.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ from ..core import rng as rngmod
 from ..device import check_on, resolve_device
 from . import camera as cam
 from . import film as flm
+from . import subsurface
 from .integrator import IntegratorConfig, li, SLOT_FILM, SLOT_LENS, SLOT_TIME
 
 
@@ -51,15 +58,24 @@ def camera_rays(scene, meta, pix, samp):
     return rays, px, py, ufx, ufy
 
 
+def preprocess(scene, meta, cfg):
+    """The render's `aux`: the dipole's point cloud and irradiance for
+    kind="dipole", None for the other kinds."""
+    if cfg.kind == "dipole":
+        return subsurface.dipole_preprocess(scene, meta, cfg)
+    return None
+
+
 def render_wave(scene, meta, cfg, film, samp_idx, pix=None, grid_chunk=None,
-                tiled=False, device=None):
+                tiled=False, device=None, aux=None):
     """One megawave: raygen -> Li -> film accumulate; returns the new film,
     differentiable to the scene's leaves that require grad.
 
     pix: (N,) pixel ids (defaults to the full grid, one sample each);
     samp_idx: a scalar sample index or (N,) per-lane indices. grid_chunk:
     with pix the full pixel grid tiled grid_chunk times (lane i <-> pixel
-    i % npix), which the dense film path needs."""
+    i % npix), which the dense film path needs. aux: the render's
+    preprocess (made here when a kind needs one and none is given)."""
     device = resolve_device(device)
     check_on(scene["verts"], device, "the scene")
     if pix is None:
@@ -70,7 +86,11 @@ def render_wave(scene, meta, cfg, film, samp_idx, pix=None, grid_chunk=None,
         raise NotImplementedError("scattered (non-grid) waves are not ported yet")
     samp = torch.as_tensor(samp_idx, dtype=torch.int64, device=device).expand(pix.shape)
     rays, px, py, ufx, ufy = camera_rays(scene, meta, pix, samp)
-    L = li(scene, meta, cfg, rays, pix, samp)
+    if cfg.kind == "dipole":
+        aux = aux if aux is not None else preprocess(scene, meta, cfg)
+        L = subsurface.dipole_li(scene, meta, cfg, rays, pix, samp, aux)
+    else:
+        L = li(scene, meta, cfg, rays, pix, samp)
     # NaN/Inf quarantine (samplerrenderer.cpp checks): drop bad samples
     bad = torch.any(~torch.isfinite(L), dim=-1)
     L = torch.where(bad[..., None], 0.0, L)
@@ -91,10 +111,10 @@ def megawave_lanes(meta, s0, chunk, device):
     return wave_pix.repeat(chunk), samp, tiled
 
 
-def _render_chunk(scene, meta, cfg, film, s0, chunk, device):
+def _render_chunk(scene, meta, cfg, film, s0, chunk, device, aux=None):
     pix, samp, tiled = megawave_lanes(meta, s0, chunk, device)
     return render_wave(scene, meta, cfg, film, samp, pix=pix, grid_chunk=chunk,
-                       tiled=tiled, device=device)
+                       tiled=tiled, device=device, aux=aux)
 
 
 def auto_spp_chunk(meta, spp, target_rays=1 << 20):
@@ -114,8 +134,9 @@ def render(scene, meta, cfg: IntegratorConfig, spp=None, spp_chunk=None,
     spp = spp if spp is not None else meta.sampler.spp
     if spp_chunk is None:
         spp_chunk = auto_spp_chunk(meta, spp)
+    aux = preprocess(scene, meta, cfg)
     film = flm.new_film(meta.xres, meta.yres, device)
     for s0 in range(0, spp, spp_chunk):
         film = _render_chunk(scene, meta, cfg, film, s0, min(spp_chunk, spp - s0),
-                             device)
+                             device, aux)
     return flm.develop(film), film

@@ -7,22 +7,29 @@ attributes, materials, lights and shapes -> WorldEnd) and build the same
 rows in the same order, so that a parsed scene holds the reference's leaves.
 Ported: the transform directives, Camera "perspective", "orthographic" and
 "environment", Film, Sampler, PixelFilter, SurfaceIntegrator "path",
-"directlighting", "whitted" and "ambientocclusion", attributes and
+"directlighting", "whitted", "ambientocclusion" and "dipolesubsurface",
+VolumeIntegrator "emission" and "single", attributes and
 ReverseOrientation, Texture "constant", "scale", "mix", "bilerp", "uv",
 "checkerboard", "dots", "fbm", "wrinkled", "windy", "marble" and
 "imagemap" (uv, spherical, cylindrical and planar mappings), the materials
-matte, plastic, metal, shinymetal, mirror, glass, uber and mix (named or
-not) with a "bumpmap", LightSource "point", "spot", "distant", "infinite",
-"projection" and "goniometric", AreaLightSource "diffuse", every shape of
+matte, plastic, metal, shinymetal, mirror, glass, uber, substrate,
+translucent, measured, subsurface, kdsubsurface and mix (named or not) with
+a "bumpmap", LightSource "point", "spot", "distant", "infinite",
+"projection" and "goniometric", AreaLightSource "diffuse", Volume
+"homogeneous", "volumegrid" and "exponential", every shape of
 scene/shapes.py with its "alpha" cutout, and object instancing
 (ObjectBegin/ObjectEnd/ObjectInstance, animated transforms as
 single-instance objects). Everything else raises NotImplementedError where
-it is used, naming the directive or parameter; a missing image file raises
-(the reference substitutes a constant or drops the map). The reference's
-own name mappings stay: an unknown camera is the perspective camera, an
-unknown filter is a box filter, an unknown sampler and "bestcandidate" are
-the (0,2)-sequence, an unknown integrator is "path", an unknown accelerator
-or renderer is the BVH and the sampler renderer, each with a warning.
+it is used, naming the directive or parameter; a missing image or BRDF file
+raises (the reference substitutes a constant, drops the map or shades
+matte). The reference's own name mappings stay: an unknown camera is the
+perspective camera, an unknown filter is a box filter, an unknown sampler
+and "bestcandidate" are the (0,2)-sequence, an unknown integrator is
+"path", an unknown volume integrator "emission", an unknown accelerator or
+renderer is the BVH and the sampler renderer, each with a warning; an
+unknown Volume is ignored with a warning, and a subsurface medium whose
+name is not in the (case-sensitive) measured table keeps the skin1
+coefficients with a warning, as in the reference.
 """
 from __future__ import annotations
 
@@ -38,7 +45,10 @@ from ..engine import camera as cam
 from ..engine.filters import FilterConfig
 from ..engine.imageio import read_image
 from ..engine.integrator import IntegratorConfig
+from ..engine.subsurface import subsurface_from_diffuse
 from ..shade import bsdf as bx
+from ..shade import measured as msr
+from ..shade import media as med
 from ..shade.materials import CONV_INV, CONV_RADIANS
 from ..shade.textures import TexSpec
 from . import shapes as shp
@@ -55,9 +65,10 @@ COPPER_K = (3.9129, 2.4528, 2.1421)
 # and the others the reference knows (an unknown name renders with "path",
 # as in the reference)
 INTEGRATORS = {"path": "path", "directlighting": "direct", "whitted": "whitted",
-               "ambientocclusion": "ao"}
+               "ambientocclusion": "ao", "dipolesubsurface": "dipole"}
 UNPORTED_INTEGRATORS = ("igi", "photonmap", "exphotonmap", "diffuseprt", "glossyprt",
-                        "useprobes", "irradiancecache", "dipolesubsurface")
+                        "useprobes", "irradiancecache")
+VOLUME_INTEGRATORS = ("emission", "single")
 SAMPLER_KINDS = {"lowdiscrepancy": ZERO_TWO, "02sequence": ZERO_TWO,
                  "stratified": STRATIFIED, "halton": HALTON, "random": RANDOM,
                  "bestcandidate": ZERO_TWO}
@@ -142,6 +153,13 @@ class PbrtAPI:
         self.filter_params = ParamSet()
         self.integrator_name = "directlighting"
         self.integrator_params = ParamSet()
+        self.vol_integrator_name = "emission"
+        self.vol_integrator_params = ParamSet()
+        # the BSSRDF medium the last subsurface material recorded (the skin1
+        # defaults of pbrt volume.cpp's measured table)
+        self.sss_sigma_a = (0.0011, 0.0024, 0.014)
+        self.sss_sigma_s = (2.55, 3.21, 3.77)
+        self.sss_eta = 1.3
         self.accelerator_name = "bvh"
         self.renderer_name = "sampler"
         self.objects = {}                 # ObjectBegin name -> recorded shapes
@@ -226,8 +244,9 @@ class PbrtAPI:
         self.integrator_name, self.integrator_params = name, params
 
     def volume_integrator(self, name, params):
-        if name != "emission":
-            raise _unported(f'VolumeIntegrator "{name}"')
+        if name not in VOLUME_INTEGRATORS:
+            log.warning("Volume integrator %r mapped to emission", name)
+        self.vol_integrator_name, self.vol_integrator_params = name, params
 
     def accelerator(self, name, params):
         self.accelerator_name = name
@@ -487,7 +506,73 @@ class PbrtAPI:
                     lobes.append(dict(lobe, s0=b.add_texture(
                         TexSpec(kind="scale", inputs=(weight, lobe["s0"])))))
             return lobes
+        if mtype == "substrate":
+            kd = tp.get_spectrum_texture(b, "Kd", (0.5,) * 3)
+            ks = tp.get_spectrum_texture(b, "Ks", (0.5,) * 3)
+            ur = tp.get_float_texture(b, "uroughness", 0.1)
+            vr = tp.get_float_texture(b, "vroughness", 0.1)
+            return [dict(type=bx.FRESNEL_BLEND, s0=kd, s1=ks, f0=ur, f1=vr,
+                         f0_conv=CONV_INV, f1_conv=CONV_INV)]
+        if mtype == "translucent":
+            kd = tp.get_spectrum_texture(b, "Kd", (0.25,) * 3)
+            ks = tp.get_spectrum_texture(b, "Ks", (0.25,) * 3)
+            refl = tp.get_spectrum_texture(b, "reflect", (0.5,) * 3)
+            trans = tp.get_spectrum_texture(b, "transmit", (0.5,) * 3)
+            rough = tp.get_float_texture(b, "roughness", 0.1)
+            ior = b.const_tex((1.5,) * 3)
+            rkd, rks, tkd, tks = (b.add_texture(TexSpec(kind="scale", inputs=pair))
+                                  for pair in ((refl, kd), (refl, ks), (trans, kd),
+                                               (trans, ks)))
+            return [
+                dict(type=bx.LAMBERT, s0=rkd),
+                dict(type=bx.BLINN, s0=rks, fr=bx.FR_DIELECTRIC, f0=rough,
+                     f0_conv=CONV_INV, f2=ior),
+                dict(type=bx.LAMBERT_T, s0=tkd),
+                dict(type=bx.BLINN_T, s0=tks, fr=bx.FR_DIELECTRIC, f0=rough,
+                     f0_conv=CONV_INV, f2=ior)]
+        if mtype in ("subsurface", "kdsubsurface"):
+            self._record_sss_medium(mtype, tp)
+            # the shell the dipole integrator shades direct light with: a
+            # diffuse base; Kr gets a texture row, as in the reference, which
+            # no lobe reads
+            tp.get_spectrum_texture(b, "Kr", (1.0, 1.0, 1.0))
+            kd = tp.get_spectrum_texture(b, "Kd", (0.5, 0.5, 0.5))
+            return [dict(type=bx.LAMBERT, s0=kd)]
+        if mtype == "measured":
+            fname = tp.find_one_string("filename", "")
+            if not fname:
+                raise ValueError('Material "measured" without a "filename"')
+            path = self._resolve(fname)
+            if path.endswith(".binary"):
+                table = msr.read_merl(path)
+            else:
+                table = msr.bake_irregular(*msr.read_brdf(path))
+            return b.measured_lobes(table)
         raise _unported(f'Material "{mtype}"')
+
+    def _record_sss_medium(self, mtype, tp):
+        """The BSSRDF medium of a subsurface material, for the dipole
+        integrator: kdsubsurface's Kd and mean free path inverted
+        (SubsurfaceFromDiffuse), a named medium of the measured table, or
+        explicit sigma_a and sigma_prime_s times "scale"; and its index."""
+        eta = tp.find_one_float("index", 1.3)
+        name = tp.find_one_string("name", "")
+        if mtype == "kdsubsurface":
+            self.sss_sigma_a, self.sss_sigma_s = subsurface_from_diffuse(
+                tp.find_one_rgb("Kd", (0.5, 0.5, 0.5)),
+                tp.find_one_float("meanfreepath", 1.0), eta)
+        elif name and name in med.MEASURED_MEDIA:
+            sa, sps = med.MEASURED_MEDIA[name]
+            self.sss_sigma_a, self.sss_sigma_s = tuple(sa), tuple(sps)
+        elif name:
+            log.warning('Unknown scattering medium "%s"; using skin1', name)
+        else:
+            scale = tp.find_one_float("scale", 1.0)
+            sa = tp.find_one_rgb("sigma_a", (0.0011, 0.0024, 0.014))
+            sps = tp.find_one_rgb("sigma_prime_s", (2.55, 3.21, 3.77))
+            self.sss_sigma_a = tuple(float(x) * scale for x in sa)
+            self.sss_sigma_s = tuple(float(x) * scale for x in sps)
+        self.sss_eta = eta
 
     # ------------------------------------------------------------------- lights
     def light_source(self, name, params):
@@ -731,6 +816,36 @@ class PbrtAPI:
             self._tlas_objects[name] = obj_id
         b.add_instance(obj_id, inst_ctm.t[0].copy(), inst_ctm.t[1].copy())
 
+    # ------------------------------------------------------------------ volumes
+    def volume(self, name, params):
+        """Volume -> a media region (src/volumes/*), in the CTM's frame."""
+        common = dict(
+            v2w=self.ctm.t[0],
+            p0=params.find_one_point("p0", (0, 0, 0)),
+            p1=params.find_one_point("p1", (1, 1, 1)),
+            sigma_a=params.find_one_rgb("sigma_a", (0.45,) * 3),
+            sigma_s=params.find_one_rgb("sigma_s", (0.25,) * 3),
+            g=params.find_one_float("g", 0.0),
+            le=params.find_one_rgb("Le", (0, 0, 0)))
+        b = self.builder
+        if name == "homogeneous":
+            b.add_volume(med.HOMOGENEOUS, **common)
+        elif name == "volumegrid":
+            dens = params.find_floats("density")
+            if dens is None:
+                log.warning("volumegrid without density ignored")
+                return
+            shape = tuple(params.find_one_int(k, 1) for k in ("nz", "ny", "nx"))
+            b.add_volume(med.GRID, density=np.asarray(dens, np.float32).reshape(shape),
+                         **common)
+        elif name == "exponential":
+            b.add_volume(med.EXPONENTIAL, exp_a=params.find_one_float("a", 1.0),
+                         exp_b=params.find_one_float("b", 1.0),
+                         updir=params.find_one_point("updir", (0, 1, 0)), **common)
+        else:
+            log.warning("Unknown volume %r ignored", name)
+        params.report_unused(f'Volume "{name}"')
+
     # ------------------------------------------------------------------- finish
     def world_end(self):
         """MakeRenderer + MakeScene -> (scene, meta); the integrator's
@@ -791,7 +906,13 @@ class PbrtAPI:
             light_strategy=("one" if strategy == "one" else "all")
             if kind == "direct" else "one",
             ao_samples=ip.find_one_int("nsamples", 2048) if kind == "ao" else 1,
-            ao_maxdist=ip.find_one_float("maxdist", 1e7))
+            ao_maxdist=ip.find_one_float("maxdist", 1e7),
+            vol=(self.vol_integrator_name if self.vol_integrator_name in VOLUME_INTEGRATORS
+                 else "emission"),
+            vol_stepsize=self.vol_integrator_params.find_one_float("stepsize", 0.1),
+            sss_maxerror=ip.find_one_float("maxerror", 0.05) if kind == "dipole" else 0.05,
+            sss_sigma_a=tuple(self.sss_sigma_a), sss_sigma_s=tuple(self.sss_sigma_s),
+            sss_eta=self.sss_eta)
         if self.renderer_name not in ("sampler", "aggregatetest", ""):
             log.warning("Renderer %r falls back to the sampler renderer",
                         self.renderer_name)

@@ -13,8 +13,9 @@ reference's own binary tree (for a single record table and for clustered
 tables alike; the record
 table is the port's own, on request: buffers.attach_record_table), and the
 instance table, whose BLAS table is collapsed from the reference's own
-per-object binary trees. Leaves the port does not read are dropped; a scene
-that needs a route the port lacks raises. This module imports nothing of the reference: everything
+per-object binary trees, the measured BRDF tables, and the media regions
+with their density grids. Leaves the port does not read are dropped; a
+scene that needs a route the port lacks raises. This module imports nothing of the reference: everything
 arrives as numpy arrays and plain attributes.
 """
 from __future__ import annotations
@@ -41,9 +42,11 @@ _LIGHTS = ("type", "emit", "l2w", "w2l", "cos_total", "cos_falloff", "world_dir"
 _CAMERA = ("type", "raster2cam", "c2w", "lens_radius", "focal_distance", "shutter")
 _PYRAMID = ("flat", "h", "w", "off")
 _INSTANCE = ("obj", "t", "q", "s", "anim", "m0", "m0_inv", "swap", "wmin", "wmax")
+_MEDIA = ("w2v", "bounds_min", "bounds_max", "sigma_a", "sigma_s", "g", "le", "grid_id",
+          "exp_a", "exp_b", "updir")
 # reference-side features whose routes are not ported yet
-_UNPORTED_LEAVES = ("ring", "media")
-_UNPORTED_META = {"media_kinds": (), "crop": (0.0, 1.0, 0.0, 1.0)}
+_UNPORTED_LEAVES = ("ring",)
+_UNPORTED_META = {"crop": (0.0, 1.0, 0.0, 1.0)}
 
 
 def _same_fields(cls, obj):
@@ -73,6 +76,7 @@ def meta_from(meta) -> SceneMeta:
         bump_rows=tuple(int(r) for r in meta.bump_rows),
         light_image_rows=tuple((int(r), int(i)) for r, i in meta.light_image_rows),
         alpha_rows=tuple(int(r) for r in meta.alpha_rows),
+        media_kinds=tuple(int(k) for k in getattr(meta, "media_kinds", ())),
     )
 
 
@@ -113,9 +117,6 @@ def scene_from_numpy(scene_np, meta, device=None):
     for key in _UNPORTED_LEAVES:
         if scene_np.get(key) is not None:
             raise NotImplementedError(f"scene has {key!r}: not ported yet")
-    for key in ("brdf_tables", "density_grids"):
-        if len(scene_np.get(key, ())) > 0:
-            raise NotImplementedError(f"scene has {key!r}: not ported yet")
     scene = {k: scene_np[k] for k in _GEOMETRY}
     scene["materials"] = {k: scene_np["materials"][k] for k in MAT_FIELDS + ("bump",)}
     scene["tex_data"] = {k: scene_np["tex_data"][k] for k in ("const", "w2t")}
@@ -136,6 +137,11 @@ def scene_from_numpy(scene_np, meta, device=None):
     if int(meta.cam_kind) == ENVIRONMENT:
         scene["camera"]["xres"] = np.float32(meta.xres)
         scene["camera"]["yres"] = np.float32(meta.yres)
+    if len(scene_np.get("brdf_tables", ())) > 0:
+        scene["brdf_tables"] = tuple(scene_np["brdf_tables"])
+    if scene_np.get("media") is not None:
+        scene["media"] = {k: scene_np["media"][k] for k in _MEDIA}
+        scene["density_grids"] = tuple(scene_np.get("density_grids", ()))
     bvh = scene_np.get("bvh")
     if bvh is not None:
         # one 4-wide table from the binary tree, whether the reference packed

@@ -11,14 +11,15 @@ pre-gathered light-triangle vertices, light transforms, spot cones, distant
 directions, the projection lights' frusta and the projection and
 goniometric lights' image rows, the environment map and its
 Distribution2D, the world radius and the power-weighted light
-Distribution1D, the camera pack and, above 64 triangles, the BVH's 4-wide
-node and triangle tables (its record table on request). Instanced objects
+Distribution1D, the camera pack, the measured BRDF tables
+("brdf_tables"), the participating-media regions ("media", with their
+density grids) and, above 64 triangles, the BVH's 4-wide node and triangle
+tables (its record table on request). Instanced objects
 (pbrt's ObjectBegin/ObjectInstance) append their object-space triangles
 once, after the base soup, and add the instance table ("inst"): one 4-wide
 table of every object's BLAS with each instance's root, its decomposed
 (possibly animated) transform and its motion-bound world box. Host-side
 work is numpy, as in the reference, so both packages hold the same bits.
-Media are not ported yet.
 """
 from __future__ import annotations
 
@@ -89,6 +90,7 @@ class SceneMeta:
     bump_rows: Tuple[int, ...] = ()
     light_image_rows: Tuple[Tuple[int, int], ...] = ()   # (light row, image id)
     alpha_rows: Tuple[int, ...] = ()    # the alpha-cutout texture rows in use
+    media_kinds: Tuple[int, ...] = ()   # each media region's kind (shade/media.py)
 
 
 def _motion_bounds(m0, m1, omin, omax, steps=16):
@@ -228,6 +230,18 @@ def env_distribution(env_map):
     return {part: {k: v.numpy() for k, v in d.items()} for part, d in dist.items()}
 
 
+def media_table(regions):
+    """The region table (numpy) of add_volume's regions: the columns the
+    media stages read."""
+    def col(key, dtype=np.float32):
+        return np.asarray([m[key] for m in regions], dtype)
+    return {"w2v": np.stack([tr.inverse(m["v2w"]) for m in regions]).astype(np.float32),
+            "bounds_min": col("p0"), "bounds_max": col("p1"),
+            "sigma_a": col("sigma_a"), "sigma_s": col("sigma_s"), "g": col("g"),
+            "le": col("le"), "grid_id": col("grid_id", np.int32),
+            "exp_a": col("exp_a"), "exp_b": col("exp_b"), "updir": col("updir")}
+
+
 class SceneBuilder:
     def __init__(self):
         self.verts = []
@@ -255,6 +269,9 @@ class SceneBuilder:
         self.yres = 256
         self.inst_objects = []   # object-space mesh buckets (add_object)
         self.instances = []      # {obj, m0, m1} (add_instance)
+        self.brdf_tables = []    # measured half-angle BRDF tables (numpy)
+        self.media_regions = []  # add_volume's regions
+        self.density_grids = []
 
     # ------------------------------------------------------------------- textures
     def add_texture(self, spec: TexSpec, const=(0.0, 0.0, 0.0), w2t=None):
@@ -283,6 +300,18 @@ class SceneBuilder:
         self.mat_rows.append(list(lobes))
         self.mat_bump.append(-1 if bump is None else int(bump))
         return len(self.mat_rows) - 1
+
+    def measured_lobes(self, table):
+        """The lobe stack of a measured BRDF material (measured.cpp): one
+        MEASURED lobe over the half-angle table (shade/measured.py), its
+        albedo estimate in S1 and its table row in f1."""
+        from ..shade.measured import albedo_estimate
+        gi = len(self.brdf_tables)
+        self.brdf_tables.append(np.asarray(table, np.float32))
+        one = self.const_tex((1.0, 1.0, 1.0))
+        alb = self.const_tex(tuple(np.clip(albedo_estimate(table), 0.0, 1.0)))
+        gid = self.add_texture(TexSpec(kind="const"), (float(gi),) * 3)
+        return [{"type": bx.MEASURED, "s0": one, "s1": alb, "f1": gid}]
 
     def matte(self, kd_tex=None, kd=(0.5, 0.5, 0.5)):
         """pbrt matte.cpp, Lambertian (the parser builds OrenNayar itself)."""
@@ -428,6 +457,27 @@ class SceneBuilder:
             self.env_map = np.asarray(env_map, np.float32)
 
     # --------------------------------------------------------------------- finalize
+    # -------------------------------------------------------------------- volumes
+    def add_volume(self, vtype, v2w=None, p0=(0, 0, 0), p1=(1, 1, 1),
+                   sigma_a=(0.45, 0.45, 0.45), sigma_s=(0.25, 0.25, 0.25),
+                   g=0.0, le=(0, 0, 0), density=None, exp_a=1.0, exp_b=1.0,
+                   updir=(0, 1, 0)):
+        """A media region (pbrt src/volumes/*): vtype media.HOMOGENEOUS,
+        GRID (density: a (nz, ny, nx) grid) or EXPONENTIAL; the box [p0, p1]
+        in volume space; v2w the VolumeToWorld transform."""
+        grid_id = -1
+        if density is not None:
+            grid_id = len(self.density_grids)
+            self.density_grids.append(np.asarray(density, np.float32))
+        self.media_regions.append(dict(
+            type=vtype, v2w=v2w if v2w is not None else tr.identity(),
+            p0=np.asarray(p0, np.float32), p1=np.asarray(p1, np.float32),
+            sigma_a=np.asarray(sigma_a, np.float32),
+            sigma_s=np.asarray(sigma_s, np.float32),
+            g=float(g), le=np.asarray(le, np.float32), grid_id=grid_id,
+            exp_a=float(exp_a), exp_b=float(exp_b),
+            updir=np.asarray(updir, np.float32)))
+
     def finalize(self, device=None):
         """Compile to (scene, meta); tensors go to `device` (CUDA unless the
         caller passes another)."""
@@ -580,6 +630,11 @@ class SceneBuilder:
             if self.env_map is not None:
                 scene["env_map"] = self.env_map
         scene["camera"] = self.camera
+        if self.brdf_tables:
+            scene["brdf_tables"] = tuple(self.brdf_tables)
+        if self.media_regions:
+            scene["media"] = media_table(self.media_regions)
+            scene["density_grids"] = tuple(self.density_grids)
 
         # ---- the BVH's 4-wide tables over the base soup (the record table
         # only on request: attach_record_table). An instanced scene always
@@ -633,5 +688,6 @@ class SceneBuilder:
             light_image_rows=tuple(sorted(light_image_rows.items())),
             alpha_rows=tuple(sorted({int(a) for a in np.unique(scene["tri_alpha"])
                                      if a >= 0})),
+            media_kinds=tuple(int(m["type"]) for m in self.media_regions),
         )
         return to_torch(scene, device), meta

@@ -214,7 +214,7 @@ def parse(ts: _TokenStream, api: PbrtAPI):
         elif d == "Shape":
             api.shape(_read_string(ts), _read_params(ts, api.search_path))
         elif d == "Volume":
-            raise NotImplementedError(f'Volume "{_read_string(ts)}" is not ported yet')
+            api.volume(_read_string(ts), _read_params(ts, api.search_path))
         else:
             log.warning("Unknown directive %r ignored", d)
     return None

@@ -21,7 +21,8 @@ profiled), the summed kernel time and the device's busy share (kernel time
 over the unprofiled wall time), the number of kernel launches; for each stage
 of the path its kernel time, the device timeline it spans and the host time
 spent issuing it (all inclusive of what runs inside; sample_li lies inside
-direct lighting and bsdf_eval partly inside bsdf_sample, so stages nest);
+direct lighting and bsdf_eval partly inside bsdf_sample, the march's transmittance inside
+`medium`, so stages nest);
 and the kernels and operators that take the most device time. The stream traversal
 kernels are launched through ctypes and do not appear in the profiler's
 kernel list; chip_smoke.py times them with CUDA events. Needs a CUDA device.
@@ -40,12 +41,12 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from ..core import rng
-from ..engine import camera, film, integrator, render as rnd
+from ..engine import camera, film, integrator, render as rnd, subsurface
 from ..kernels import intersect
 from ..kernels import instanced
 from ..scene.parser import parse_string
 from ..scene.presets import cornell_box, mesh_scene, mesh_scene_1m
-from ..shade import bsdf, geometry, lights, materials, textures
+from ..shade import bsdf, geometry, lights, materials, measured, media, textures
 from .instbench import build_instanced
 
 # stage name -> (module, function names) wrapped in a profiler range
@@ -76,6 +77,15 @@ _STAGES = {
     "direct_lighting": (integrator, ("estimate_direct", "_whitted_light")),
     "ambient_occlusion": (integrator, ("_ao_li",)),
     "compaction": (integrator, ("_compaction_take",)),
+    # participating media: the volume integrator on the camera segment (the
+    # march's shadow waves inside it) and the transmittance of later
+    # segments and light samples
+    "medium": (media, ("single_scatter_li", "emission_li", "transmittance")),
+    "measured": (measured, ("lookup",)),         # the half-angle table fetch
+    # kind="dipole": the point cloud and its irradiance (once a render), and
+    # the dense Mo contraction
+    "dipole_preprocess": (subsurface, ("dipole_preprocess",)),
+    "dipole_contraction": (subsurface, ("_mo",)),
     "film": (film, ("add_samples_grid", "develop")),
 }
 

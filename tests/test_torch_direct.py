@@ -326,7 +326,7 @@ def test_direct_matches_numpy_oracle():
 
 def test_unported_kinds_and_strategies_raise():
     scene, meta, _ = torch_cornell(4, 4, 1, device="cpu")
-    for kind in ("igi", "photon", "dipole"):
+    for kind in ("igi", "photon", "irradiancecache"):
         with pytest.raises(NotImplementedError, match=kind):
             render(scene, meta, tint.IntegratorConfig(kind=kind), device="cpu")
     with pytest.raises(ValueError, match="light_strategy"):

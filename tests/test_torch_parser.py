@@ -9,10 +9,12 @@ the port raise NotImplementedError naming the directive it lacks. Scenes
 are read from a copy of scenes/ that holds the image assets git leaves out
 (grail_torch/tools/gen_assets.py; bump.pbrt and projgonio.pbrt read them).
 The world blocks of more scenes are held the same way with their
-integrator line rewritten to "path". Snippets that use an alpha cutout,
-a bump map, a goniometric light, a uv texture or a non-uv image mapping
-build leaf for leaf too, and those that use a directive the port still
-lacks raise. Below the parser: the tokenizer, ParamSet's spectrum
+integrator line rewritten to "path"; every world block builds. Snippets
+that use an alpha cutout, a bump map, a goniometric light, a uv texture, a
+non-uv image mapping, a Volume of each kind, or the substrate,
+translucent, subsurface and kdsubsurface materials build leaf for leaf too
+(the subsurface media with the reference's integrator settings), and those
+that use a directive the port still lacks raise. Below the parser: the tokenizer, ParamSet's spectrum
 conversions, every shape tessellator (bitwise) and the EXR and PFM codecs;
 above it, the command line.
 """
@@ -48,18 +50,15 @@ SCENES = os.path.join(os.path.dirname(__file__), os.pardir, "scenes")
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 
 # the scenes the port renders: leaf for leaf the reference's
-MATCHING = ("ao", "bump", "cornell", "dof", "envlight", "glossy", "heightfield",
-            "instances", "nurbs", "orthodisk", "proctex", "projgonio", "subdiv",
-            "whittedigi")
+MATCHING = ("ao", "bump", "cornell", "dipole", "dof", "envlight", "glossy",
+            "heightfield", "instances", "measured", "nurbs", "orthodisk", "proctex",
+            "projgonio", "spotfog", "subdiv", "whittedigi")
 # the others, with the directive the port refuses them at
 REFUSED = {
-    "dipole": 'SurfaceIntegrator "dipolesubsurface"',
     "irradcache": 'SurfaceIntegrator "irradiancecache"',
-    "measured": 'Material "measured"',
     "mlt": 'Renderer "metropolis"',
     "photon": 'SurfaceIntegrator "photonmap"',
     "prtteapot": 'SurfaceIntegrator "diffuseprt"',
-    "spotfog": 'VolumeIntegrator "single"',
     "useprobes": 'SurfaceIntegrator "useprobes"',
 }
 # the scenes of the orthographic camera, procedural textures, projection
@@ -70,12 +69,8 @@ MAPS = ("bump", "orthodisk", "proctex", "projgonio")
 # plastic, point and infinite lights) and MAPS
 WORLD_MATCHING = ("bump", "irradcache", "mlt", "orthodisk", "photon", "proctex",
                   "projgonio", "prtteapot", "useprobes")
-# ... and where the rest then stop
-WORLD_REFUSED = {
-    "dipole": 'Material "subsurface"',
-    "measured": 'Material "measured"',
-    "spotfog": 'VolumeIntegrator "single"',
-}
+# ... and where the rest then stop: nowhere, every world block builds
+WORLD_REFUSED = {}
 
 
 def test_lists_cover_every_scene():
@@ -161,12 +156,6 @@ def test_world_block_matches_reference(name, scene_dir):
                       jparser.parse_string(text, search_path=scene_dir))
 
 
-@pytest.mark.parametrize("name", sorted(WORLD_REFUSED))
-def test_unported_world_directive_raises(name):
-    with pytest.raises(NotImplementedError, match=re.escape(WORLD_REFUSED[name])):
-        tparser.parse_string(_path_text(name), device="cpu", search_path=SCENES)
-
-
 _HEADER = """LookAt 0 1 3  0 1 0  0 1 0
 Camera "perspective" "float fov" [40]
 Film "image" "integer xresolution" [8] "integer yresolution" [8] {film}
@@ -189,6 +178,25 @@ PORTED_SNIPPETS = {
                 '"string filename" "assets/slide.pfm"\n'
                 'Material "matte" "texture Kd" "t"\nLightSource "point"\n'
                 + _QUAD.format(extra="")),
+    # the media regions, in a moved frame, and the new materials (the
+    # subsurface ones record their medium in the integrator settings)
+    "volume": ('Translate 0.5 0 0\nRotate 30 0 1 0\nVolume "homogeneous" '
+               '"rgb sigma_a" [0.1 0.2 0.3] "float g" [0.4] "point p0" [-1 0 -1] '
+               '"point p1" [1 2 1]\n' + _QUAD.format(extra="")),
+    "volumegrid": ('Volume "volumegrid" "integer nx" [2] "integer ny" [1] '
+                   '"integer nz" [2] "float density" [0.1 0.2 0.3 0.4] '
+                   '"rgb Le" [0.5 0.5 0.5]\nVolume "exponential" "float a" [2] '
+                   '"float b" [3] "vector updir" [0 0 1]\n' + _QUAD.format(extra="")),
+    "substrate": ('Material "substrate" "float uroughness" [0.05]\n'
+                  + _QUAD.format(extra="")),
+    "translucent": ('Material "translucent" "rgb transmit" [0.3 0.4 0.5]\n'
+                    + _QUAD.format(extra="")),
+    "subsurface": ('Material "subsurface" "string name" ["Ketchup"] "float index" [1.4]\n'
+                   + _QUAD.format(extra="")),
+    "subsurface_sigma": ('Material "subsurface" "rgb sigma_a" [0.1 0.2 0.3] '
+                         '"float scale" [2]\n' + _QUAD.format(extra="")),
+    "kdsubsurface": ('Material "kdsubsurface" "rgb Kd" [0.7 0.5 0.3] '
+                     '"float meanfreepath" [0.4]\n' + _QUAD.format(extra="")),
 }
 
 
@@ -206,7 +214,6 @@ UNPORTED_SNIPPETS = {
                    'Film "cropwindow"'),
     "adaptive": ("", "adaptive", "", 'Sampler "adaptive"'),
     "area": ("", "lowdiscrepancy", 'AreaLightSource "other"\n', 'AreaLightSource "other"'),
-    "volume": ("", "lowdiscrepancy", 'Volume "homogeneous"\n', 'Volume "homogeneous"'),
     "transform_times": ("", "lowdiscrepancy", "TransformTimes 0 1\n", "TransformTimes"),
 }
 
@@ -360,6 +367,6 @@ def test_cli_renders_and_refuses(tmp_path):
                      "--outfile", out]) == 0
     img = tio.read_image(out)
     assert img.shape == (64, 64, 3) and np.isfinite(img).all() and img.mean() > 0
-    assert cli_main([_scene_path("spotfog"), "--cpu", "--quiet"]) == 1
+    assert cli_main([_scene_path("photon"), "--cpu", "--quiet"]) == 1
     assert cli_main([_scene_path("envlight"), "--cpu", "--quiet",
                      "--checkpoint", str(tmp_path / "ck")]) == 2

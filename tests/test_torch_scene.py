@@ -93,8 +93,8 @@ def test_unported_scenes_raise(both):
     with pytest.raises(NotImplementedError, match="ring"):
         scene_from_numpy(dict(scene_np, ring={"verts": np.zeros((1, 3))}), jm,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="media_kinds"):
-        scene_from_numpy(scene_np, dataclasses.replace(jm, media_kinds=(1,)),
+    with pytest.raises(NotImplementedError, match="crop"):
+        scene_from_numpy(scene_np, dataclasses.replace(jm, crop=(0.0, 0.5, 0.0, 1.0)),
                          device="cpu")
     # above 64 triangles a scene gets a BVH, as the reference: its 4-wide
     # tables, and its record table only on request
