@@ -142,9 +142,29 @@ failure ends the run with a non-zero exit code:
       Mo contraction alone at 1,048,576 lanes (ms, peak memory); then each
       kernel against its plain version on the card, bitwise, on the
       busiest wave of each (kernel, role).
+  the Metropolis group (engine/metropolis.py and the render loop's other
+  paths):
+  25. mlt: scenes/mlt.pbrt at its authored settings (64x64, 64 mutations a
+      pixel, 4,096 chains, 4 waves, bidirectional) through the command line
+      in its own process, the EXR against its golden (relative MAE < 0.05)
+      and against the long path-traced reference (8x8 block errors:
+      median < 0.05, q90 < 0.10); meanwhile eval_path and eval_path_bidir
+      on 4,096 u-vectors and _mutate, the card against the CPU (>= 99% of
+      lanes within rtol 1e-4, atol 1e-6; the mutation bitwise), and a
+      warm-up render; three timed renders (mutations/s, launches per
+      render, which must be exactly 759 closest hits, mlt_camera 414 and
+      mlt_light 345, all unbinned, and 2,484 any hits, mlt_connect; peak
+      memory), the busy share under torch.profiler of one step of every
+      chain; the same scene at 256x256 with 65,536 chains and bootstrap
+      samples (binned closest hits; rate and peak); each kernel against its
+      plain version on the busiest wave of each MLT role, bitwise; a
+      checkpointed mesh100k render (64x64, 8 spp) resumed, bitwise the
+      uninterrupted one; a cropped and an adaptive Cornell box at 32x32,
+      card against CPU; mesh100k's occupancy line at 256x256.
 Then a {"kernels": [...]} line (each kernel's "launches_direct",
-"launches_maps" and "launches_media": its launches in the direct, maps and
-media groups' renders) and, last, {"ok": true, "device": {...}}.
+"launches_maps", "launches_media" and "launches_mlt": its launches in the
+direct, maps, media and Metropolis groups' renders) and, last, {"ok": true,
+"device": {...}}.
 Needs a CUDA device and nvcc; imports nothing of JAX.
 """
 import contextlib
@@ -162,15 +182,18 @@ import time
 import numpy as np
 import torch
 
+from grail_torch.core import rng as rngmod
 from grail_torch.core import transform as tr
 from grail_torch.engine.imageio import read_image
 from grail_torch.engine import camera
 from grail_torch.engine.film import develop, new_film
+from grail_torch.engine import checkpoint as ckpt
 from grail_torch.engine import integrator as integ
+from grail_torch.engine import metropolis as mlt
 from grail_torch.engine.integrator import WAVES, IntegratorConfig
 from grail_torch.engine import subsurface
-from grail_torch.engine.render import (camera_rays, megawave_lanes, preprocess, render,
-                                       render_wave)
+from grail_torch.engine.render import (camera_rays, megawave_lanes, occupancy_probe,
+                                       preprocess, render, render_adaptive, render_wave)
 from grail_torch.kernels import brute_intersect as bi
 from grail_torch.kernels import bvh4 as b4
 from grail_torch.kernels import bvh_stream as bs
@@ -321,6 +344,20 @@ MEDIA_KERNELS = b4.KERNELS
 MEDIA_WAVES = (("bvh4_closest", "camera"), ("bvh4_closest", "bsdf"),
                ("bvh4_any_hit", "shadow"), ("bvh4_any_hit", "medium"),
                ("bvh4_any_hit", "irradiance"))
+# the Metropolis group (phase 25): scenes/mlt.pbrt at its authored
+# settings (64x64, 64 mutations a pixel, 4,096 chains, 16 mutations a wave:
+# 4 waves, 1 + 4 * 17 = 69 bidirectional evaluations, each 6 camera and 5
+# light closest-hit waves and 36 connection any-hit waves of 4,096 rays)
+MLT_GOLDEN_RELMAE = 0.05      # tests/test_golden.py's for mlt
+MLT_BLOCK_MEDIAN, MLT_BLOCK_Q90 = 0.05, 0.10   # tests/test_render.py:269-300
+MLT_WAVES_BY_ROLE = {"mlt_camera": 414, "mlt_light": 345, "mlt_connect": 2484}
+MLT_LAUNCHES = {"bvh4_closest": 759, "bvh4_any_hit": 2484}
+MLT_LANES = 4096              # u-vectors held card against CPU
+MLT_WIDE_RES, MLT_WIDE_CHAINS = 256, 65536   # the width run: 16x the lanes, binned
+MLT_KERNELS = b4.KERNELS + bi.KERNELS        # row 1: the crop and adaptive Cornell box
+MLT_PARITY = (("bvh4_closest", "mlt_camera"), ("bvh4_closest", "mlt_light"),
+              ("bvh4_any_hit", "mlt_connect"))
+MLT_CROP = (0.25, 0.75, 0.125, 0.625)
 GRID_SEED = 10
 BRUTE_SOURCE = "grail_torch/kernels/csrc/brute_intersect.cu"
 RAGGED = 37                # rays past 1M in the ragged parity case
@@ -1617,7 +1654,7 @@ def expected_waves(cfg, meta):
     marches = (cfg.kind != "ao" and cfg.vol == "single" and meta.n_lights > 0)
     want["medium"] = media.MAX_MARCH_STEPS * len(meta.media_kinds) if marches else 0
     want["irradiance"] = 4 * meta.n_lights if cfg.kind == "dipole" else 0
-    return want
+    return dict(dict.fromkeys(WAVES, 0), **want)    # no Metropolis wave
 
 
 def expected_launches(want, meta, kernels):
@@ -1977,6 +2014,296 @@ def media_phases(dev, gpu):
     return total
 
 
+def mlt_blocks(img, ref, k=8):
+    """tests/test_render.py's block check: the relative error of each 8x8
+    block mean against the path-traced reference's (floored at 0.02)."""
+    def blocks(a):
+        h, w, _ = a.shape
+        return a[:h // k * k, :w // k * k].reshape(h // k, k, w // k, k, 3).mean((1, 3))
+    rel = np.abs(blocks(img) - blocks(ref)) / np.maximum(blocks(ref), 0.02)
+    return float(np.median(rel)), float(np.quantile(rel, 0.9))
+
+
+def mlt_u(n, dim, device, seed=12345):
+    """n primary-sample vectors drawn as the bootstrap draws them."""
+    pix = torch.arange(n, dtype=torch.int64, device=device) ^ seed
+    return rngmod.sample_1d(rngmod.SamplerConfig(kind=rngmod.RANDOM), pix[:, None],
+                            torch.zeros((n, 1), dtype=torch.int64, device=device),
+                            torch.arange(dim, dtype=torch.int64, device=device)[None, :])
+
+
+def mlt_n_waves(meta, cfg, mlt_spp):
+    """The command line's wave count: pixels x mutations a pixel over the
+    mutations of a wave."""
+    return max(1, meta.xres * meta.yres * mlt_spp // (cfg.n_chains * cfg.mutations_per_wave))
+
+
+def mlt_vs_cpu(dev):
+    """eval_path and eval_path_bidir on MLT_LANES u-vectors and _mutate, the
+    card against the CPU: >= 99% of lanes within rtol 1e-4, atol 1e-6; the
+    mutation bitwise."""
+    t0 = time.perf_counter()
+    sides = {}
+    for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        scene, meta, api = parse_file(_scene_file("mlt"), device=where)
+        cfg = api.mlt_config
+        u = mlt_u(MLT_LANES, cfg.dim, where)
+        out = {"u": u}
+        for fn in (mlt.eval_path, mlt.eval_path_bidir):
+            out[fn.__name__] = [a.cpu().numpy() for a in fn(scene, meta, cfg, u)]
+        key = (torch.arange(MLT_LANES, dtype=torch.int64, device=where) ^ (3 * 7919)) ^ (5 * 104729)
+        out["mutate"] = [a.cpu().numpy() for a in mlt._mutate(u, key, 5, cfg)]
+        sides[side] = out
+        del scene
+    card, cpu = sides["card"], sides["cpu"]
+    line = {"phase": "mlt_vs_cpu", "lanes": MLT_LANES,
+            "u_bitwise": bool(np.array_equal(card["u"].cpu().numpy(), cpu["u"].numpy()))}
+    for fn in ("eval_path", "eval_path_bidir"):
+        (L, px, py), (L_c, px_c, py_c) = card[fn], cpu[fn]
+        close = np.all(np.abs(L - L_c) <= 1e-6 + 1e-4 * np.abs(L_c), axis=-1)
+        line[fn] = {"lanes_close": float(close.mean()), "bitwise_lanes":
+                    float(np.all(L == L_c, axis=-1).mean()), "max_abs_diff":
+                    float(np.abs(L - L_c).max()), "mean": float(L.mean()),
+                    "raster_equal": bool(np.array_equal(px, px_c) and np.array_equal(py, py_c))}
+        check(np.isfinite(L).all() and close.mean() >= 0.99 and line[fn]["raster_equal"],
+              f"{fn} on the card differs from the CPU: {line[fn]}")
+    line["mutate_bitwise"] = bool(all(np.array_equal(a, b) for a, b in
+                                      zip(card["mutate"], cpu["mutate"])))
+    line["seconds"] = time.perf_counter() - t0
+    emit(line)
+    check(line["u_bitwise"] and line["mutate_bitwise"],
+          "the bootstrap draw or a mutation differs between the card and the CPU")
+
+
+def mlt_render_loop(dev, gpu):
+    """The render loop's other paths on the card: a checkpointed mesh100k
+    render resumed, bitwise the uninterrupted one (the dense grid film);
+    a cropped and an adaptive Cornell box against the CPU; the occupancy
+    line of mesh100k's bench wave."""
+    t0 = time.perf_counter()
+    cfg = IntegratorConfig(kind="path", max_depth=5)
+    scene, meta, _ = mesh_scene(64, 64, 8, grid=MESH_GRID, device=dev)
+    img_full = render(scene, meta, cfg, spp=8, device=dev)[0].cpu().numpy()
+    _, film = render(scene, meta, cfg, spp=4, device=dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ck.npz")
+        ckpt.save(path, film, 4, meta, cfg)
+        img_res = render(scene, meta, cfg, spp=8, checkpoint_path=path,
+                         device=dev)[0].cpu().numpy()
+        removed = not os.path.exists(path)
+    emit({"phase": "mlt_render_loop", "case": "checkpoint_resume", "scene": "mesh100k",
+          "res": 64, "spp": 8, "resumed_at": 4, "bitwise_equal":
+          bool(np.array_equal(img_res, img_full)), "checkpoint_removed": removed,
+          "image_mean": float(img_full.mean())})
+    check(np.array_equal(img_res, img_full) and removed,
+          "the resumed mesh100k render is not bitwise the uninterrupted one")
+    del scene
+
+    imgs = {}
+    for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        sc, mt, _ = cornell_box(32, 32, 4, device=where)
+        crop = render(sc, dataclasses.replace(mt, crop=MLT_CROP),
+                      IntegratorConfig(kind="path", max_depth=5), spp=4, device=where)[0]
+        adaptive, (_, _, spp_map) = render_adaptive(
+            sc, mt, IntegratorConfig(kind="path", max_depth=5), min_spp=2, max_spp=6,
+            threshold=0.25, device=where)
+        imgs[side] = (crop.cpu().numpy(), adaptive.cpu().numpy(), spp_map)
+    for i, case in enumerate(("crop", "adaptive")):
+        a, b = imgs["card"][i], imgs["cpu"][i]
+        err = relative_mae(a, b)
+        line = {"phase": "mlt_render_loop", "case": case, "scene": "cornell", "res": 32,
+                "relative_mae": err, "bitwise_equal": bool(np.array_equal(a, b)),
+                "image_mean": float(a.mean())}
+        if case == "adaptive":
+            line.update(spp_map_equal=float((imgs["card"][2] == imgs["cpu"][2]).mean()),
+                        spp_min=int(imgs["card"][2].min()), spp_max=int(imgs["card"][2].max()))
+        else:
+            line["crop"] = list(MLT_CROP)
+        emit(line)
+        check(np.isfinite(a).all() and a.mean() > 0 and err < RELMAE_MAX,
+              f"the {case} Cornell render on the card differs from the CPU ({err})")
+
+    scene, meta, _ = mesh_scene(256, 256, 16, grid=MESH_GRID, device=dev)
+    t1 = time.perf_counter()
+    occ = occupancy_probe(scene, meta, cfg, device=dev)
+    emit({"phase": "mlt_render_loop", "case": "occupancy_probe", "scene": "mesh100k",
+          "res": 256, "occupancy_per_bounce": occ, "probe_seconds": time.perf_counter() - t1,
+          "gpu": gpu, "seconds": time.perf_counter() - t0})
+    check(occ is not None and occ[0] == 1.0 and all(b <= a for a, b in zip(occ, occ[1:])),
+          f"mesh100k's occupancy line is not a falling fraction: {occ}")
+
+
+def mlt_phases(dev, gpu):
+    """Phase 25, the Metropolis group: scenes/mlt.pbrt through the command
+    line against its golden and the long path reference; the MLT estimators
+    and the mutation card against CPU; the authored render's rate, launches
+    and waves by role (exactly 759 closest hits and 2,484 any hits), busy
+    share and peak; the same scene at 256x256 with 65,536 chains (binned
+    waves); each kernel on the busiest wave of each MLT role against its
+    plain version; the render loop's checkpoint, crop, adaptive and
+    occupancy paths. Returns {kernel: launches} over the group's renders
+    (parity launches apart)."""
+    t_group = time.perf_counter()
+    total = dict.fromkeys(MLT_KERNELS, 0)
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    # the command line in its own process, while this one holds the
+    # estimators against the CPU and warms up (capturing the waves)
+    waves = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "mlt.exr")
+        proc = subprocess.Popen([sys.executable, "-m", "grail_torch.cli.main",
+                                 _scene_file("mlt"), "--outfile", out], cwd=ROOT,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            mlt_vs_cpu(dev)
+            t0 = time.perf_counter()
+            scene, meta, api = parse_file(_scene_file("mlt"), device=dev)
+            cfg = api.mlt_config
+            n_waves = mlt_n_waves(meta, cfg, api.mlt_spp)
+            with role_waves(waves):
+                mlt.render_mlt(scene, meta, cfg, n_waves=n_waves, device=dev)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+            _, log = proc.communicate(timeout=900)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        check(proc.returncode == 0, f"the command line exited {proc.returncode} on mlt: "
+                                    f"{log[-2000:]}")
+        img = read_image(out)
+    err = relative_mae(img, _golden("mlt"))
+    med, q90 = mlt_blocks(img, _golden("mlt_path_reference"))
+    emit({"phase": "mlt_cli", "scene": "mlt", "shape": list(img.shape),
+          "relative_mae_vs_golden": err, "block_median_vs_path_reference": med,
+          "block_q90_vs_path_reference": q90, "log": log.strip().splitlines()[-3:],
+          "seconds": time.perf_counter() - t_group})
+    check(np.isfinite(img).all() and img.shape == (64, 64, 3) and err < MLT_GOLDEN_RELMAE,
+          f"the command line's mlt image is {err} from its golden")
+    check(med < MLT_BLOCK_MEDIAN and q90 < MLT_BLOCK_Q90,
+          f"the mlt image's blocks are {med} (median) and {q90} (q90) from the path reference")
+
+    # the authored render: 3 timed after the warm-up
+    t0 = time.perf_counter()
+    mutations = n_waves * cfg.mutations_per_wave * cfg.n_chains
+    times, launches, roles, routes = [], [], [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev)
+    for _ in range(3):
+        _reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        img, _ = mlt.render_mlt(scene, meta, cfg, n_waves=n_waves, device=dev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+        launches.append(_launch_counts())
+        roles.append({k: v for k, v in WAVES.items() if v})
+        routes.append(dict(CLOSEST_WAVES))
+        add(launches[-1])
+    peak = torch.cuda.max_memory_allocated(dev)
+    wall = statistics.median(times)
+    # the busy share of one step of every chain (the state's evaluation, a
+    # mutation, its evaluation, both splats): 1/34 of the render's
+    # evaluations; the profiler's cost grows with the ~2.3M launches of a
+    # whole render
+    u = mlt_u(cfg.n_chains, cfg.dim, dev)
+    step = dataclasses.replace(cfg, mutations_per_wave=1)
+
+    def one_step():
+        mlt._mlt_wave(scene, meta, step, mlt.eval_path_bidir, new_film(meta.xres, meta.yres, dev),
+                      u, 0)
+        torch.cuda.synchronize()
+    one_step()
+    t1 = time.perf_counter()
+    one_step()
+    step_wall = time.perf_counter() - t1
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        one_step()
+    kern = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernel_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    img = img.cpu().numpy()
+    expected = dict.fromkeys(launches[0], 0)
+    expected.update(MLT_LAUNCHES)
+    emit({"phase": "mlt_bench", "scene": "mlt", "res": [meta.xres, meta.yres],
+          "mutations_per_pixel": api.mlt_spp, "chains": cfg.n_chains, "waves": n_waves,
+          "mutations_per_wave": cfg.mutations_per_wave, "max_depth": cfg.max_depth,
+          "bidirectional": cfg.bidirectional, "triangles": meta.n_tris,
+          "render_seconds": times, "mutations_per_sec": mutations / wall,
+          "launches_per_render": launches, "expected_launches": expected,
+          "waves_by_role": roles, "expected_waves_by_role": MLT_WAVES_BY_ROLE,
+          "bvh4_closest_by_route": routes, "warm_up_seconds": warm_s,
+          "step_seconds": step_wall, "step_device_kernel_ms": kernel_ms,
+          "step_device_launches": sum(e.count for e in kern),
+          "step_device_busy_share": kernel_ms / (step_wall * 1e3),
+          "relative_mae_vs_golden": relative_mae(img, _golden("mlt")),
+          "image_mean": float(img.mean()), "peak_memory_bytes": peak,
+          "held_before_render_bytes": held, "gpu": gpu, "seconds": time.perf_counter() - t0})
+    check(all(n == expected for n in launches),
+          f"the mlt renders launched {launches}, want {expected}")
+    check(all(r == MLT_WAVES_BY_ROLE for r in roles),
+          f"the mlt renders made waves {roles}, want {MLT_WAVES_BY_ROLE}")
+    check(all(r == {"binned": 0, "unbinned": 759} for r in routes),
+          f"the mlt renders' closest hits took routes {routes}, want all unbinned")
+    check(np.isfinite(img).all() and relative_mae(img, _golden("mlt")) < MLT_GOLDEN_RELMAE,
+          "the in-process mlt render is off its golden")
+    del scene
+
+    # the width run: 16x the chains (and bootstrap samples) at 256x256, the
+    # same 4 waves and 69 evaluations, every closest-hit wave binned
+    t0 = time.perf_counter()
+    text = _scene_text("mlt", (MLT_WIDE_RES, MLT_WIDE_RES)).replace(
+        'Renderer "metropolis"',
+        f'Renderer "metropolis" "integer bootstrapsamples" [{MLT_WIDE_CHAINS}]')
+    scene, meta, api = parse_string(text, device=dev, search_path=os.path.join(ROOT, "scenes"))
+    cfg = dataclasses.replace(api.mlt_config, n_chains=MLT_WIDE_CHAINS)
+    n_waves = mlt_n_waves(meta, cfg, api.mlt_spp)
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    img, _ = mlt.render_mlt(scene, meta, cfg, n_waves=n_waves, device=dev)
+    torch.cuda.synchronize()
+    wide_s = time.perf_counter() - t1
+    wide = _launch_counts()
+    add(wide)
+    img = img.cpu().numpy()
+    emit({"phase": "mlt_wide", "scene": "mlt", "res": MLT_WIDE_RES, "chains": cfg.n_chains,
+          "bootstrap": cfg.n_bootstrap, "waves": n_waves, "render_seconds": wide_s,
+          "mutations_per_sec": n_waves * cfg.mutations_per_wave * cfg.n_chains / wide_s,
+          "launches_per_render": wide, "bvh4_closest_by_route": dict(CLOSEST_WAVES),
+          "waves_by_role": {k: v for k, v in WAVES.items() if v},
+          "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+          "image_mean": float(img.mean()), "gpu": gpu, "seconds": time.perf_counter() - t0})
+    check(np.isfinite(img).all() and img.mean() > 0 and n_waves == 4
+          and {k: v for k, v in WAVES.items() if v} == MLT_WAVES_BY_ROLE
+          and CLOSEST_WAVES == {"binned": 759, "unbinned": 0},
+          "the 65,536-chain render's image, waves or routes are not as expected")
+    del scene
+
+    # each kernel on the busiest wave of each MLT role, bitwise
+    t0 = time.perf_counter()
+    for (kernel, role), (_, tables, rays, kw) in sorted(waves.items(), key=lambda w: w[0]):
+        wave_parity("mlt", kernel, role, tables, rays, kw, "mlt_parity")
+    for need in MLT_PARITY:
+        check(need in waves, f"the mlt render made no {need} wave")
+    emit({"phase": "mlt_parity", "cases": [list(k) for k in sorted(waves)],
+          "seconds": time.perf_counter() - t0})
+    del waves
+
+    _reset_counts()
+    mlt_render_loop(dev, gpu)
+    add(_launch_counts())
+    emit({"phase": "mlt_launches", "launches": total})
+    check(all(total[k] > 0 for k in MLT_KERNELS),
+          f"a kernel of the Metropolis group's path was not launched: {total}")
+    emit({"phase": "mlt", "seconds": time.perf_counter() - t_group})
+    return total
+
+
 def main():
     check(torch.cuda.is_available(), "no CUDA device")
     dev = torch.device("cuda", 0)
@@ -2015,10 +2342,12 @@ def main():
     direct = direct_phases(dev, gpu)
     maps = maps_phases(dev, gpu)
     media_launches = media_phases(dev, gpu)
+    mlt_launches = mlt_phases(dev, gpu)
     for entry in kernels:
         entry["launches_direct"] = direct.get(entry["name"], 0)
         entry["launches_maps"] = maps.get(entry["name"], 0)
         entry["launches_media"] = media_launches.get(entry["name"], 0)
+        entry["launches_mlt"] = mlt_launches.get(entry["name"], 0)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(gpu, flush=True)
     emit({"kernels": kernels})

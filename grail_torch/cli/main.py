@@ -1,10 +1,21 @@
 """Command line renderer (port of grail/cli/main.py; pbrt src/main/pbrt.cpp):
 parse .pbrt scene files, render each with the integrator its
-SurfaceIntegrator line names (path, directlighting, whitted or
-ambientocclusion), write the image (EXR or PFM; 8-bit formats need PIL).
+SurfaceIntegrator line names (path, directlighting, whitted,
+ambientocclusion or dipolesubsurface), with the Metropolis renderer where
+its Renderer line says "metropolis" and with adaptive sampling where its
+Sampler line says "adaptive", and write the image (EXR or PFM; 8-bit
+formats need PIL).
 
     python -m grail_torch.cli.main [options] scene.pbrt [scene2.pbrt ...]
     python -m grail_torch.cli.main --outfile out.exr --quick scene.pbrt
+    python -m grail_torch.cli.main --checkpoint ck.npz --metrics m.jsonl scene.pbrt
+
+--checkpoint PATH resumes the render from PATH where the file exists and
+writes it every --checkpoint-every samples (8), removing it when the render
+completes; --metrics PATH appends the occupancy line and one JSONL record a
+megawave (engine/render.py). Both apply to the sampler renderer's uniform
+render, as in the reference. Metropolis runs the reference's number of
+waves: pixels x "samplesperpixel" mutations over n_chains x 16 a wave.
 
 It renders on the CUDA card; --cpu is the only way to render on the CPU.
 A scene that needs a part not ported yet exits with status 1 and names it.
@@ -15,9 +26,6 @@ import argparse
 import logging
 import sys
 import time
-
-# options of the reference's CLI that the port does not have yet
-_UNPORTED_OPTIONS = {"checkpoint": "--checkpoint", "metrics": "--metrics"}
 
 
 def main(argv=None):
@@ -31,8 +39,12 @@ def main(argv=None):
     ap.add_argument("--verbose", action="store_true")
     ap.add_argument("--spp", type=int, default=None, help="override samples per pixel")
     ap.add_argument("--cpu", action="store_true", help="render on the CPU")
-    ap.add_argument("--checkpoint", default=None, metavar="PATH", help="not ported yet")
-    ap.add_argument("--metrics", default=None, metavar="PATH", help="not ported yet")
+    ap.add_argument("--checkpoint", default=None, metavar="PATH",
+                    help="checkpoint file: resumed if present, written every "
+                         "--checkpoint-every samples")
+    ap.add_argument("--checkpoint-every", type=int, default=8, metavar="N")
+    ap.add_argument("--metrics", default=None, metavar="PATH",
+                    help="append per-wave JSONL metrics (rays/s, wall time)")
     args = ap.parse_args(argv)
 
     logging.basicConfig(
@@ -40,17 +52,14 @@ def main(argv=None):
         (logging.ERROR if args.quiet else logging.INFO),
         format="grail_torch: %(levelname)s: %(message)s")
     log = logging.getLogger("grail_torch")
-    for dest, flag in _UNPORTED_OPTIONS.items():
-        if getattr(args, dest) is not None:
-            log.error("%s is not ported yet", flag)
-            return 2
 
     import numpy as np
     import torch
 
     from ..device import resolve_device
     from ..engine.imageio import write_image
-    from ..engine.render import render
+    from ..engine.metropolis import render_mlt
+    from ..engine.render import render, render_adaptive
     from ..scene.parser import parse_file, parse_string
 
     try:
@@ -75,12 +84,33 @@ def main(argv=None):
         spp = args.spp if args.spp else meta.sampler.spp
         if args.quick:
             spp = max(1, spp // 4)
+        cfg = api.integrator_config
         t0 = time.time()
-        img, _ = render(scene, meta, api.integrator_config, spp=spp, device=device)
+
+        def progress(s, total):
+            if not args.quiet and (s % max(1, total // 20) == 0 or s == total):
+                log.info("  wave %d/%d (%.1fs)", s, total, time.time() - t0)
+
+        if api.mlt_config is not None:
+            mcfg = api.mlt_config
+            n_waves = max(1, (meta.xres * meta.yres * api.mlt_spp)
+                          // (mcfg.n_chains * mcfg.mutations_per_wave))
+            img, _ = render_mlt(scene, meta, mcfg, n_waves=n_waves, device=device)
+            what = f"MLT, {n_waves} waves"
+        elif api.adaptive:
+            img, _ = render_adaptive(scene, meta, cfg, min_spp=min(api.adaptive["min"], spp),
+                                     max_spp=spp, progress=progress, device=device)
+            what = f"adaptive, <= {spp}spp"
+        else:
+            img, _ = render(scene, meta, cfg, spp=spp, progress=progress,
+                            checkpoint_path=args.checkpoint,
+                            checkpoint_every=args.checkpoint_every,
+                            metrics_path=args.metrics, device=device)
+            what = f"{spp}spp"
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        log.info("rendered %dx%d @ %dspp on %s in %.1fs", meta.xres, meta.yres, spp,
-                 device, time.time() - t0)
+        log.info("rendered %dx%d (%s) on %s in %.1fs", meta.xres, meta.yres, what, device,
+                 time.time() - t0)
         out = args.outfile or api.out_filename
         write_image(out, np.asarray(img.cpu()))
         log.info("wrote %s", out)

@@ -3,6 +3,12 @@
 The film is a dict {rgb (H,W,3), weight (H,W), splat (H,W,3)}. Full-grid
 waves accumulate with dense shifted adds (no scatter), wave by wave in sample
 order, so the film is bitwise independent of how the samples are chunked.
+Other waves (a crop window's pixels, adaptive sampling's flagged pixels) and
+Metropolis's splats scatter their samples into the film with
+index_put(accumulate=True): on the CPU the adds run in lane order, as the
+reference's; on the card they are atomic adds, whose order, and so the
+rounding of a pixel that several lanes reach, may change from run to run. No
+check of a scattered film on the card is bitwise.
 """
 from __future__ import annotations
 
@@ -22,6 +28,62 @@ def new_film(xres, yres, device):
         "weight": torch.zeros((yres, xres), dtype=torch.float32, device=device),
         "splat": torch.zeros((yres, xres, 3), dtype=torch.float32, device=device),
     }
+
+
+def _scatter_add(acc, py, px, val):
+    """acc with val added at (py, px), out of place (gradients flow back
+    through the film)."""
+    return acc.index_put((py.to(torch.int64), px.to(torch.int64)), val, accumulate=True)
+
+
+def add_samples(film, fcfg: flt.FilterConfig, sx, sy, L, weight=None):
+    """ImageFilm::AddSample for any wave: sx, sy (N,) continuous raster
+    coordinates, L (N,3). Every pixel of the static filter footprint (the
+    ceil(2*width)^2 taps around (sx-0.5, sy-0.5)) inside the image gets
+    Evaluate(px-dx, py-dy) * weight. Returns a new film."""
+    yres, xres = film["weight"].shape
+    dimx = sx - 0.5
+    dimy = sy - 0.5
+    x0 = torch.ceil(dimx - fcfg.xwidth).to(torch.int32)
+    y0 = torch.ceil(dimy - fcfg.ywidth).to(torch.int32)
+    ntap_x = max(1, int(math.floor(2.0 * fcfg.xwidth)) + 1)
+    ntap_y = max(1, int(math.floor(2.0 * fcfg.ywidth)) + 1)
+    if weight is None:
+        weight = torch.ones_like(sx)
+    rgb, wsum = film["rgb"], film["weight"]
+    for j in range(ntap_y):
+        for i in range(ntap_x):
+            px = x0 + i
+            py = y0 + j
+            w = flt.evaluate(fcfg, px.to(torch.float32) - dimx,
+                             py.to(torch.float32) - dimy) * weight
+            inside = (px >= 0) & (px < xres) & (py >= 0) & (py < yres)
+            w = torch.where(inside, w, 0.0)
+            pxc = torch.clamp(px, 0, xres - 1)
+            pyc = torch.clamp(py, 0, yres - 1)
+            rgb = _scatter_add(rgb, pyc, pxc, w[..., None] * L)
+            wsum = _scatter_add(wsum, pyc, pxc, w)
+    return {"rgb": rgb, "weight": wsum, "splat": film["splat"]}
+
+
+def splat(film, sx, sy, L):
+    """ImageFilm::Splat: L added unweighted to the pixel under (sx, sy);
+    samples off the image add nothing. Returns a new film."""
+    yres, xres = film["weight"].shape
+    px = torch.clamp(sx.to(torch.int32), 0, xres - 1)
+    py = torch.clamp(sy.to(torch.int32), 0, yres - 1)
+    inside = (sx >= 0) & (sx < xres) & (sy >= 0) & (sy < yres)
+    L = torch.where(inside[..., None], L, 0.0)
+    return {"rgb": film["rgb"], "weight": film["weight"],
+            "splat": _scatter_add(film["splat"], py, px, L)}
+
+
+def merge(films):
+    """The sum of partial films."""
+    out = films[0]
+    for f in films[1:]:
+        out = {k: out[k] + f[k] for k in out}
+    return out
 
 
 def tiled_order(meta):

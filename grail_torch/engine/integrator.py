@@ -94,9 +94,12 @@ UNPORTED_KINDS = ("igi", "photon", "diffuseprt", "glossyprt", "useprobes",
 # shadow rays and AO occlusion rays (closest hit on a scene with alpha
 # cutouts); the alpha cutouts' re-traces; any hit on the single-scattering
 # march's shadow rays ("medium") and on the dipole preprocess's rays from its
-# surface points to the lights ("irradiance")
+# surface points to the lights ("irradiance"); Metropolis's (metropolis.py)
+# closest hits on its camera and light subpaths ("mlt_camera", "mlt_light")
+# and its visibility tests, any hit ("mlt_connect")
 WAVES = {"camera": 0, "continuation": 0, "bsdf": 0, "shadow": 0, "occlusion": 0,
-         "alpha": 0, "medium": 0, "irradiance": 0}
+         "alpha": 0, "medium": 0, "irradiance": 0, "mlt_camera": 0, "mlt_light": 0,
+         "mlt_connect": 0}
 # alpha cutout re-trace rounds a wave (the reference's ALPHA_MAX_REJECT)
 ALPHA_MAX_REJECT = 4
 BUMP_DU = 0.01      # Material::Bump's offset: the reference's fixed fallback
@@ -546,10 +549,13 @@ def _compaction_take(active, cap):
     return take, csum[-1]
 
 
-def li(scene, meta, cfg: IntegratorConfig, rays, pix, samp):
+def li(scene, meta, cfg: IntegratorConfig, rays, pix, samp, with_stats=False):
     """Radiance for a batch of camera rays: the wavefront bounce loop.
     rays: dict from camera.generate_rays; pix, samp: sampler coordinates.
-    Returns L (N,3)."""
+    Returns L (N,3); with_stats=True returns (L, occ), occ (max_depth+1,)
+    float32 on the device: the live lanes entering each bounce, counted
+    across the compaction splits (the wavefront occupancy signal; no host
+    sync of its own)."""
     if cfg.kind in UNPORTED_KINDS:
         raise NotImplementedError(f"integrator kind {cfg.kind!r} is not ported yet "
                                   f"(ported: {', '.join(KINDS)}, dipole)")
@@ -565,6 +571,8 @@ def li(scene, meta, cfg: IntegratorConfig, rays, pix, samp):
     # only instances read the time (a moving camera has used it already)
     time = rays.get("time") if scene.get("inst") is not None else None
     if cfg.kind == "ao":
+        if with_stats:
+            raise ValueError("kind 'ao' has no bounce loop to count")
         return _ao_li(scene, meta, cfg, rays, pix, samp, time)
     o, d = rays["o"], rays["d"]
     n = o.shape[0]
@@ -575,6 +583,13 @@ def li(scene, meta, cfg: IntegratorConfig, rays, pix, samp):
     spec_bounce = active                       # bounce-0 emission counts
     pdf_prev = torch.ones(n, dtype=torch.float32, device=o.device)
     state = (o, d, L, throughput, active, spec_bounce, pdf_prev)
+    occ = [None] * (max_depth + 1)       # live lanes entering each bounce
+
+    def tally(b, st):
+        if with_stats:
+            occ[b] = torch.sum(st[4].to(torch.float32))
+
+    tally(0, state)
     state = _make_bounce_body(scene, meta, cfg, pix, samp,
                               rays.get("camdiff"), time)(0, state)
 
@@ -602,6 +617,7 @@ def li(scene, meta, cfg: IntegratorConfig, rays, pix, samp):
 
         def run(st, b0, b1):
             for b in range(b0, b1):
+                tally(b, st)
                 st = bodyw(b, st)
             return st
 
@@ -627,8 +643,10 @@ def li(scene, meta, cfg: IntegratorConfig, rays, pix, samp):
         # Out of place, so gradients reach both waves.
         return st[2].index_put((take[:count],), subL[:count])
 
-    L = tail(state, pix, samp, time, n, 1, splits)
-    return L * rays["weight"][..., None]
+    L = tail(state, pix, samp, time, n, 1, splits) * rays["weight"][..., None]
+    if with_stats:
+        return L, torch.stack(occ)
+    return L
 
 
 def _ao_li(scene, meta, cfg, rays, pix, samp, time):

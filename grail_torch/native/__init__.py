@@ -1,10 +1,12 @@
 """Host-side C++ components of the port, loaded with ctypes: the SAH BVH
-builder (bvh_builder.cpp), which builds the same tree as the reference's
-numpy builder (grail/scene/bvh.py build_bvh) on the meshes the tests hold it
-to (not on every mesh: on spheres of 100 triangles or fewer the two split
-otherwise), and its collapse into the
-4-wide node table of the bvh4 kernels (bvh4_collapse.cpp). The builder
-flattens the tree depth-first into structure-of-arrays tables:
+builder (bvh_builder.cpp) and its collapse into the 4-wide node table of the
+bvh4 kernels (bvh4_collapse.cpp). The C++ builder builds the trees of meshes
+of scene/bvh.py's NATIVE_THRESHOLD (2,048) triangles and more, as the
+reference's native builder does; below that size scene/bvh.py's numpy
+builder, the reference's, builds them (the two split some small meshes
+otherwise: a 48- and a 100-triangle sphere among those tests/test_torch_bvh.py
+holds). The builder flattens the tree depth-first into structure-of-arrays
+tables:
 
   bounds_min/max (Nn,3) f32 | right (Nn,) i32 second-child index (-1 = leaf)
   prim_off (Nn,) i32 | nprims (Nn,) i32 | axis (Nn,) i32 | prim_ids (T,) i32

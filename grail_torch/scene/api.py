@@ -6,7 +6,9 @@ Statements flow as in the reference (options block -> WorldBegin ->
 attributes, materials, lights and shapes -> WorldEnd) and build the same
 rows in the same order, so that a parsed scene holds the reference's leaves.
 Ported: the transform directives, Camera "perspective", "orthographic" and
-"environment", Film, Sampler, PixelFilter, SurfaceIntegrator "path",
+"environment", Film (with its "cropwindow"), Sampler (with "adaptive":
+self.adaptive), PixelFilter, Renderer "sampler" and "metropolis"
+(self.mlt_config and self.mlt_spp), SurfaceIntegrator "path",
 "directlighting", "whitted", "ambientocclusion" and "dipolesubsurface",
 VolumeIntegrator "emission" and "single", attributes and
 ReverseOrientation, Texture "constant", "scale", "mix", "bilerp", "uv",
@@ -45,6 +47,7 @@ from ..engine import camera as cam
 from ..engine.filters import FilterConfig
 from ..engine.imageio import read_image
 from ..engine.integrator import IntegratorConfig
+from ..engine.metropolis import MLTConfig
 from ..engine.subsurface import subsurface_from_diffuse
 from ..shade import bsdf as bx
 from ..shade import measured as msr
@@ -71,11 +74,11 @@ UNPORTED_INTEGRATORS = ("igi", "photonmap", "exphotonmap", "diffuseprt", "glossy
 VOLUME_INTEGRATORS = ("emission", "single")
 SAMPLER_KINDS = {"lowdiscrepancy": ZERO_TWO, "02sequence": ZERO_TWO,
                  "stratified": STRATIFIED, "halton": HALTON, "random": RANDOM,
-                 "bestcandidate": ZERO_TWO}
+                 "bestcandidate": ZERO_TWO, "adaptive": ZERO_TWO}
 FILTERS = ("box", "triangle", "gaussian", "mitchell", "sinc")
 CAMERAS = {"perspective": cam.PERSPECTIVE, "orthographic": cam.ORTHOGRAPHIC,
            "environment": cam.ENVIRONMENT}
-UNPORTED_RENDERERS = ("metropolis", "createprobes", "surfacepoints")
+UNPORTED_RENDERERS = ("createprobes", "surfacepoints")
 
 
 def _unported(what):
@@ -162,12 +165,16 @@ class PbrtAPI:
         self.sss_eta = 1.3
         self.accelerator_name = "bvh"
         self.renderer_name = "sampler"
+        self.renderer_params = ParamSet()
         self.objects = {}                 # ObjectBegin name -> recorded shapes
         self._tlas_objects = {}           # name -> builder object id (BLAS)
         self.current_object = None
         self.search_path = "."
         self.out_filename = "out.exr"
         self.integrator_config = None
+        self.adaptive = None        # Sampler "adaptive": {"min": ..., "max": ...}
+        self.mlt_config = None      # Renderer "metropolis": its MLTConfig ...
+        self.mlt_spp = None         # ... and mutations a pixel
 
     # --------------------------------------------------------------- CTM helpers
     def _for_active(self, fn):
@@ -226,13 +233,9 @@ class PbrtAPI:
         self.coord_systems["camera"] = c2w
 
     def sampler(self, name, params):
-        if name == "adaptive":
-            raise _unported('Sampler "adaptive"')
         self.sampler_name, self.sampler_params = name, params
 
     def film(self, name, params):
-        if params.find_floats("cropwindow") is not None:
-            raise _unported('Film "cropwindow"')
         self.film_name, self.film_params = name, params
 
     def pixel_filter(self, name, params):
@@ -254,7 +257,7 @@ class PbrtAPI:
     def renderer(self, name, params):
         if name in UNPORTED_RENDERERS:
             raise _unported(f'Renderer "{name}"')
-        self.renderer_name = name
+        self.renderer_name, self.renderer_params = name, params
 
     # -------------------------------------------------------------- world block
     def world_begin(self):
@@ -853,6 +856,12 @@ class PbrtAPI:
         b = self.builder
         b.xres = self.film_params.find_one_int("xresolution", 640)
         b.yres = self.film_params.find_one_int("yresolution", 480)
+        cw = self.film_params.find_floats("cropwindow")
+        if cw is not None and len(cw) == 4:
+            # image.cpp's constructor clamps and orders the crop window
+            x0, x1 = sorted((max(0.0, min(1.0, cw[0])), max(0.0, min(1.0, cw[1]))))
+            y0, y1 = sorted((max(0.0, min(1.0, cw[2])), max(0.0, min(1.0, cw[3]))))
+            b.crop = (x0, x1, y0, y1)
         self.out_filename = self.film_params.find_one_string("filename", "out.exr")
         fkind = self.filter_name if self.filter_name in FILTERS else "box"
         kw = {}
@@ -879,6 +888,12 @@ class PbrtAPI:
         if self.sampler_name == "bestcandidate":
             log.warning("Sampler %r mapped to scrambled (0,2)-sequence",
                         self.sampler_name)
+        if self.sampler_name == "adaptive":
+            # adaptive.cpp's "minsamples"/"maxsamples": the re-queue between
+            # waves of engine.render.render_adaptive over the (0,2)-sequence
+            self.adaptive = {"min": self.sampler_params.find_one_int("minsamples", 4),
+                             "max": self.sampler_params.find_one_int("maxsamples", 32)}
+            spp = self.adaptive["max"]
         b.sampler = SamplerConfig(kind=SAMPLER_KINDS.get(self.sampler_name, ZERO_TWO),
                                   spp=spp)
 
@@ -913,7 +928,17 @@ class PbrtAPI:
             sss_maxerror=ip.find_one_float("maxerror", 0.05) if kind == "dipole" else 0.05,
             sss_sigma_a=tuple(self.sss_sigma_a), sss_sigma_s=tuple(self.sss_sigma_s),
             sss_eta=self.sss_eta)
-        if self.renderer_name not in ("sampler", "aggregatetest", ""):
+        if self.renderer_name == "metropolis":
+            rp = self.renderer_params
+            self.mlt_config = MLTConfig(
+                max_depth=rp.find_one_int("maxdepth", 7),
+                n_bootstrap=rp.find_one_int("bootstrapsamples", 4096),
+                large_step_prob=rp.find_one_float("largestepprobability", 0.25),
+                mutations_per_wave=16,
+                bidirectional=rp.find_one_bool("bidirectional", True),
+                direct_separate=rp.find_one_bool("dodirectseparately", False))
+            self.mlt_spp = rp.find_one_int("samplesperpixel", 32)
+        elif self.renderer_name not in ("sampler", "aggregatetest", ""):
             log.warning("Renderer %r falls back to the sampler renderer",
                         self.renderer_name)
         if self.accelerator_name not in ("bvh", ""):

@@ -46,7 +46,6 @@ _MEDIA = ("w2v", "bounds_min", "bounds_max", "sigma_a", "sigma_s", "g", "le", "g
           "exp_a", "exp_b", "updir")
 # reference-side features whose routes are not ported yet
 _UNPORTED_LEAVES = ("ring",)
-_UNPORTED_META = {"crop": (0.0, 1.0, 0.0, 1.0)}
 
 
 def _same_fields(cls, obj):
@@ -55,10 +54,6 @@ def _same_fields(cls, obj):
 
 def meta_from(meta) -> SceneMeta:
     """The port's SceneMeta from any object with the reference's attributes."""
-    for name, plain in _UNPORTED_META.items():
-        value = getattr(meta, name, plain)
-        if (tuple(value) if isinstance(plain, tuple) else value) != plain:
-            raise NotImplementedError(f"scene uses {name}: not ported yet")
     return SceneMeta(
         tex_specs=tuple(_same_fields(TexSpec, s) for s in meta.tex_specs),
         lobe_types=tuple(int(t) for t in meta.lobe_types),
@@ -77,6 +72,7 @@ def meta_from(meta) -> SceneMeta:
         light_image_rows=tuple((int(r), int(i)) for r, i in meta.light_image_rows),
         alpha_rows=tuple(int(r) for r in meta.alpha_rows),
         media_kinds=tuple(int(k) for k in getattr(meta, "media_kinds", ())),
+        crop=tuple(float(c) for c in getattr(meta, "crop", (0.0, 1.0, 0.0, 1.0))),
     )
 
 

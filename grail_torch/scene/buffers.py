@@ -36,13 +36,13 @@ from ..device import resolve_device
 from ..engine.filters import FilterConfig
 from ..kernels.bvh4 import build_bvh4_blas, build_bvh4_tables
 from ..kernels.bvh_stream import build_stream_table, tree_depth
-from ..native import build_bvh_native
 from ..shade import bsdf as bx
 from ..shade import geometry as geom
 from ..shade import lights as lt
 from ..shade.materials import CONV_ID, MAT_FIELDS
 from ..shade.mipmap import build_pyramid, pack_pyramid
 from ..shade.textures import TexSpec
+from .bvh import build_bvh_auto
 
 BRUTE_MAX_TRIS = 64   # the reference builds a BVH above this many triangles
 # the far micro-triangle an instanced-only scene gets as its base soup
@@ -52,9 +52,10 @@ SENTINEL_TRI = np.asarray([[1e30, 1e30, 1e30], [1e30, 1e30 + 1, 1e30],
 
 def binary_bvh(verts, tri_idx):
     """The binary SAH tree that a scene's BVH tables are built from (numpy
-    arrays in the native builder's layout). force_leaf=4: a box record costs
-    the record-stream traversal as much as a triangle record."""
-    return build_bvh_native(verts, tri_idx, max_prims=4, force_leaf=4)
+    arrays in scene/bvh.py's layout), by the builder the reference picks for
+    its size (bvh.build_bvh_auto). force_leaf=4: a box record costs the
+    record-stream traversal as much as a triangle record."""
+    return build_bvh_auto(verts, tri_idx, max_prims=4, force_leaf=4)
 
 
 def attach_record_table(scene):
@@ -91,6 +92,7 @@ class SceneMeta:
     light_image_rows: Tuple[Tuple[int, int], ...] = ()   # (light row, image id)
     alpha_rows: Tuple[int, ...] = ()    # the alpha-cutout texture rows in use
     media_kinds: Tuple[int, ...] = ()   # each media region's kind (shade/media.py)
+    crop: Tuple[float, float, float, float] = (0.0, 1.0, 0.0, 1.0)   # film crop window
 
 
 def _motion_bounds(m0, m1, omin, omax, steps=16):
@@ -267,6 +269,7 @@ class SceneBuilder:
         self.filter = FilterConfig()
         self.xres = 256
         self.yres = 256
+        self.crop = (0.0, 1.0, 0.0, 1.0)   # film crop window [x0, x1, y0, y1]
         self.inst_objects = []   # object-space mesh buckets (add_object)
         self.instances = []      # {obj, m0, m1} (add_instance)
         self.brdf_tables = []    # measured half-angle BRDF tables (numpy)
@@ -689,5 +692,6 @@ class SceneBuilder:
             alpha_rows=tuple(sorted({int(a) for a in np.unique(scene["tri_alpha"])
                                      if a >= 0})),
             media_kinds=tuple(int(m["type"]) for m in self.media_regions),
+            crop=tuple(float(c) for c in self.crop),
         )
         return to_torch(scene, device), meta

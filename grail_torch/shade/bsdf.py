@@ -374,6 +374,13 @@ def _matching_mask(lobes, include_specular):
     return m
 
 
+def bsdf_num_components(lobes, include_specular=True):
+    """The lobes of each lane's stack that match the flags (pbrt
+    BSDF::NumComponents), int32 (N,)."""
+    return torch.sum(_matching_mask(lobes, include_specular).to(torch.int32), dim=-1,
+                     dtype=torch.int32)
+
+
 def bsdf_f(lobes, wo, wi, present, include_specular=True, tables=()):
     """Sum over lobe slots of lobe_f (pbrt BSDF::f); tables: the scene's
     measured BRDF tables."""

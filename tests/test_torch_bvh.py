@@ -1,8 +1,11 @@
-"""The port's BVH builder, record-table packer, ray binning and the plain
+"""The port's BVH builders, record-table packer, ray binning and the plain
 versions of the four stream traversals against grail's, on the terrain scene
 (mesh_scene at grid=24: 1,058 terrain and 2,208 sphere triangles).
 
-Builder and packer: array for array and bit for bit. Traversals: each plain
+Builders and packer: array for array and bit for bit. The scene's builder
+dispatch (scene/buffers.py binary_bvh: numpy below 2,048 triangles, C++
+from there, as the reference's build_bvh_auto) on twelve spheres of 32 to
+4,096 triangles, two of which the C++ builder alone splits otherwise. Traversals: each plain
 traversal against grail's Pallas kernel of the same kind and hit mode, run
 in interpret mode, on ~1,100 rays (the reference pads them to 2,048): random
 rays, finite shadow segments and dead lanes. Hit masks and occlusion masks
@@ -22,12 +25,15 @@ import jax.numpy as jnp
 
 from grail.kernels import binning as jbin
 from grail.kernels.bvh_stream import _run, build_stream_table as jbuild_table
-from grail.scene.bvh import build_bvh as jbuild_bvh
+from grail.scene.bvh import build_bvh as jbuild_bvh, build_bvh_auto as jbuild_auto
 from grail.scene.presets import mesh_scene
 from grail_torch.kernels import binning as tbin
 from grail_torch.kernels import bvh_stream as tbs
 from grail_torch.kernels import intersect as tisect
 from grail_torch.native import build_bvh_native
+from grail_torch.scene import bvh as tbvh
+from grail_torch.scene.buffers import binary_bvh
+from grail_torch.scene.shapes import sphere
 from grail_torch.scene.bridge import scene_from_numpy
 
 torch.set_num_threads(2)
@@ -80,6 +86,29 @@ def test_builders_and_table_match_reference(terrain):
     args = [torch.tensor(table)] + [torch.zeros(1, 3)] * 2 + [torch.zeros(1)] * 2
     with pytest.raises(ValueError, match="stack"):
         tbs.stream_traverse(*args, kind="ordered", depth=tbs.STACK + 1)
+
+
+# (nu, nv) of sphere meshes of 2·nu·nv triangles: (6, 4) and (10, 5) are
+# where the C++ builder's tree differs from the numpy builder's (33 nodes
+# against 35, 59 against 65); the reference builds both with numpy
+SPHERES = ((6, 4), (10, 5), (4, 4), (8, 4), (8, 6), (8, 8), (12, 6), (16, 8),
+           (20, 10), (24, 12), (32, 16), (64, 32))
+
+
+@pytest.mark.parametrize("nu,nv", SPHERES, ids=[f"{2 * u * v}tris_{u}x{v}" for u, v in SPHERES])
+def test_scene_builder_dispatch_matches_reference(nu, nv):
+    verts, idx, _, _ = sphere(nu=nu, nv=nv)
+    ref = jbuild_auto(verts, idx, max_prims=4, force_leaf=4)
+    got = binary_bvh(verts, idx)
+    assert ref.keys() == got.keys()
+    for k in ref:
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    small = idx.shape[0] < tbvh.NATIVE_THRESHOLD
+    np.testing.assert_array_equal(
+        tbvh.build_bvh(verts, idx, 4, 4)["right"] if small
+        else build_bvh_native(verts, idx, 4, 4)["right"], ref["right"])
+    if (nu, nv) in ((6, 4), (10, 5)):       # the C++ builder alone differs here
+        assert len(build_bvh_native(verts, idx, 4, 4)["right"]) != len(ref["right"])
 
 
 @pytest.mark.parametrize("kind", ["skip", "ordered"])

@@ -51,12 +51,11 @@ GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 
 # the scenes the port renders: leaf for leaf the reference's
 MATCHING = ("ao", "bump", "cornell", "dipole", "dof", "envlight", "glossy",
-            "heightfield", "instances", "measured", "nurbs", "orthodisk", "proctex",
-            "projgonio", "spotfog", "subdiv", "whittedigi")
-# the others, with the directive the port refuses them at
+            "heightfield", "instances", "measured", "mlt", "nurbs", "orthodisk",
+            "proctex", "projgonio", "spotfog", "subdiv", "whittedigi")
+# the other four, with the directive the port refuses them at
 REFUSED = {
     "irradcache": 'SurfaceIntegrator "irradiancecache"',
-    "mlt": 'Renderer "metropolis"',
     "photon": 'SurfaceIntegrator "photonmap"',
     "prtteapot": 'SurfaceIntegrator "diffuseprt"',
     "useprobes": 'SurfaceIntegrator "useprobes"',
@@ -66,7 +65,8 @@ REFUSED = {
 MAPS = ("bump", "orthodisk", "proctex", "projgonio")
 # the scenes whose world block the port builds once the integrator (or
 # renderer) line reads "path": refused scenes (quadrics, glass and mirror,
-# plastic, point and infinite lights) and MAPS
+# plastic, point and infinite lights), MAPS, and mlt, whose Renderer line
+# then gives the path integrator's settings
 WORLD_MATCHING = ("bump", "irradcache", "mlt", "orthodisk", "photon", "proctex",
                   "projgonio", "prtteapot", "useprobes")
 # ... and where the rest then stop: nowhere, every world block builds
@@ -76,7 +76,7 @@ WORLD_REFUSED = {}
 def test_lists_cover_every_scene():
     names = {f[:-5] for f in os.listdir(SCENES) if f.endswith(".pbrt")}
     assert set(MATCHING) | set(REFUSED) == names and not set(MATCHING) & set(REFUSED)
-    assert set(WORLD_MATCHING) | set(WORLD_REFUSED) == set(REFUSED) | set(MAPS)
+    assert set(WORLD_MATCHING) | set(WORLD_REFUSED) == set(REFUSED) | set(MAPS) | {"mlt"}
     assert not set(WORLD_MATCHING) & set(WORLD_REFUSED) and set(MAPS) <= set(MATCHING)
 
 
@@ -135,6 +135,12 @@ def assert_same_scene(ported, reference):
     for field in dataclasses.fields(tapi.integrator_config):
         assert (getattr(tapi.integrator_config, field.name)
                 == getattr(japi.integrator_config, field.name)), field.name
+    # the renderer's and the adaptive sampler's settings
+    assert tapi.adaptive == getattr(japi, "adaptive", None)
+    assert tapi.mlt_spp == getattr(japi, "mlt_spp", None)
+    ref_mlt = japi.mlt_config
+    assert (tapi.mlt_config is None if ref_mlt is None
+            else dataclasses.asdict(tapi.mlt_config) == dataclasses.asdict(ref_mlt))
 
 
 @pytest.mark.parametrize("name", MATCHING)
@@ -198,6 +204,14 @@ PORTED_SNIPPETS = {
     "kdsubsurface": ('Material "kdsubsurface" "rgb Kd" [0.7 0.5 0.3] '
                      '"float meanfreepath" [0.4]\n' + _QUAD.format(extra="")),
 }
+# the Film's crop window (clamped and ordered, as image.cpp) and the
+# adaptive sampler's settings, parsed to the reference's meta
+OPTION_SNIPPETS = {
+    "cropwindow": _HEADER.format(film='"float cropwindow" [0.75 -0.2 0.5 0.125]',
+                                 sampler="lowdiscrepancy"),
+    "adaptive": _HEADER.format(film="", sampler="adaptive").replace(
+        '"integer pixelsamples" [1]', '"integer minsamples" [2] "integer maxsamples" [8]'),
+}
 
 
 @pytest.mark.parametrize("case", sorted(PORTED_SNIPPETS))
@@ -208,11 +222,19 @@ def test_ported_snippet_matches_reference(case, scene_dir):
                       jparser.parse_string(text, search_path=scene_dir))
 
 
+@pytest.mark.parametrize("case", sorted(OPTION_SNIPPETS))
+def test_option_snippet_matches_reference(case):
+    text = OPTION_SNIPPETS[case] + 'LightSource "point"\n' + _QUAD.format(extra="") + "WorldEnd\n"
+    ported, reference = tparser.parse_string(text, device="cpu"), jparser.parse_string(text)
+    assert_same_scene(ported, reference)
+    if case == "cropwindow":
+        assert ported[1].crop == (0.0, 0.75, 0.125, 0.5)
+    else:
+        assert ported[2].adaptive == {"min": 2, "max": 8} and ported[1].sampler.spp == 8
+
+
 # parameters and directives that the port refuses where they are used
 UNPORTED_SNIPPETS = {
-    "cropwindow": ('"float cropwindow" [0 0.5 0 0.5]', "lowdiscrepancy", "",
-                   'Film "cropwindow"'),
-    "adaptive": ("", "adaptive", "", 'Sampler "adaptive"'),
     "area": ("", "lowdiscrepancy", 'AreaLightSource "other"\n', 'AreaLightSource "other"'),
     "transform_times": ("", "lowdiscrepancy", "TransformTimes 0 1\n", "TransformTimes"),
 }
@@ -368,5 +390,7 @@ def test_cli_renders_and_refuses(tmp_path):
     img = tio.read_image(out)
     assert img.shape == (64, 64, 3) and np.isfinite(img).all() and img.mean() > 0
     assert cli_main([_scene_path("photon"), "--cpu", "--quiet"]) == 1
-    assert cli_main([_scene_path("envlight"), "--cpu", "--quiet",
-                     "--checkpoint", str(tmp_path / "ck")]) == 2
+    # the reference's --checkpoint option renders (no file yet: from sample 0)
+    assert cli_main([_scene_path("envlight"), "--cpu", "--spp", "1", "--quiet",
+                     "--outfile", out, "--checkpoint", str(tmp_path / "ck")]) == 0
+    np.testing.assert_array_equal(tio.read_image(out), img)

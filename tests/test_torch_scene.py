@@ -93,9 +93,10 @@ def test_unported_scenes_raise(both):
     with pytest.raises(NotImplementedError, match="ring"):
         scene_from_numpy(dict(scene_np, ring={"verts": np.zeros((1, 3))}), jm,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="crop"):
-        scene_from_numpy(scene_np, dataclasses.replace(jm, crop=(0.0, 0.5, 0.0, 1.0)),
-                         device="cpu")
+    # a crop window is carried across (engine/render.py renders it)
+    _, tm_crop = scene_from_numpy(scene_np, dataclasses.replace(jm, crop=(0.0, 0.5, 0.0, 1.0)),
+                                  device="cpu")
+    assert tm_crop.crop == (0.0, 0.5, 0.0, 1.0)
     # above 64 triangles a scene gets a BVH, as the reference: its 4-wide
     # tables, and its record table only on request
     b = SceneBuilder()
