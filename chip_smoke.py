@@ -161,9 +161,33 @@ failure ends the run with a non-zero exit code:
       checkpointed mesh100k render (64x64, 8 spp) resumed, bitwise the
       uninterrupted one; a cropped and an adaptive Cornell box at 32x32,
       card against CPU; mesh100k's occupancy line at 256x256.
+  the preprocessed group (photon mapping, the irradiance cache, PRT with
+  spherical harmonics and radiance probes, instant GI):
+  26. preprocessed: the four goldens (photon, irradcache, prtteapot,
+      useprobes) through the command line, four processes at once, each EXR
+      against its golden, and the photon image against the long path-traced
+      reference (energy ratio within 0.18, median 8x8-block error under
+      0.3); Renderer "createprobes" through the command line, then
+      useprobes.pbrt reading that file through the command line, bitwise
+      the render given bake_probes in process at the file's resolution,
+      samples and lmax; Renderer "surfacepoints" through the command line
+      (4,096 points); each kind (photon, irradiancecache, diffuseprt,
+      glossyprt: prtteapot with its integrator line swapped, useprobes,
+      and igi on cornell.pbrt) at 32x32, 2 spp on the card against the CPU,
+      and igi and photon on the Cornell box preset (brute force, row 1) as
+      tests/test_render.py runs them; the six at 256x256, 16 spp (one
+      megawave of 1,048,576 camera rays): camera rays/s (median of 3 after
+      a warm-up), the preprocess's seconds apart, launches per render of
+      each kernel and waves by role against the counts PERF.md predicted,
+      the card's busy share under torch.profiler and peak memory; then each
+      kernel against its plain version on the card, bitwise, on the busiest
+      wave of each (kernel, role), the new roles (photon_shoot,
+      final_gather, ic_preprocess, prt_transfer, probe_bake, vpl_path,
+      vpl_shadow) among them. TF32 matmuls must stay off.
 Then a {"kernels": [...]} line (each kernel's "launches_direct",
-"launches_maps", "launches_media" and "launches_mlt": its launches in the
-direct, maps, media and Metropolis groups' renders) and, last, {"ok": true,
+"launches_maps", "launches_media", "launches_mlt" and
+"launches_preprocessed": its launches in the direct, maps, media,
+Metropolis and preprocessed groups' renders) and, last, {"ok": true,
 "device": {...}}.
 Needs a CUDA device and nvcc; imports nothing of JAX.
 """
@@ -178,6 +202,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -192,8 +217,10 @@ from grail_torch.engine import integrator as integ
 from grail_torch.engine import metropolis as mlt
 from grail_torch.engine.integrator import WAVES, IntegratorConfig
 from grail_torch.engine import subsurface
+from grail_torch.engine import prt
 from grail_torch.engine.render import (camera_rays, megawave_lanes, occupancy_probe,
-                                       preprocess, render, render_adaptive, render_wave)
+                                       photon_config, preprocess, render, render_adaptive,
+                                       render_wave)
 from grail_torch.kernels import brute_intersect as bi
 from grail_torch.kernels import bvh4 as b4
 from grail_torch.kernels import bvh_stream as bs
@@ -358,6 +385,35 @@ MLT_KERNELS = b4.KERNELS + bi.KERNELS        # row 1: the crop and adaptive Corn
 MLT_PARITY = (("bvh4_closest", "mlt_camera"), ("bvh4_closest", "mlt_light"),
               ("bvh4_any_hit", "mlt_connect"))
 MLT_CROP = (0.25, 0.75, 0.125, 0.625)
+# the preprocessed group (phase 26): the goldens of photon mapping, the
+# irradiance cache, diffuse PRT and radiance probes; the group's renders at
+# full width (256x256, 16 spp: one megawave of 1,048,576 camera rays), each
+# (name, scene file, the file's integrator line and its replacement or None)
+PRE_GOLDENS = ("photon", "irradcache", "prtteapot", "useprobes")
+PRE_RES, PRE_SPP = 256, 16
+PRE_RENDERS = (
+    ("photon", "photon", None), ("irradiancecache", "irradcache", None),
+    ("diffuseprt", "prtteapot", None),
+    ("glossyprt", "prtteapot", ('SurfaceIntegrator "diffuseprt"',
+                                'SurfaceIntegrator "glossyprt"')),
+    ("useprobes", "useprobes", None),
+    ("igi", "cornell", ('SurfaceIntegrator "path"', 'SurfaceIntegrator "igi"')))
+# tests/test_render.py's checks on the Cornell box preset (brute force)
+PRE_PRESET = (("preset_igi", IntegratorConfig(kind="igi", max_depth=2, igi_n_paths=32,
+                                              igi_n_sets=2, igi_max_depth=3)),
+              ("preset_photon", IntegratorConfig(kind="photon", photon_paths=4096,
+                                                 photon_radius=0.3)))
+PRE_KERNELS = b4.KERNELS + bi.KERNELS
+PHOTON_ENERGY, PHOTON_BLOCK_MEDIAN = 0.18, 0.3     # tests/test_render.py:303-330
+# the waves of the group's new roles that the renders must hand a kernel
+PRE_WAVES = (("bvh4_closest", "photon_shoot"), ("bvh4_closest", "final_gather"),
+             ("bvh4_closest", "ic_preprocess"), ("bvh4_any_hit", "ic_preprocess"),
+             ("bvh4_any_hit", "prt_transfer"), ("bvh4_any_hit", "probe_bake"),
+             ("bvh4_closest", "vpl_path"), ("bvh4_any_hit", "vpl_shadow"))
+# the roles traced as any hit (the others are closest hits), and the
+# irradiance cache preprocess's shadow rays among its waves
+PRE_ANY_ROLES = ("shadow", "occlusion", "prt_transfer", "probe_bake", "vpl_shadow")
+PROBE_SPACING = 0.25       # createprobes' "samplespacing": 8 cells an axis of useprobes.pbrt
 GRID_SEED = 10
 BRUTE_SOURCE = "grail_torch/kernels/csrc/brute_intersect.cu"
 RAGGED = 37                # rays past 1M in the ragged parity case
@@ -2304,6 +2360,251 @@ def mlt_phases(dev, gpu):
     return total
 
 
+def pre_text(name, file, swap, res=None, spp=None):
+    """The group's scene text: the file at res (its own when None) with its
+    integrator line swapped where `swap` says."""
+    if res is None:
+        with open(_scene_file(file)) as f:
+            text = f.read()
+        if spp is not None:
+            text = re.sub(r'"integer pixelsamples" \[\d+\]',
+                          f'"integer pixelsamples" [{spp}]', text)
+    else:
+        text = _scene_text(file, (res, res), spp=spp)
+    if swap is not None:
+        check(swap[0] in text, f"{file}.pbrt has no {swap[0]}")
+        text = text.replace(swap[0], swap[1])
+    return text
+
+
+def pre_expected(cfg, meta):
+    """(waves by role, launches of each kernel, closest hits binned and
+    unbinned) of one render of one megawave at or above SORT_MIN lanes, as
+    PERF.md predicts them: every camera wave a closest hit, binned but
+    kind igi's (bounce 0 keeps tile order); direct lighting one shadow wave
+    and, with an area or infinite light, one BSDF-branch closest hit."""
+    mis = int(bool({AREA, INFINITE} & set(meta.light_types)))
+    want = dict.fromkeys(WAVES, 0)
+    any_hit, unbinned = 0, 0
+    if cfg.kind == "photon":
+        pcfg = photon_config(cfg)
+        want.update(camera=1, shadow=1, bsdf=mis, photon_shoot=pcfg.max_depth,
+                    final_gather=2 if pcfg.final_gather else 0)
+        unbinned = pcfg.max_depth                       # 2,048-ray shoots
+    elif cfg.kind == "irradiancecache":
+        ns = cfg.ic_nsamples
+        want.update(camera=1, shadow=1, bsdf=mis, ic_preprocess=1 + ns * (2 + mis))
+        any_hit, unbinned = ns, 1 + ns * (1 + mis)      # 256-ray waves
+    elif cfg.kind in ("diffuseprt", "glossyprt"):
+        want.update(camera=1, prt_transfer=cfg.prt_nsamples)
+    elif cfg.kind == "useprobes":
+        want.update(camera=1, probe_bake=meta.n_lights * cfg.prt_nsamples)
+    elif cfg.kind == "igi":
+        bounces = cfg.max_depth + 1
+        want.update(camera=1, continuation=bounces - 1, shadow=bounces, bsdf=bounces * mis,
+                    vpl_path=cfg.igi_max_depth,
+                    vpl_shadow=bounces * cfg.igi_n_paths * cfg.igi_max_depth)
+        unbinned = 1 + cfg.igi_max_depth               # the camera wave, 64-ray paths
+    any_hit += sum(want[r] for r in PRE_ANY_ROLES)
+    closest = sum(want.values()) - any_hit
+    launches = {"bvh4_closest": closest, "bvh4_any_hit": any_hit}
+    return want, launches, {"binned": closest - unbinned, "unbinned": unbinned}
+
+
+def _cli(*args):
+    return subprocess.Popen([sys.executable, "-m", "grail_torch.cli.main", *args], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _wait(procs):
+    """Wait for the command-line processes; each must exit 0."""
+    try:
+        for proc in procs:
+            _, log = proc.communicate(timeout=600)
+            check(proc.returncode == 0, f"the command line exited {proc.returncode}: "
+                                        f"{log[-2000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def pre_cli(dev, gpu):
+    """The four goldens through the command line (the photon image also
+    against the path reference); meanwhile createprobes and surfacepoints
+    through the command line, then useprobes reading the probe file,
+    against the in-process bake."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        probes = os.path.join(tmp, "grid.probes")
+        base = pre_text("useprobes", "useprobes", None)
+        bake, use, out = (os.path.join(tmp, n) for n in ("bake.pbrt", "use.pbrt", "use.pfm"))
+        with open(bake, "w") as f:
+            f.write(f'Renderer "createprobes" "integer lmax" [3] "integer directsamples" [32] '
+                    f'"float samplespacing" [{PROBE_SPACING}] "string filename" "{probes}"\n'
+                    + base)
+        with open(use, "w") as f:
+            f.write(base.replace('SurfaceIntegrator "useprobes"',
+                                 f'SurfaceIntegrator "useprobes" "string filename" "{probes}"'))
+        points = os.path.join(tmp, "points.txt")
+        sp = os.path.join(tmp, "sp.pbrt")
+        with open(sp, "w") as f:
+            f.write(f'Renderer "surfacepoints" "string filename" "{points}"\n'
+                    + pre_text("dipole", "dipole", None))
+        side = [_cli(bake), _cli(sp)]
+        try:
+            pbrt_cli(tmp, PRE_GOLDENS, "preprocessed_cli")
+        finally:
+            _wait(side)
+        img = read_image(os.path.join(tmp, "photon.exr"))
+        ref = _golden("photon_path_reference")
+        energy = abs(float(img.mean() / ref.mean()) - 1.0)
+        med, _ = mlt_blocks(img, ref)
+        emit({"phase": "preprocessed_photon_reference", "energy_ratio_off": energy,
+              "block_median": med})
+        check(energy < PHOTON_ENERGY and med < PHOTON_BLOCK_MEDIAN,
+              f"the photon image is off the path reference: {energy}, {med}")
+
+        _wait([_cli(use, "--outfile", out)])
+        grid = prt.read_probes(probes, dev)
+        res = tuple(grid["coeffs"].shape[:3])
+        scene, meta, api = parse_file(use, device=dev)
+        baked = prt.bake_probes(scene, meta, api.integrator_config, *res, n_samples=32,
+                                lmax=3)
+        file_equal = all(torch.equal(grid[k], baked[k]) for k in ("coeffs", "bmin", "bmax"))
+        cli_img = read_image(out)
+        with mock.patch("grail_torch.engine.render.preprocess",
+                        lambda *a: {"probes": baked}):
+            own = render(scene, meta, api.integrator_config, device=dev)[0].cpu().numpy()
+        with open(points) as f:
+            rows = [ln.split() for ln in f if not ln.startswith("#")]
+        pts = np.asarray(rows, np.float64)
+        emit({"phase": "preprocessed_probes", "grid": list(res), "lmax": grid["lmax"],
+              "file_bitwise_bake": file_equal,
+              "image_bitwise": bool(np.array_equal(cli_img, own)),
+              "image_mean": float(own.mean()), "surface_points": int(pts.shape[0]),
+              "gpu": gpu, "seconds": time.perf_counter() - t0})
+        check(res == (8, 8, 8) and file_equal and np.array_equal(cli_img, own)
+              and own.mean() > 0.0, "createprobes then useprobes is not the in-process bake")
+        check(pts.shape == (4096, 7) and np.isfinite(pts).all(),
+              f"surfacepoints wrote {pts.shape}")
+
+
+def pre_vs_cpu(dev):
+    """Each kind at 32x32, 2 spp, card against CPU; igi and photon on the
+    Cornell box preset (brute force) as tests/test_render.py runs them."""
+    for name, file, swap in PRE_RENDERS:
+        small_vs_cpu(name, dev, "preprocessed_vs_cpu",
+                     text=pre_text(name, file, swap, PBRT_SMALL_RES))
+    for name, cfg in PRE_PRESET:
+        t0 = time.perf_counter()
+        imgs = {}
+        for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            sc, mt, _ = cornell_box(PBRT_SMALL_RES, PBRT_SMALL_RES, 4, device=where)
+            imgs[side] = render(sc, mt, cfg, spp=4, device=where)[0].cpu().numpy()
+        err = relative_mae(imgs["card"], imgs["cpu"])
+        emit({"phase": "preprocessed_vs_cpu", "scene": name, "kind": cfg.kind,
+              "res": PBRT_SMALL_RES, "spp": 4, "relative_mae": err,
+              "image_mean": float(imgs["card"].mean()), "seconds": time.perf_counter() - t0})
+        check(np.isfinite(imgs["card"]).all() and err < RELMAE_MAX,
+              f"{name} on the card differs from the CPU ({err})")
+
+
+def preprocessed_phases(dev, gpu):
+    """Phase 26, the preprocessed group: the goldens and the probe files
+    through the command line, each kind card against CPU, the six renders
+    at full width (rate, preprocess seconds, launches and waves by role
+    against PERF.md's prediction, busy share, peak), and each kernel on the
+    busiest wave of each (kernel, role) against its plain version. Returns
+    {kernel: launches} over the group's renders (parity launches apart)."""
+    t_group = time.perf_counter()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: the cache's and PRT's contractions would lose 13 bits")
+    total = dict.fromkeys(PRE_KERNELS, 0)
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    pre_cli(dev, gpu)
+    waves = {}
+    with role_waves(waves):
+        _reset_counts()
+        pre_vs_cpu(dev)
+        add(_launch_counts())
+        for name, file, swap in PRE_RENDERS:
+            t0 = time.perf_counter()
+            scene, meta, api = parse_string(pre_text(name, file, swap, PRE_RES, PRE_SPP),
+                                            device=dev, search_path=os.path.join(ROOT, "scenes"))
+            cfg = api.integrator_config
+            check(cfg.kind == name, f"{file} parsed as {cfg.kind}, want {name}")
+            want, want_launches, want_routes = pre_expected(cfg, meta)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            preprocess(scene, meta, cfg)
+            torch.cuda.synchronize()
+            pre_s = time.perf_counter() - t1
+            times, launches, roles, routes = [], [], [], []
+            render(scene, meta, cfg, spp=PRE_SPP, device=dev)    # the warm-up captures waves
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+            for _ in range(3):
+                _reset_counts()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                img, _ = render(scene, meta, cfg, spp=PRE_SPP, device=dev)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t1)
+                launches.append(_launch_counts())
+                roles.append(dict(WAVES))
+                routes.append(dict(CLOSEST_WAVES))
+                add(launches[-1])
+            peak = torch.cuda.max_memory_allocated(dev)
+            wall = statistics.median(times)
+            kernel_ms, n_launch, busy = busy_share(scene, meta, cfg, PRE_SPP, dev, wall)
+            img = img.cpu().numpy()
+            expected = dict.fromkeys(launches[0], 0)
+            expected.update(want_launches)
+            emit({"phase": "preprocessed_bench", "render": name, "scene": file,
+                  "kind": cfg.kind, "res": PRE_RES, "spp": PRE_SPP,
+                  "max_depth": cfg.max_depth, "triangles": meta.n_tris,
+                  "light_types": list(meta.light_types), "render_seconds": times,
+                  "preprocess_seconds": pre_s,
+                  "camera_rays_per_sec": PRE_RES * PRE_RES * PRE_SPP / wall,
+                  "launches_per_render": launches, "expected_launches": expected,
+                  "waves": {k: v for k, v in roles[0].items() if v},
+                  "expected_waves": {k: v for k, v in want.items() if v},
+                  "bvh4_closest_by_route": routes[0], "expected_routes": want_routes,
+                  "device_kernel_ms": kernel_ms, "device_launches": n_launch,
+                  "device_busy_share": busy, "image_mean": float(img.mean()),
+                  "peak_memory_bytes": peak, "held_before_render_bytes": held, "gpu": gpu,
+                  "seconds": time.perf_counter() - t0})
+            check(all(r == want for r in roles), f"{name} made waves {roles[0]}, want {want}")
+            check(all(n == expected for n in launches),
+                  f"{name} renders launched {launches}, want {expected}")
+            check(all(r == want_routes for r in routes),
+                  f"{name}'s closest hits took routes {routes[0]}, want {want_routes}")
+            check(np.isfinite(img).all() and img.shape == (PRE_RES, PRE_RES, 3)
+                  and img.mean() > 0.0, f"{name}'s image is not finite and positive")
+            del scene
+
+    emit({"phase": "preprocessed_launches", "launches": total})
+    check(all(total[k] > 0 for k in PRE_KERNELS),
+          f"a kernel of the preprocessed path was not launched: {total}")
+    t0 = time.perf_counter()
+    for (kernel, role), (_, tables, rays, kw) in sorted(waves.items(), key=lambda w: w[0]):
+        wave_parity("preprocessed", kernel, role, tables, rays, kw, "preprocessed_parity")
+    for need in PRE_WAVES:
+        check(need in waves, f"the preprocessed group's renders made no {need} wave")
+    emit({"phase": "preprocessed_parity", "cases": [list(k) for k in sorted(waves)],
+          "seconds": time.perf_counter() - t0})
+    del waves
+    emit({"phase": "preprocessed", "seconds": time.perf_counter() - t_group})
+    return total
+
+
 def main():
     check(torch.cuda.is_available(), "no CUDA device")
     dev = torch.device("cuda", 0)
@@ -2343,11 +2644,13 @@ def main():
     maps = maps_phases(dev, gpu)
     media_launches = media_phases(dev, gpu)
     mlt_launches = mlt_phases(dev, gpu)
+    pre_launches = preprocessed_phases(dev, gpu)
     for entry in kernels:
         entry["launches_direct"] = direct.get(entry["name"], 0)
         entry["launches_maps"] = maps.get(entry["name"], 0)
         entry["launches_media"] = media_launches.get(entry["name"], 0)
         entry["launches_mlt"] = mlt_launches.get(entry["name"], 0)
+        entry["launches_preprocessed"] = pre_launches.get(entry["name"], 0)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(gpu, flush=True)
     emit({"kernels": kernels})

@@ -1,10 +1,14 @@
 """Command line renderer (port of grail/cli/main.py; pbrt src/main/pbrt.cpp):
 parse .pbrt scene files, render each with the integrator its
-SurfaceIntegrator line names (path, directlighting, whitted,
-ambientocclusion or dipolesubsurface), with the Metropolis renderer where
-its Renderer line says "metropolis" and with adaptive sampling where its
+SurfaceIntegrator line names, with the Metropolis renderer where its
+Renderer line says "metropolis" and with adaptive sampling where its
 Sampler line says "adaptive", and write the image (EXR or PFM; 8-bit
-formats need PIL).
+formats need PIL). Renderer "createprobes" bakes a grid of SH radiance
+probes instead (its resolution a cell of "samplespacing" along the scene's
+extent, 1 to 16 cells an axis) and writes it to its "filename", which
+SurfaceIntegrator "useprobes" reads back by its own "filename"; Renderer
+"surfacepoints" writes the sampled surface point cloud (x y z nx ny nz
+area a line) to its "filename".
 
     python -m grail_torch.cli.main [options] scene.pbrt [scene2.pbrt ...]
     python -m grail_torch.cli.main --outfile out.exr --quick scene.pbrt
@@ -59,7 +63,9 @@ def main(argv=None):
     from ..device import resolve_device
     from ..engine.imageio import write_image
     from ..engine.metropolis import render_mlt
+    from ..engine.prt import bake_probes, write_probes
     from ..engine.render import render, render_adaptive
+    from ..engine.subsurface import sample_surface_points
     from ..scene.parser import parse_file, parse_string
 
     try:
@@ -91,6 +97,27 @@ def main(argv=None):
             if not args.quiet and (s % max(1, total // 20) == 0 or s == total):
                 log.info("  wave %d/%d (%.1fs)", s, total, time.time() - t0)
 
+        if api.probe_bake is not None:
+            pb = api.probe_bake
+            v = scene["verts"].cpu().numpy()
+            extent = np.maximum(v.max(0) - v.min(0), 1e-6)
+            res = tuple(int(np.clip(np.ceil(e / pb["spacing"]), 1, 16)) for e in extent)
+            write_probes(pb["filename"], bake_probes(scene, meta, cfg, *res,
+                                                     n_samples=pb["nsamples"],
+                                                     lmax=pb["lmax"]))
+            log.info("wrote %s (%dx%dx%d probes, lmax=%d) in %.1fs", pb["filename"], *res,
+                     pb["lmax"], time.time() - t0)
+            continue
+        if api.surfacepoints_out is not None:
+            sp = api.surfacepoints_out
+            p, n, area = sample_surface_points(scene, sp["npoints"])
+            rows = torch.cat([p, n, area[:, None]], dim=1).cpu().numpy()
+            with open(sp["filename"], "w") as f:
+                f.write("# grail surface points: x y z nx ny nz area\n")
+                for row in rows:
+                    f.write(" ".join(f"{x:.9g}" for x in row) + "\n")
+            log.info("wrote %s (%d points)", sp["filename"], sp["npoints"])
+            continue
         if api.mlt_config is not None:
             mcfg = api.mlt_config
             n_waves = max(1, (meta.xres * meta.yres * api.mlt_spp)

@@ -34,6 +34,30 @@ def cosine_sample_hemisphere(u1, u2):
     return torch.stack([dx, dy, z], dim=-1)
 
 
+def uniform_sample_sphere(u1, u2):
+    z = 1.0 - 2.0 * u1
+    r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    phi = TWO_PI * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def uniform_sphere_pdf():
+    return INV_FOURPI
+
+
+def uniform_sample_cone(u1, u2, cos_theta_max):
+    """Directions in a cone about +z (pbrt UniformSampleCone)."""
+    costheta = (1.0 - u1) + u1 * cos_theta_max
+    sintheta = torch.sqrt(torch.clamp_min(1.0 - costheta * costheta, 0.0))
+    phi = u2 * TWO_PI
+    return torch.stack([torch.cos(phi) * sintheta, torch.sin(phi) * sintheta, costheta],
+                       dim=-1)
+
+
+def uniform_cone_pdf(cos_theta_max):
+    return 1.0 / (TWO_PI * torch.clamp_min(1.0 - cos_theta_max, 1e-8))
+
+
 def uniform_sample_triangle(u1, u2):
     """Barycentrics (b0, b1) (pbrt UniformSampleTriangle)."""
     su1 = torch.sqrt(u1)

@@ -1,6 +1,6 @@
 """Surface integrators as a masked wavefront loop (port of
-grail/engine/integrator.py for the kinds "path", "direct", "whitted" and
-"ao", with the light strategies "one", "power" and "all").
+grail/engine/integrator.py for the kinds "path", "direct", "whitted",
+"ao" and "igi", with the light strategies "one", "power" and "all").
 
 Each bounce is one stage over the whole ray batch with an `active` mask:
 intersect -> environment escape -> shade (texture eval + lobe gather) ->
@@ -40,11 +40,13 @@ where the reference takes a lax.cond) adds the volume integrator's Lv and
 multiplies the throughput by its transmittance ("emission", or "single",
 whose march traces a "medium" wave a step), later segments only attenuate;
 estimate_direct multiplies each light sample by the transmittance to the
-light. kind="dipole" (engine/subsurface.py) has its own Li, which
-render.py dispatches to.
-
-Not ported yet: the other integrator kinds (igi, photon mapping, PRT, the
-irradiance cache) and material-sorted shading; they raise.
+light. kind="igi" (engine/igi.py) is kind="direct" with, at every bounce
+after the emission, the sum over one set of virtual point lights, the set
+drawn once a wave from the wave's first lane's sample index. The kinds with
+a preprocess, "dipole" (engine/subsurface.py), "photon"
+(engine/photonmap.py), "irradiancecache" (engine/irradiance.py),
+"diffuseprt", "glossyprt" and "useprobes" (engine/prt.py), have their own
+Li, which render.py dispatches to. Material-sorted shading is not ported.
 """
 from __future__ import annotations
 
@@ -63,6 +65,7 @@ from ..shade import geometry as geom
 from ..shade import materials as mtl
 from ..shade import media as med
 from ..shade.textures import eval_texture_rows, eval_textures
+from . import igi
 
 BIG = 1.0e7
 
@@ -82,11 +85,8 @@ _D_MIS_COMP = 6
 _D_MIS_DIR = 7     # 2D
 _LIGHT_STRIDE = 100   # the dimension offset of each light row (strategy "all", whitted)
 
-KINDS = ("path", "direct", "whitted", "ao")
+KINDS = ("path", "direct", "whitted", "ao", "igi")
 STRATEGIES = ("one", "power", "all")
-# the reference's other integrator kinds
-UNPORTED_KINDS = ("igi", "photon", "diffuseprt", "glossyprt", "useprobes",
-                  "irradiancecache")
 
 # waves handed to the intersect dispatch, by role: closest hit on the camera
 # wave (or AO's and the dipole's first hit), on specular or path
@@ -96,10 +96,17 @@ UNPORTED_KINDS = ("igi", "photon", "diffuseprt", "glossyprt", "useprobes",
 # march's shadow rays ("medium") and on the dipole preprocess's rays from its
 # surface points to the lights ("irradiance"); Metropolis's (metropolis.py)
 # closest hits on its camera and light subpaths ("mlt_camera", "mlt_light")
-# and its visibility tests, any hit ("mlt_connect")
+# and its visibility tests, any hit ("mlt_connect"); the preprocessed kinds':
+# closest hits of photon shooting ("photon_shoot") and of the photon map's
+# final gather ("final_gather"), every wave of the irradiance cache's
+# preprocess ("ic_preprocess": its seed rays, gathers, and their shadow rays
+# and BSDF branches), any hits of PRT's transfer ("prt_transfer") and of the
+# probes' bake ("probe_bake"), closest hits of IGI's light paths
+# ("vpl_path") and any hits toward its virtual point lights ("vpl_shadow")
 WAVES = {"camera": 0, "continuation": 0, "bsdf": 0, "shadow": 0, "occlusion": 0,
          "alpha": 0, "medium": 0, "irradiance": 0, "mlt_camera": 0, "mlt_light": 0,
-         "mlt_connect": 0}
+         "mlt_connect": 0, "photon_shoot": 0, "final_gather": 0, "ic_preprocess": 0,
+         "prt_transfer": 0, "probe_bake": 0, "vpl_path": 0, "vpl_shadow": 0}
 # alpha cutout re-trace rounds a wave (the reference's ALPHA_MAX_REJECT)
 ALPHA_MAX_REJECT = 4
 BUMP_DU = 0.01      # Material::Bump's offset: the reference's fixed fallback
@@ -107,9 +114,9 @@ BUMP_DU = 0.01      # Material::Bump's offset: the reference's fixed fallback
 
 @dataclasses.dataclass(frozen=True)
 class IntegratorConfig:
-    """The fields the ported kinds read (names and defaults as the
-    reference)."""
-    kind: str = "path"            # path | direct | whitted | ao
+    """The reference's fields, with its names and defaults (material-sorted
+    shading's are not ported)."""
+    kind: str = "path"            # path | direct | whitted | ao | igi, or preprocessed
     max_depth: int = 5
     rr_depth: int = 3             # Russian roulette after this many bounces
     # wavefront compaction: after the first Russian-roulette bounce, repack
@@ -123,6 +130,27 @@ class IntegratorConfig:
     ao_maxdist: float = 1.0e7
     vol: str = "emission"         # volume integrator: emission | single
     vol_stepsize: float = 0.1     # read by nothing: the march is 32 fixed steps
+    # instant GI (igi.cpp): VPL paths a set, sets, shoot depth, the G clamp
+    igi_n_paths: int = 64
+    igi_n_sets: int = 4
+    igi_max_depth: int = 3
+    igi_g_limit: float = 10.0
+    # photon mapping (photonmap.cpp)
+    photon_paths: int = 4096
+    photon_radius: float = 0.15
+    photon_final_gather: bool = True
+    # PRT (diffuseprt, glossyprt, useprobes and the createprobes bake)
+    prt_lmax: int = 4
+    prt_nsamples: int = 64
+    prt_kd: tuple = (0.5, 0.5, 0.5)   # glossyprt.cpp "Kd", "Ks" and "roughness"
+    prt_ks: tuple = (0.4, 0.4, 0.4)
+    prt_roughness: float = 0.1
+    probes_file: str = ""          # useprobes "filename" (empty: bake in line)
+    probes_res: tuple = (4, 4, 4)  # the in-line bake's grid
+    # irradiance cache (irradiancecache.cpp)
+    ic_nsamples: int = 64          # gather rays a cache entry
+    ic_grid: tuple = (16, 16, 16)  # the seed grid (its third entry is read by nothing)
+    ic_maxerror: float = 0.2       # the weight cutoff ("maxerror")
     # dipole subsurface (dipolesubsurface.cpp)
     sss_npoints: int = 1024       # surface sample points (surfacepoints.cpp)
     sss_maxerror: float = 0.05    # read by nothing: the contraction is dense
@@ -268,7 +296,7 @@ def _detach(x):
 
 def estimate_direct(scene, meta, sg, lobes, wo_local, light_idx, light_pmf,
                     u_light, u_tri, u_comp, u_dir, active, time=None,
-                    bsdf_branch=True):
+                    bsdf_branch=True, roles=("shadow", "bsdf")):
     """One-light direct lighting with MIS (pbrt EstimateDirect): the
     light-sampling branch with the power heuristic against the BSDF pdf,
     then, where the scene has an area or infinite light and the chosen
@@ -276,7 +304,9 @@ def estimate_direct(scene, meta, sg, lobes, wo_local, light_idx, light_pmf,
     BSDF sample traced by a closest-hit wave, MIS-weighted against the
     chosen light's pdf in that direction). bsdf_branch=False drops the BSDF
     branch and its wave: kind="path" takes that strategy from its
-    continuation ray (path-vertex reuse). Returns Ld (N,3) / light_pmf."""
+    continuation ray (path-vertex reuse). roles: the WAVES entries of the
+    shadow wave and of the BSDF branch's wave. Returns Ld (N,3) /
+    light_pmf."""
     present = meta.lobe_types
     p = sg["p"]
     eps = sg["ray_eps"]
@@ -291,7 +321,8 @@ def estimate_direct(scene, meta, sg, lobes, wo_local, light_idx, light_pmf,
                         & torch.any(f_l > 0.0, dim=-1))
     occluded = scene_intersect_p(
         scene, meta, p + ls["wi"] * eps[..., None], ls["wi"],
-        torch.where(contrib_possible, ls["dist"] - 2.0 * eps, 0.0), time=time)
+        torch.where(contrib_possible, ls["dist"] - 2.0 * eps, 0.0), time=time,
+        role=roles[0])
     radiance = ls["radiance"]
     if scene.get("media") is not None:
         # VisibilityTester::Transmittance through the media
@@ -314,7 +345,7 @@ def estimate_direct(scene, meta, sg, lobes, wo_local, light_idx, light_pmf,
         ltype = scene["lights"]["type"][light_idx]
         can = active & bs["valid"] & (bs["pdf"] > 0.0) & ~lt.is_delta(ltype)
         hit2 = scene_intersect(scene, meta, p + wi_w * eps[..., None], wi_w,
-                               torch.where(can, BIG, 0.0), time=time, role="bsdf")
+                               torch.where(can, BIG, 0.0), time=time, role=roles[1])
         light_pdf_dir = torch.zeros_like(bs["pdf"])
         Li2 = torch.zeros_like(Ld)
         hit_light = torch.zeros_like(can)
@@ -432,11 +463,11 @@ def _segment_media(scene, meta, cfg, o, d, seg_t, pix, samp, bounce):
     return o.new_zeros((o.shape[0], 3)), med.transmittance(scene, meta, o, d, seg_t, u_j)
 
 
-def _make_bounce_body(scene, meta, cfg, pix, samp, camdiff=None, time=None):
+def _make_bounce_body(scene, meta, cfg, pix, samp, camdiff=None, time=None, vpls=None):
     """The per-bounce stage over the lanes of `pix`/`samp` (the compacted
     tail instantiates it again at a narrower width). camdiff: the camera
     differential rays, passed to the peeled bounce 0 only; time: the lanes'
-    ray times, or None."""
+    ray times, or None; vpls: kind="igi"'s set of virtual point lights."""
     path_reuse = cfg.kind == "path"
     has_media = scene.get("media") is not None
 
@@ -490,6 +521,10 @@ def _make_bounce_body(scene, meta, cfg, pix, samp, camdiff=None, time=None):
             else:
                 L = L + torch.where((active & spec_bounce)[..., None],
                                     throughput * Le, 0.0)
+
+        if vpls is not None:      # instant GI's indirect term (igi.cpp Li)
+            Lv = igi.vpl_radiance(scene, meta, cfg, sg, lobes, wo_local, vpls, active)
+            L = L + torch.where(active[..., None], throughput * Lv, 0.0)
 
         if meta.n_lights > 0:
             if cfg.kind == "whitted":
@@ -556,15 +591,10 @@ def li(scene, meta, cfg: IntegratorConfig, rays, pix, samp, with_stats=False):
     float32 on the device: the live lanes entering each bounce, counted
     across the compaction splits (the wavefront occupancy signal; no host
     sync of its own)."""
-    if cfg.kind in UNPORTED_KINDS:
-        raise NotImplementedError(f"integrator kind {cfg.kind!r} is not ported yet "
-                                  f"(ported: {', '.join(KINDS)}, dipole)")
-    if cfg.kind == "dipole":
-        raise ValueError("kind 'dipole' needs its preprocess: render it through "
-                         "engine.render (subsurface.dipole_li)")
     if cfg.kind not in KINDS:
-        raise ValueError(f"unknown integrator kind {cfg.kind!r}; expected one of "
-                         f"{', '.join(KINDS)}")
+        raise ValueError(f"li has no integrator kind {cfg.kind!r}; expected one of "
+                         f"{', '.join(KINDS)} (the kinds with a preprocess render "
+                         "through engine.render)")
     if cfg.light_strategy not in STRATEGIES:
         raise ValueError(f"unknown light_strategy {cfg.light_strategy!r}; expected "
                          f"one of {', '.join(STRATEGIES)}")
@@ -589,9 +619,15 @@ def li(scene, meta, cfg: IntegratorConfig, rays, pix, samp, with_stats=False):
         if with_stats:
             occ[b] = torch.sum(st[4].to(torch.float32))
 
+    vpls = None
+    if cfg.kind == "igi":
+        # one VPL set a wave, chosen by the wave's first lane (igi.cpp picks
+        # a set a sample)
+        vpls = igi.generate_vpls(scene, meta, cfg, int(samp[0]) % cfg.igi_n_sets)
+
     tally(0, state)
     state = _make_bounce_body(scene, meta, cfg, pix, samp,
-                              rays.get("camdiff"), time)(0, state)
+                              rays.get("camdiff"), time, vpls)(0, state)
 
     # multi-split compaction (kind="path" only, as the reference: the other
     # kinds run every bounce at full width): the tail repacks survivors at
@@ -613,7 +649,7 @@ def li(scene, meta, cfg: IntegratorConfig, rays, pix, samp, with_stats=False):
                 splits.append((k, cap))
 
     def tail(st, pix_t, samp_t, time_t, width, from_b, splits):
-        bodyw = _make_bounce_body(scene, meta, cfg, pix_t, samp_t, time=time_t)
+        bodyw = _make_bounce_body(scene, meta, cfg, pix_t, samp_t, time=time_t, vpls=vpls)
 
         def run(st, b0, b1):
             for b in range(b0, b1):

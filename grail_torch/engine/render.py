@@ -14,11 +14,13 @@ them, as the reference's render_wave is differentiated (tools/optimize.py).
 Waves that are not the full pixel grid (a crop window's pixels, adaptive
 sampling's flagged pixels) scatter into the film (film.add_samples).
 
-kind="dipole" has a preprocess (engine/subsurface.py: the surface points and
-their irradiance), which `render` builds once and hands every megawave as
-`aux`, and its own Li. The reference's other preprocessed kinds (photon
-mapping, PRT, probes, the irradiance cache) are not ported yet: li raises
-on them.
+The kinds with a preprocess build it once a render and hand it every
+megawave as `aux`, with their own Li: "dipole" its surface points and their
+irradiance (engine/subsurface.py), "photon" its photon grid
+(engine/photonmap.py), "irradiancecache" its cache entries
+(engine/irradiance.py), "diffuseprt" and "glossyprt" the incident
+radiance's expansion and "useprobes" its probe grid, read from
+probes_file or baked in line at probes_res (engine/prt.py).
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ from ..device import check_on, resolve_device
 from . import camera as cam
 from . import checkpoint as ckpt
 from . import film as flm
-from . import subsurface
+from . import irradiance, photonmap, prt, subsurface
 from .integrator import IntegratorConfig, li, SLOT_FILM, SLOT_LENS, SLOT_TIME
 
 
@@ -70,12 +72,40 @@ def camera_rays(scene, meta, pix, samp):
     return rays, px, py, ufx, ufy
 
 
+def photon_config(cfg):
+    """The photon map's settings from the integrator's."""
+    return photonmap.PhotonConfig(n_paths=cfg.photon_paths, radius=cfg.photon_radius,
+                                  final_gather=cfg.photon_final_gather)
+
+
 def preprocess(scene, meta, cfg):
-    """The render's `aux`: the dipole's point cloud and irradiance for
-    kind="dipole", None for the other kinds."""
+    """The render's `aux` for the kinds with a preprocess (as the
+    reference's render makes it), None for the others."""
     if cfg.kind == "dipole":
         return subsurface.dipole_preprocess(scene, meta, cfg)
+    if cfg.kind == "photon":
+        return photonmap.shoot_photons(scene, meta, photon_config(cfg))
+    if cfg.kind in ("diffuseprt", "glossyprt"):
+        return prt.prt_preprocess(scene, meta, cfg)
+    if cfg.kind == "useprobes":
+        if cfg.probes_file:
+            return {"probes": prt.read_probes(cfg.probes_file, scene["verts"].device)}
+        return {"probes": prt.bake_probes(scene, meta, cfg, *cfg.probes_res,
+                                          n_samples=cfg.prt_nsamples)}
+    if cfg.kind == "irradiancecache":
+        return irradiance.irradiance_preprocess(scene, meta, cfg)
     return None
+
+
+def _photon_li(scene, meta, cfg, rays, pix, samp, aux):
+    return photonmap.photon_li(scene, meta, photon_config(cfg), cfg, rays, pix, samp, aux)
+
+
+# the Li of each kind with a preprocess
+_PREPROCESSED_LI = {"dipole": subsurface.dipole_li, "photon": _photon_li,
+                    "irradiancecache": irradiance.irradiancecache_li,
+                    "diffuseprt": prt.diffuseprt_li, "glossyprt": prt.glossyprt_li,
+                    "useprobes": prt.useprobes_li}
 
 
 def render_wave(scene, meta, cfg, film, samp_idx, pix=None, mask=None, grid_chunk=None,
@@ -97,9 +127,9 @@ def render_wave(scene, meta, cfg, film, samp_idx, pix=None, mask=None, grid_chun
             grid_chunk = 1
     samp = torch.as_tensor(samp_idx, dtype=torch.int64, device=device).expand(pix.shape)
     rays, px, py, ufx, ufy = camera_rays(scene, meta, pix, samp)
-    if cfg.kind == "dipole":
+    if cfg.kind in _PREPROCESSED_LI:
         aux = aux if aux is not None else preprocess(scene, meta, cfg)
-        L = subsurface.dipole_li(scene, meta, cfg, rays, pix, samp, aux)
+        L = _PREPROCESSED_LI[cfg.kind](scene, meta, cfg, rays, pix, samp, aux)
     else:
         L = li(scene, meta, cfg, rays, pix, samp)
     # NaN/Inf quarantine (samplerrenderer.cpp checks): drop bad samples
@@ -163,7 +193,7 @@ def occupancy_probe(scene, meta, cfg, samp_idx=0, device=None):
     (rounded to 4 places, as the reference), or None for the kinds without
     the shared bounce loop. One wave of sample index samp_idx, its camera
     rays without differentials, as the reference's probe."""
-    if cfg.kind not in ("path", "direct", "whitted"):
+    if cfg.kind not in ("path", "direct", "whitted", "igi"):
         return None
     device = resolve_device(device)
     check_on(scene["verts"], device, "the scene")

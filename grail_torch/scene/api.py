@@ -8,8 +8,11 @@ rows in the same order, so that a parsed scene holds the reference's leaves.
 Ported: the transform directives, Camera "perspective", "orthographic" and
 "environment", Film (with its "cropwindow"), Sampler (with "adaptive":
 self.adaptive), PixelFilter, Renderer "sampler" and "metropolis"
-(self.mlt_config and self.mlt_spp), SurfaceIntegrator "path",
-"directlighting", "whitted", "ambientocclusion" and "dipolesubsurface",
+(self.mlt_config and self.mlt_spp), "createprobes" (self.probe_bake) and
+"surfacepoints" (self.surfacepoints_out), every SurfaceIntegrator the
+reference maps ("path", "directlighting", "whitted", "ambientocclusion",
+"igi", "photonmap" and "exphotonmap", "diffuseprt", "glossyprt",
+"useprobes", "irradiancecache" and "dipolesubsurface"),
 VolumeIntegrator "emission" and "single", attributes and
 ReverseOrientation, Texture "constant", "scale", "mix", "bilerp", "uv",
 "checkerboard", "dots", "fbm", "wrinkled", "windy", "marble" and
@@ -64,13 +67,14 @@ log = logging.getLogger("grail_torch")
 COPPER_ETA = (0.2004, 0.9240, 1.1022)
 COPPER_K = (3.9129, 2.4528, 2.1421)
 
-# the SurfaceIntegrator names the port renders, with their integrator kind,
-# and the others the reference knows (an unknown name renders with "path",
-# as in the reference)
+# the SurfaceIntegrator names with their integrator kind (an unknown name
+# renders with "path", as in the reference)
 INTEGRATORS = {"path": "path", "directlighting": "direct", "whitted": "whitted",
-               "ambientocclusion": "ao", "dipolesubsurface": "dipole"}
-UNPORTED_INTEGRATORS = ("igi", "photonmap", "exphotonmap", "diffuseprt", "glossyprt",
-                        "useprobes", "irradiancecache")
+               "ambientocclusion": "ao", "igi": "igi", "photonmap": "photon",
+               "exphotonmap": "photon", "diffuseprt": "diffuseprt",
+               "glossyprt": "glossyprt", "useprobes": "useprobes",
+               "irradiancecache": "irradiancecache", "dipolesubsurface": "dipole"}
+PRT_KINDS = ("diffuseprt", "glossyprt", "useprobes")
 VOLUME_INTEGRATORS = ("emission", "single")
 SAMPLER_KINDS = {"lowdiscrepancy": ZERO_TWO, "02sequence": ZERO_TWO,
                  "stratified": STRATIFIED, "halton": HALTON, "random": RANDOM,
@@ -78,7 +82,7 @@ SAMPLER_KINDS = {"lowdiscrepancy": ZERO_TWO, "02sequence": ZERO_TWO,
 FILTERS = ("box", "triangle", "gaussian", "mitchell", "sinc")
 CAMERAS = {"perspective": cam.PERSPECTIVE, "orthographic": cam.ORTHOGRAPHIC,
            "environment": cam.ENVIRONMENT}
-UNPORTED_RENDERERS = ("createprobes", "surfacepoints")
+SURFACE_POINTS = 4096      # the points Renderer "surfacepoints" writes
 
 
 def _unported(what):
@@ -175,6 +179,8 @@ class PbrtAPI:
         self.adaptive = None        # Sampler "adaptive": {"min": ..., "max": ...}
         self.mlt_config = None      # Renderer "metropolis": its MLTConfig ...
         self.mlt_spp = None         # ... and mutations a pixel
+        self.probe_bake = None      # Renderer "createprobes": lmax, nsamples, filename, spacing
+        self.surfacepoints_out = None   # Renderer "surfacepoints": filename, npoints
 
     # --------------------------------------------------------------- CTM helpers
     def _for_active(self, fn):
@@ -242,8 +248,6 @@ class PbrtAPI:
         self.filter_name, self.filter_params = name, params
 
     def surface_integrator(self, name, params):
-        if name in UNPORTED_INTEGRATORS:
-            raise _unported(f'SurfaceIntegrator "{name}"')
         self.integrator_name, self.integrator_params = name, params
 
     def volume_integrator(self, name, params):
@@ -255,8 +259,6 @@ class PbrtAPI:
         self.accelerator_name = name
 
     def renderer(self, name, params):
-        if name in UNPORTED_RENDERERS:
-            raise _unported(f'Renderer "{name}"')
         self.renderer_name, self.renderer_params = name, params
 
     # -------------------------------------------------------------- world block
@@ -925,6 +927,20 @@ class PbrtAPI:
             vol=(self.vol_integrator_name if self.vol_integrator_name in VOLUME_INTEGRATORS
                  else "emission"),
             vol_stepsize=self.vol_integrator_params.find_one_float("stepsize", 0.1),
+            igi_n_paths=ip.find_one_int("nlights", 64),
+            igi_n_sets=ip.find_one_int("nsets", 4),
+            igi_g_limit=ip.find_one_float("glimit", 10.0),
+            photon_paths=ip.find_one_int("indirectphotons", 16384) // 4,
+            # the reference reads "maxdist" and "maxerror" for every kind
+            photon_radius=ip.find_one_float("maxdist", 0.1),
+            photon_final_gather=ip.find_one_bool("finalgather", True),
+            prt_lmax=ip.find_one_int("lmax", 4),
+            prt_nsamples=min(ip.find_one_int("nsamples", 64), 256) if kind in PRT_KINDS
+            else 64,
+            probes_file=ip.find_one_string("filename", ""),
+            ic_nsamples=min(ip.find_one_int("nsamples", 64), 256)
+            if kind == "irradiancecache" else 64,
+            ic_maxerror=ip.find_one_float("maxerror", 0.2),
             sss_maxerror=ip.find_one_float("maxerror", 0.05) if kind == "dipole" else 0.05,
             sss_sigma_a=tuple(self.sss_sigma_a), sss_sigma_s=tuple(self.sss_sigma_s),
             sss_eta=self.sss_eta)
@@ -938,6 +954,19 @@ class PbrtAPI:
                 bidirectional=rp.find_one_bool("bidirectional", True),
                 direct_separate=rp.find_one_bool("dodirectseparately", False))
             self.mlt_spp = rp.find_one_int("samplesperpixel", 32)
+        elif self.renderer_name == "createprobes":
+            # createprobes.cpp: bake an SH radiance-probe grid into a file
+            rp = self.renderer_params
+            self.probe_bake = {"lmax": rp.find_one_int("lmax", 4),
+                               "nsamples": min(rp.find_one_int("directsamples", 64), 256),
+                               "filename": rp.find_one_string("filename", "probes.out"),
+                               "spacing": rp.find_one_float("samplespacing", 1.0)}
+        elif self.renderer_name == "surfacepoints":
+            # surfacepoints.cpp: write the sampled surface point cloud
+            self.surfacepoints_out = {
+                "filename": self.renderer_params.find_one_string("filename",
+                                                                 "surfacepoints.out"),
+                "npoints": SURFACE_POINTS}
         elif self.renderer_name not in ("sampler", "aggregatetest", ""):
             log.warning("Renderer %r falls back to the sampler renderer",
                         self.renderer_name)

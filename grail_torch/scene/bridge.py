@@ -15,7 +15,11 @@ table is the port's own, on request: buffers.attach_record_table), and the
 instance table, whose BLAS table is collapsed from the reference's own
 per-object binary trees, the measured BRDF tables, and the media regions
 with their density grids. Leaves the port does not read are dropped; a
-scene that needs a route the port lacks raises. This module imports nothing of the reference: everything
+scene that needs a route the port lacks raises. `aux_from_numpy` carries a
+preprocess across the same way: the photon grid, the irradiance cache's
+entries, PRT's incident expansion, the probe grid, the dipole's points or a
+VPL set, so that the port's Li can be run on the reference's own
+preprocess. This module imports nothing of the reference: everything
 arrives as numpy arrays and plain attributes.
 """
 from __future__ import annotations
@@ -23,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from ..core.rng import SamplerConfig
 from ..engine.camera import ENVIRONMENT
@@ -154,3 +159,18 @@ def scene_from_numpy(scene_np, meta, device=None):
             base = base[:0]
         scene["world_bounds"] = world_bounds(base, scene["inst"])
     return to_torch(scene, device), meta_from(meta)
+
+
+def aux_from_numpy(aux_np, device=None):
+    """The port's `aux` from a reference preprocess's output with every leaf
+    converted to numpy (jax.tree_util.tree_map(np.asarray, aux)): the same
+    nesting, arrays as tensors of the same dtype on `device`, plain Python
+    numbers (the probes' lmax) kept. It serves each kind's preprocess (the
+    photon grid, the cache's entries, {"c_in"}, {"probes": ...}, the
+    dipole's points) and a VPL set of engine/igi.py."""
+    device = resolve_device(device)
+    if isinstance(aux_np, dict):
+        return {k: aux_from_numpy(v, device) for k, v in aux_np.items()}
+    if isinstance(aux_np, np.ndarray):
+        return torch.tensor(aux_np, device=device)
+    return aux_np

@@ -381,6 +381,17 @@ def bsdf_num_components(lobes, include_specular=True):
                      dtype=torch.int32)
 
 
+def diffuse_albedo(lobes):
+    """The sum of the Lambertian and Oren-Nayar lobes' reflectances, slot by
+    slot (the reference's analog of BSDF::rho, which PRT, the irradiance
+    cache and instant GI's lights shade by)."""
+    diffuse = (lobes["type"] == LAMBERT) | (lobes["type"] == OREN_NAYAR)
+    rho = torch.where(diffuse[:, 0, None], lobes["R"][:, 0], 0.0)
+    for k in range(1, diffuse.shape[1]):
+        rho = rho + torch.where(diffuse[:, k, None], lobes["R"][:, k], 0.0)
+    return rho
+
+
 def bsdf_f(lobes, wo, wi, present, include_specular=True, tables=()):
     """Sum over lobe slots of lobe_f (pbrt BSDF::f); tables: the scene's
     measured BRDF tables."""

@@ -5,7 +5,7 @@
         [--grid N] [--kind path|direct|whitted|ao] [--strategy one|power|all]
         [--ao-samples N]
     python3 -m grail_torch.tools.profile_render --pbrt scenes/envlight.pbrt
-        [--res N] [--spp N]
+        [--res N] [--spp N] [--kind igi]
 
 Renders the Cornell box (or mesh_scene, the textured terrain of
 2(grid-1)^2 triangles under an environment light, grid 224 unless given; or
@@ -14,8 +14,8 @@ camera: bench.py's mesh1m is --spp 4; or instbench's instanced scene, 100
 instances of a 50,176-triangle sphere: its bench is --spp 4 --depth 3; or a
 .pbrt scene file through the port's parser, at its authored depth and
 integrator, and its authored resolution and samples unless --res (a square
-film) or --spp name others) with the path integrator unless --kind
-names another, once to warm up, once timed, then once under torch.profiler, and prints JSON
+film) or --spp name others; --kind igi renders the file under instant GI)
+with the path integrator unless --kind names another, once to warm up, once timed, then once under torch.profiler, and prints JSON
 lines: the render's wall time (unprofiled and
 profiled), the summed kernel time and the device's busy share (kernel time
 over the unprofiled wall time), the number of kernel launches; for each stage
@@ -30,6 +30,7 @@ kernel list; chip_smoke.py times them with CUDA events. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import functools
 import json
 import os
@@ -41,7 +42,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from ..core import rng
-from ..engine import camera, film, integrator, render as rnd, subsurface
+from ..engine import (camera, film, igi, integrator, irradiance, photonmap, prt,
+                      render as rnd, subsurface)
 from ..kernels import intersect
 from ..kernels import instanced
 from ..scene.parser import parse_string
@@ -86,6 +88,19 @@ _STAGES = {
     # the dense Mo contraction
     "dipole_preprocess": (subsurface, ("dipole_preprocess",)),
     "dipole_contraction": (subsurface, ("_mo",)),
+    # the preprocessed kinds: photon shooting, the grid's sort and the
+    # 27-cell scans (the k-NN histogram, the estimate, the gathered
+    # directions); the irradiance cache's preprocess and its dense
+    # interpolation; PRT's transfer projections (diffuse and glossy) and the
+    # probes' bake; instant GI's VPL paths and its gather over the VPLs
+    "photon_shoot": (photonmap, ("_shoot_block",)),
+    "photon_grid": (photonmap, ("build_photon_grid",)),
+    "photon_scan": (photonmap, ("_neighbor_scan",)),
+    "ic_preprocess": (irradiance, ("irradiance_preprocess",)),
+    "ic_interpolate": (irradiance, ("_interpolate",)),
+    "prt_transfer": (prt, ("compute_diffuse_transfer", "project_transferred")),
+    "probe_bake": (prt, ("bake_probes",)),
+    "vpl": (igi, ("generate_vpls", "vpl_radiance")),
     "film": (film, ("add_samples_grid", "develop")),
 }
 
@@ -147,6 +162,8 @@ def main(argv=None):
         scene, meta, api = parse_string(text, device=dev,
                                         search_path=os.path.dirname(args.pbrt))
         cfg = api.integrator_config
+        if args.kind == "igi":
+            cfg = dataclasses.replace(cfg, kind="igi")
         args.scene, args.res, args.spp, args.depth = (
             args.pbrt, meta.xres, meta.sampler.spp, cfg.max_depth)
     else:

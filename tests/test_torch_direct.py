@@ -326,8 +326,12 @@ def test_direct_matches_numpy_oracle():
 
 def test_unported_kinds_and_strategies_raise():
     scene, meta, _ = torch_cornell(4, 4, 1, device="cpu")
-    for kind in ("igi", "photon", "irradiancecache"):
-        with pytest.raises(NotImplementedError, match=kind):
-            render(scene, meta, tint.IntegratorConfig(kind=kind), device="cpu")
+    # every kind of the reference is ported: an unknown kind raises, and li
+    # refuses a kind whose Li needs the render's preprocess
+    with pytest.raises(ValueError, match="spectral"):
+        render(scene, meta, tint.IntegratorConfig(kind="spectral"), device="cpu")
+    for kind in ("photon", "irradiancecache"):
+        with pytest.raises(ValueError, match="preprocess"):
+            tint.li(scene, meta, tint.IntegratorConfig(kind=kind), {}, None, None)
     with pytest.raises(ValueError, match="light_strategy"):
         render(scene, meta, tint.IntegratorConfig(light_strategy="spatial"), device="cpu")

@@ -1,11 +1,10 @@
 """The port's host-side scene compiler against the reference's.
 
-Every scene of scenes/ goes through both parsers. The scenes the port can
-render build leaf for leaf the scene that scene_from_numpy carries across
-from the reference's (integers exact, floats to rtol 1e-6, the BVH tables
-bit for bit: both build on the host in numpy, so they hold the same bits),
-with the same SceneMeta and integrator settings. Every other scene makes
-the port raise NotImplementedError naming the directive it lacks. Scenes
+Every scene of scenes/ goes through both parsers and builds leaf for leaf
+the scene that scene_from_numpy carries across from the reference's
+(integers exact, floats to rtol 1e-6, the BVH tables bit for bit: both
+build on the host in numpy, so they hold the same bits), with the same
+SceneMeta, integrator settings and renderer settings. Scenes
 are read from a copy of scenes/ that holds the image assets git leaves out
 (grail_torch/tools/gen_assets.py; bump.pbrt and projgonio.pbrt read them).
 The world blocks of more scenes are held the same way with their
@@ -13,8 +12,10 @@ integrator line rewritten to "path"; every world block builds. Snippets
 that use an alpha cutout, a bump map, a goniometric light, a uv texture, a
 non-uv image mapping, a Volume of each kind, or the substrate,
 translucent, subsurface and kdsubsurface materials build leaf for leaf too
-(the subsurface media with the reference's integrator settings), and those
-that use a directive the port still lacks raise. Below the parser: the tokenizer, ParamSet's spectrum
+(the subsurface media with the reference's integrator settings), as do
+the options of SurfaceIntegrator "igi" and "glossyprt" and of Renderer
+"createprobes" and "surfacepoints", and those that use a directive the
+port still lacks raise. Below the parser: the tokenizer, ParamSet's spectrum
 conversions, every shape tessellator (bitwise) and the EXR and PFM codecs;
 above it, the command line.
 """
@@ -49,22 +50,18 @@ torch.set_num_threads(2)
 SCENES = os.path.join(os.path.dirname(__file__), os.pardir, "scenes")
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
 
-# the scenes the port renders: leaf for leaf the reference's
+# every scene: leaf for leaf the reference's
 MATCHING = ("ao", "bump", "cornell", "dipole", "dof", "envlight", "glossy",
-            "heightfield", "instances", "measured", "mlt", "nurbs", "orthodisk",
-            "proctex", "projgonio", "spotfog", "subdiv", "whittedigi")
-# the other four, with the directive the port refuses them at
-REFUSED = {
-    "irradcache": 'SurfaceIntegrator "irradiancecache"',
-    "photon": 'SurfaceIntegrator "photonmap"',
-    "prtteapot": 'SurfaceIntegrator "diffuseprt"',
-    "useprobes": 'SurfaceIntegrator "useprobes"',
-}
+            "heightfield", "instances", "irradcache", "measured", "mlt", "nurbs",
+            "orthodisk", "photon", "proctex", "projgonio", "prtteapot", "spotfog",
+            "subdiv", "useprobes", "whittedigi")
+# the preprocessed integrators' scenes
+PREPROCESSED = ("irradcache", "photon", "prtteapot", "useprobes")
 # the scenes of the orthographic camera, procedural textures, projection
 # and goniometric lights and bump maps, which the port renders whole
 MAPS = ("bump", "orthodisk", "proctex", "projgonio")
 # the scenes whose world block the port builds once the integrator (or
-# renderer) line reads "path": refused scenes (quadrics, glass and mirror,
+# renderer) line reads "path": PREPROCESSED (quadrics, glass and mirror,
 # plastic, point and infinite lights), MAPS, and mlt, whose Renderer line
 # then gives the path integrator's settings
 WORLD_MATCHING = ("bump", "irradcache", "mlt", "orthodisk", "photon", "proctex",
@@ -75,8 +72,8 @@ WORLD_REFUSED = {}
 
 def test_lists_cover_every_scene():
     names = {f[:-5] for f in os.listdir(SCENES) if f.endswith(".pbrt")}
-    assert set(MATCHING) | set(REFUSED) == names and not set(MATCHING) & set(REFUSED)
-    assert set(WORLD_MATCHING) | set(WORLD_REFUSED) == set(REFUSED) | set(MAPS) | {"mlt"}
+    assert set(MATCHING) == names and set(PREPROCESSED) <= names
+    assert set(WORLD_MATCHING) | set(WORLD_REFUSED) == set(PREPROCESSED) | set(MAPS) | {"mlt"}
     assert not set(WORLD_MATCHING) & set(WORLD_REFUSED) and set(MAPS) <= set(MATCHING)
 
 
@@ -141,18 +138,14 @@ def assert_same_scene(ported, reference):
     ref_mlt = japi.mlt_config
     assert (tapi.mlt_config is None if ref_mlt is None
             else dataclasses.asdict(tapi.mlt_config) == dataclasses.asdict(ref_mlt))
+    assert tapi.probe_bake == getattr(japi, "probe_bake", None)
+    assert tapi.surfacepoints_out == getattr(japi, "surfacepoints_out", None)
 
 
 @pytest.mark.parametrize("name", MATCHING)
 def test_scene_matches_reference(name, scene_dir):
     path = _scene_path(name, scene_dir)
     assert_same_scene(tparser.parse_file(path, device="cpu"), jparser.parse_file(path))
-
-
-@pytest.mark.parametrize("name", sorted(REFUSED))
-def test_unported_scene_raises(name, scene_dir):
-    with pytest.raises(NotImplementedError, match=re.escape(REFUSED[name])):
-        tparser.parse_file(_scene_path(name, scene_dir), device="cpu")
 
 
 @pytest.mark.parametrize("name", WORLD_MATCHING)
@@ -220,6 +213,34 @@ def test_ported_snippet_matches_reference(case, scene_dir):
             + "WorldEnd\n")
     assert_same_scene(tparser.parse_string(text, device="cpu", search_path=scene_dir),
                       jparser.parse_string(text, search_path=scene_dir))
+
+
+# the options of the integrators and renderers with a preprocess, each in
+# place of the header's integrator line ("nsamples" above 256 is capped)
+INTEGRATOR_SNIPPETS = {
+    "igi": 'SurfaceIntegrator "igi" "integer nlights" [16] "integer nsets" [2] '
+           '"float glimit" [5]',
+    "glossyprt": 'SurfaceIntegrator "glossyprt" "integer lmax" [3] "integer nsamples" [300]',
+    "createprobes": 'Renderer "createprobes" "integer lmax" [2] "integer directsamples" [16] '
+                    '"float samplespacing" [0.5] "string filename" "grid.probes"',
+    "surfacepoints": 'Renderer "surfacepoints" "string filename" "points.txt"',
+}
+
+
+@pytest.mark.parametrize("case", sorted(INTEGRATOR_SNIPPETS))
+def test_integrator_snippet_matches_reference(case):
+    text = (_HEADER.format(film="", sampler="lowdiscrepancy").replace(
+        'SurfaceIntegrator "path"', INTEGRATOR_SNIPPETS[case])
+        + 'LightSource "point"\n' + _QUAD.format(extra="") + "WorldEnd\n")
+    ported = tparser.parse_string(text, device="cpu")
+    assert_same_scene(ported, jparser.parse_string(text))
+    if case == "createprobes":
+        assert ported[2].probe_bake == {"lmax": 2, "nsamples": 16, "filename": "grid.probes",
+                                        "spacing": 0.5}
+    elif case == "surfacepoints":
+        assert ported[2].surfacepoints_out == {"filename": "points.txt", "npoints": 4096}
+    else:
+        assert ported[2].integrator_config.kind == case
 
 
 @pytest.mark.parametrize("case", sorted(OPTION_SNIPPETS))
@@ -389,7 +410,10 @@ def test_cli_renders_and_refuses(tmp_path):
                      "--outfile", out]) == 0
     img = tio.read_image(out)
     assert img.shape == (64, 64, 3) and np.isfinite(img).all() and img.mean() > 0
-    assert cli_main([_scene_path("photon"), "--cpu", "--quiet"]) == 1
+    refused = tmp_path / "refused.pbrt"
+    refused.write_text(_HEADER.format(film="", sampler="lowdiscrepancy") + "TransformTimes 0 1\n"
+                       + "WorldEnd\n")
+    assert cli_main([str(refused), "--cpu", "--quiet"]) == 1
     # the reference's --checkpoint option renders (no file yet: from sample 0)
     assert cli_main([_scene_path("envlight"), "--cpu", "--spp", "1", "--quiet",
                      "--outfile", out, "--checkpoint", str(tmp_path / "ck")]) == 0
