@@ -184,16 +184,39 @@ failure ends the run with a non-zero exit code:
       wave of each (kernel, role), the new roles (photon_shoot,
       final_gather, ic_preprocess, prt_transfer, probe_bake, vpl_path,
       vpl_shadow) among them. TF32 matmuls must stay off.
+  the spectral and material-sorted group (core/sampled_spectrum.py,
+  shade/megabatch.py, tools/bsdftest.py):
+  27. spectral_megabatch: render_spectral (ten 3-band passes, path, depth
+      5, 256x256, 16 spp) on the Cornell preset (row 1) and on mesh100k
+      (rows 2, 4, 5; its image texture and environment map promoted): the
+      host seconds of the promotion and of the band tables apart; the
+      colour rows' bands differ from pass to pass and the float rows' do
+      not (ROADMAP C.3); exactly ten passes, with ten times an RGB
+      render's launches by kernel and waves by role; camera rays/s
+      counting xres*yres*spp once (median of 3 after a warm-up); the
+      spectral/RGB mean ratio (Cornell within tests/test_spectrum.py's
+      0.85-1.1); each at 32x32, 2 spp, card against CPU. Then mat_sort on
+      and off at 256x256, 16 spp on the Cornell preset, glossy.pbrt,
+      envlight.pbrt and mesh100k, in turns: the sorted visits as
+      predicted (one a bounce), the two images bitwise equal (else the
+      largest difference, held to tests/test_megabatch.py's atol 1e-5,
+      rtol 2e-4), both rates, both renders' launches (equal), the unsorted
+      render's busy share, and on the Cornell preset and mesh100k the
+      sorted render's with the megabatch stage's device ms a render
+      (tools/profile_render.py's stage); bsdftest on the card (every case
+      OK, exit code 0); each kernel against its plain version on the
+      busiest wave of each (kernel, role) of the group's renders, bitwise.
 Then a {"kernels": [...]} line (each kernel's "launches_direct",
-"launches_maps", "launches_media", "launches_mlt" and
-"launches_preprocessed": its launches in the direct, maps, media,
-Metropolis and preprocessed groups' renders) and, last, {"ok": true,
-"device": {...}}.
+"launches_maps", "launches_media", "launches_mlt",
+"launches_preprocessed" and "launches_spectral_megabatch": its launches in
+the direct, maps, media, Metropolis, preprocessed and spectral/sorted
+groups' renders) and, last, {"ok": true, "device": {...}}.
 Needs a CUDA device and nvcc; imports nothing of JAX.
 """
 import contextlib
 import dataclasses
 import functools
+import io
 import json
 import os
 import re
@@ -208,6 +231,7 @@ import numpy as np
 import torch
 
 from grail_torch.core import rng as rngmod
+from grail_torch.core import sampled_spectrum as ssp
 from grail_torch.core import transform as tr
 from grail_torch.engine.imageio import read_image
 from grail_torch.engine import camera
@@ -218,9 +242,10 @@ from grail_torch.engine import metropolis as mlt
 from grail_torch.engine.integrator import WAVES, IntegratorConfig
 from grail_torch.engine import subsurface
 from grail_torch.engine import prt
-from grail_torch.engine.render import (camera_rays, megawave_lanes, occupancy_probe,
-                                       photon_config, preprocess, render, render_adaptive,
-                                       render_wave)
+from grail_torch.engine import render as render_mod
+from grail_torch.engine.render import (auto_spp_chunk, camera_rays, megawave_lanes,
+                                       occupancy_probe, photon_config, preprocess, render,
+                                       render_adaptive, render_wave)
 from grail_torch.kernels import brute_intersect as bi
 from grail_torch.kernels import bvh4 as b4
 from grail_torch.kernels import bvh_stream as bs
@@ -236,8 +261,9 @@ from grail_torch.scene.parser import parse_file, parse_string
 from grail_torch.scene.presets import cornell_box, mesh_scene, mesh_scene_1m
 from grail_torch.scene.shapes import sphere
 from grail_torch.shade import media
+from grail_torch.shade import megabatch
 from grail_torch.shade.lights import AREA, INFINITE
-from grail_torch.tools import gen_assets, instbench
+from grail_torch.tools import bsdftest, gen_assets, instbench, profile_render
 from grail_torch.tools.instbench import (N_INST, SPHERE_NU, SPHERE_NV, build_flattened,
                                          build_instanced)
 from grail_torch.tools.optimize import optimize_albedo
@@ -416,6 +442,12 @@ PRE_ANY_ROLES = ("shadow", "occlusion", "prt_transfer", "probe_bake", "vpl_shado
 PROBE_SPACING = 0.25       # createprobes' "samplespacing": 8 cells an axis of useprobes.pbrt
 GRID_SEED = 10
 BRUTE_SOURCE = "grail_torch/kernels/csrc/brute_intersect.cu"
+SM_RES, SM_SPP = 256, 16          # the spectral and sorted group's renders
+SM_CFG = IntegratorConfig(kind="path", max_depth=5)
+SM_FILES = ("glossy", "envlight")
+SM_KERNELS = bi.KERNELS + b4.KERNELS
+SPECTRAL_RATIO = (0.85, 1.1)      # tests/test_spectrum.py: spectral/RGB mean, Cornell
+MB_ATOL, MB_RTOL = 1e-5, 2e-4     # tests/test_megabatch.py's tolerance
 RAGGED = 37                # rays past 1M in the ragged parity case
 NODE_BYTES, TRI_BYTES = 128, 48
 
@@ -2605,6 +2637,273 @@ def preprocessed_phases(dev, gpu):
     return total
 
 
+def _sm_scenes(dev):
+    """The group's scenes at SM_RES, SM_SPP: (name, scene, meta, cfg)."""
+    scene, meta, _ = cornell_box(SM_RES, SM_RES, SM_SPP, device=dev)
+    yield "cornell", scene, meta, SM_CFG
+    for name in SM_FILES:
+        scene, meta, api = parse_string(_scene_text(name, (SM_RES, SM_RES), spp=SM_SPP),
+                                        device=dev, search_path=os.path.join(ROOT, "scenes"))
+        cfg = api.integrator_config
+        check(cfg.kind == "path", f"{name}.pbrt parsed as {cfg.kind}")
+        yield name, scene, meta, cfg
+
+
+def sorted_profile(scene, meta, cfg, spp, dev, wall):
+    """(kernel ms, launches, busy share, the megabatch stage's kernel ms) of
+    one render under torch.profiler, the sorted pass in
+    tools/profile_render.py's range for its stage (the only range: every
+    other stage's would multiply the profiler's host events)."""
+    module, (name,) = profile_render._STAGES["megabatch"]
+    fn = getattr(module, name)
+    setattr(module, name, profile_render._ranged("megabatch", fn))
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            render(scene, meta, cfg, spp=spp, device=dev)
+            torch.cuda.synchronize()
+    finally:
+        setattr(module, name, fn)
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("stage:")]
+    kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    stage = sum(e.device_time_total for e in events if e.key == "stage:megabatch"
+                and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
+    return kernel_ms, sum(e.count for e in kernels), kernel_ms / (wall * 1e3), stage
+
+
+def _sm_reset():
+    _reset_counts()
+    megabatch.STATS.update(dict.fromkeys(megabatch.STATS, 0))
+
+
+def spectral_bench(name, scene, meta, dev, gpu, add):
+    """One scene's spectral render at full size: promotion and band tables
+    apart, the C.3 check, passes, launches and waves against an RGB
+    render's, camera rays/s, the mean ratio."""
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    src = ssp._promoted_sources(scene, meta)
+    torch.cuda.synchronize()
+    promote_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    bands = [ssp._band_scene(scene, src, g) for g in range(ssp.N_PASSES)]
+    torch.cuda.synchronize()
+    band_s = time.perf_counter() - t1
+    const = scene["tex_data"]["const"]
+    rows = ssp.colour_rows(meta)
+    float_rows = sorted(set(range(const.shape[0])) - rows)
+    passes = torch.stack([b["tex_data"]["const"] for b in bands])        # (10, R, 3)
+    float_same = bool(torch.equal(passes[:, float_rows], const[float_rows].expand(
+        ssp.N_PASSES, len(float_rows), 3)))
+    lit = [r for r in sorted(rows) if bool(const[r].abs().sum() > 0)]
+    colour_vary = sum(int(bool((passes[:, r] != passes[0, r]).any())) for r in lit)
+    del bands, passes
+
+    _sm_reset()
+    rgb, _ = render(scene, meta, SM_CFG, spp=SM_SPP, device=dev)
+    want_launches = {k: ssp.N_PASSES * v for k, v in _launch_counts().items()}
+    want_waves = {k: ssp.N_PASSES * v for k, v in WAVES.items()}
+    ssp.render_spectral(scene, meta, SM_CFG, spp=SM_SPP)       # warm-up
+    torch.cuda.synchronize()
+    times, launches, waves, n_pass = [], [], [], []
+    counted = render_mod.render
+
+    def counting(*a, **kw):
+        n_pass[-1] += 1
+        return counted(*a, **kw)
+
+    with mock.patch.object(render_mod, "render", counting):
+        for _ in range(3):
+            _sm_reset()
+            n_pass.append(0)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            img, films = ssp.render_spectral(scene, meta, SM_CFG, spp=SM_SPP)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t1)
+            launches.append(_launch_counts())
+            waves.append(dict(WAVES))
+            add(launches[-1])
+    wall = statistics.median(times)
+    img, rgb = img.cpu().numpy(), rgb.cpu().numpy()
+    ratio = float(img.mean() / rgb.mean())
+    emit({"phase": "spectral_bench", "scene": name, "res": SM_RES, "spp": SM_SPP,
+          "max_depth": SM_CFG.max_depth, "triangles": meta.n_tris,
+          "images": meta.n_images, "env_map": meta.has_env_map,
+          "colour_rows": len(rows), "float_rows": float_rows,
+          "colour_rows_varying": colour_vary, "colour_rows_nonzero": len(lit),
+          "float_rows_same_every_pass": float_same,
+          "host_promotion_seconds": promote_s, "host_band_tables_seconds": band_s,
+          "render_seconds": times, "passes": n_pass, "films": len(films),
+          "camera_rays_per_sec": SM_RES * SM_RES * SM_SPP / wall,
+          "launches_per_render": launches, "expected_launches": want_launches,
+          "waves": {k: v for k, v in waves[0].items() if v},
+          "expected_waves": {k: v for k, v in want_waves.items() if v},
+          "spectral_over_rgb_mean": ratio, "image_mean": float(img.mean()),
+          "rgb_mean": float(rgb.mean()), "gpu": gpu, "seconds": time.perf_counter() - t0})
+    check(float_same and colour_vary == len(lit) and lit,
+          f"{name}: the band tables break C.3 ({colour_vary}/{len(lit)} colour rows vary, "
+          f"float rows the same: {float_same})")
+    check(all(n == ssp.N_PASSES for n in n_pass) and len(films) == ssp.N_PASSES,
+          f"{name}: {n_pass} passes a spectral render")
+    check(all(n == want_launches for n in launches) and all(w == want_waves for w in waves),
+          f"{name}: a spectral render launched {launches[0]} ({waves[0]}), want ten times "
+          f"an RGB render's")
+    check(np.isfinite(img).all() and img.shape == (SM_RES, SM_RES, 3) and img.mean() > 0.0,
+          f"{name}: the spectral image is not finite and positive")
+    if name == "cornell":
+        check(SPECTRAL_RATIO[0] < ratio < SPECTRAL_RATIO[1],
+              f"the Cornell box's spectral/RGB mean ratio {ratio}")
+
+
+def spectral_vs_cpu(name, make, dev):
+    """render_spectral at 32x32, 2 spp, card against CPU."""
+    t0 = time.perf_counter()
+    imgs = {}
+    for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        scene, meta = make(where)
+        imgs[side] = ssp.render_spectral(scene, meta, SM_CFG,
+                                         spp=PBRT_SMALL_SPP)[0].cpu().numpy()
+    err = relative_mae(imgs["card"], imgs["cpu"])
+    emit({"phase": "spectral_vs_cpu", "scene": name, "res": PBRT_SMALL_RES,
+          "spp": PBRT_SMALL_SPP, "relative_mae": err,
+          "bitwise_equal": bool(np.array_equal(imgs["card"], imgs["cpu"])),
+          "seconds": time.perf_counter() - t0})
+    check(np.isfinite(imgs["card"]).all() and err < RELMAE_MAX,
+          f"{name}'s spectral image on the card differs from the CPU ({err})")
+
+
+def megabatch_bench(name, scene, meta, cfg, dev, gpu, add, profile_sorted=False):
+    """mat_sort off and on in turns at full size: visits, images, rates,
+    launches, the unsorted render's busy share, and (profile_sorted) the
+    sorted render's with its pass's device ms, from a profile that records
+    the host's operators too (60-90 s a scene: the profiler's cost grows
+    with the sorted render's 70-170k launches)."""
+    t0 = time.perf_counter()
+    cfgs = {"off": dataclasses.replace(cfg, mat_sort=False),
+            "on": dataclasses.replace(cfg, mat_sort=True)}
+    waves_a_render = -(-SM_SPP // auto_spp_chunk(meta, SM_SPP))
+    want_visits = {"off": 0, "on": (cfg.max_depth + 1) * waves_a_render}
+    for c in cfgs.values():
+        render(scene, meta, c, spp=SM_SPP, device=dev)             # warm-ups
+    torch.cuda.synchronize()
+    times = {k: [] for k in cfgs}
+    launches = {k: [] for k in cfgs}
+    stats = {k: [] for k in cfgs}
+    imgs = {}
+    for _ in range(3):
+        for k, c in cfgs.items():
+            _sm_reset()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            img, _ = render(scene, meta, c, spp=SM_SPP, device=dev)
+            torch.cuda.synchronize()
+            times[k].append(time.perf_counter() - t1)
+            launches[k].append(_launch_counts())
+            stats[k].append(dict(megabatch.STATS))
+            imgs[k] = img.cpu().numpy()
+            add(launches[k][-1])
+    t_timed = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    busy = {"off": busy_share(scene, meta, cfgs["off"], SM_SPP, dev,
+                              statistics.median(times["off"])),
+            "on": ("not measured (profiled on cornell and mesh100k)",) * 3}
+    mb_ms = busy["on"][0]
+    if profile_sorted:
+        *busy["on"], mb_ms = sorted_profile(scene, meta, cfgs["on"], SM_SPP, dev,
+                                            statistics.median(times["on"]))
+    equal = bool(np.array_equal(imgs["on"], imgs["off"]))
+    diff = float(np.abs(imgs["on"] - imgs["off"]).max())
+    emit({"phase": "megabatch_bench", "scene": name, "res": SM_RES, "spp": SM_SPP,
+          "max_depth": cfg.max_depth, "materials": len(meta.mat_specs),
+          "lobe_types": list(meta.lobe_types), "mat_block": cfg.mat_block,
+          "visits": [st["visits"] for st in stats["on"]],
+          "expected_visits": want_visits["on"], "chunks": stats["on"][0]["chunks"],
+          "sorted_lanes": stats["on"][0]["lanes"],
+          "render_seconds": times,
+          "camera_rays_per_sec": {k: SM_RES * SM_RES * SM_SPP / statistics.median(v)
+                                  for k, v in times.items()},
+          "launches_per_render": {k: v[0] for k, v in launches.items()},
+          "device_kernel_ms": {k: v[0] for k, v in busy.items()},
+          "device_launches": {k: v[1] for k, v in busy.items()},
+          "device_busy_share": {k: v[2] for k, v in busy.items()},
+          "megabatch_device_ms": mb_ms, "bitwise_equal": equal, "max_abs_diff": diff,
+          "image_mean": float(imgs["off"].mean()), "gpu": gpu,
+          "renders_seconds": t_timed, "profiles_seconds": time.perf_counter() - t1,
+          "seconds": time.perf_counter() - t0})
+    for k in cfgs:
+        check(all(st["visits"] == want_visits[k] for st in stats[k]),
+              f"{name} mat_sort {k}: sorted visits {stats[k]}, want {want_visits[k]}")
+    check(all(n == launches["off"][0] for n in launches["on"] + launches["off"]),
+          f"{name}: the sorted render launched {launches['on']}, the unsorted "
+          f"{launches['off']}")
+    check(np.isfinite(imgs["on"]).all() and imgs["off"].mean() > 0.0
+          and (equal or np.allclose(imgs["on"], imgs["off"], atol=MB_ATOL, rtol=MB_RTOL)),
+          f"{name}: the sorted image differs from the unsorted by {diff}")
+
+
+def spectral_megabatch_phases(dev, gpu):
+    """Phase 27: spectral renders, material-sorted shading, bsdftest on the
+    card, and each kernel on the busiest wave of each (kernel, role) of the
+    group's renders against its plain version. Returns {kernel: launches}
+    over the group's renders (parity launches apart)."""
+    t_group = time.perf_counter()
+    total = dict.fromkeys(SM_KERNELS, 0)
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    waves = {}
+    with role_waves(waves):
+        cornell = cornell_box(SM_RES, SM_RES, SM_SPP, device=dev)
+        spectral_bench("cornell", cornell[0], cornell[1], dev, gpu, add)
+        t0 = time.perf_counter()
+        mesh, mesh_meta, _ = mesh_scene(SM_RES, SM_RES, SM_SPP, grid=MESH_GRID, device=dev)
+        emit({"phase": "spectral_mesh_scene", "seconds": time.perf_counter() - t0})
+        spectral_bench("mesh100k", mesh, mesh_meta, dev, gpu, add)
+        _reset_counts()
+        spectral_vs_cpu("cornell", lambda where: cornell_box(
+            PBRT_SMALL_RES, PBRT_SMALL_RES, PBRT_SMALL_SPP, device=where)[:2], dev)
+        spectral_vs_cpu("mesh100k", lambda where: mesh_scene(
+            PBRT_SMALL_RES, PBRT_SMALL_RES, PBRT_SMALL_SPP, grid=MESH_GRID,
+            device=where)[:2], dev)
+        add(_launch_counts())
+        for name, scene, meta, cfg in _sm_scenes(dev):
+            megabatch_bench(name, scene, meta, cfg, dev, gpu, add,
+                            profile_sorted=name == "cornell")
+            del scene
+        megabatch_bench("mesh100k", mesh, mesh_meta, SM_CFG, dev, gpu, add,
+                        profile_sorted=True)
+        del mesh, cornell
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bsdftest.run(device=dev)
+    lines = out.getvalue().splitlines()
+    emit({"phase": "bsdftest", "exit_code": rc, "lines": lines,
+          "seconds": time.perf_counter() - t0})
+    check(rc == 0 and len(lines) == len(bsdftest.CASES)
+          and all(ln.startswith("OK") for ln in lines), f"bsdftest on the card: {lines}")
+
+    emit({"phase": "spectral_megabatch_launches", "launches": total})
+    check(all(total[k] > 0 for k in SM_KERNELS),
+          f"a kernel of the spectral and sorted path was not launched: {total}")
+    t0 = time.perf_counter()
+    for (kernel, role), (_, tables, rays, kw) in sorted(waves.items(), key=lambda w: w[0]):
+        wave_parity("spectral_megabatch", kernel, role, tables, rays, kw,
+                    "spectral_megabatch_parity")
+    emit({"phase": "spectral_megabatch_parity", "cases": [list(k) for k in sorted(waves)],
+          "seconds": time.perf_counter() - t0})
+    del waves
+    emit({"phase": "spectral_megabatch", "seconds": time.perf_counter() - t_group})
+    return total
+
+
 def main():
     check(torch.cuda.is_available(), "no CUDA device")
     dev = torch.device("cuda", 0)
@@ -2645,12 +2944,14 @@ def main():
     media_launches = media_phases(dev, gpu)
     mlt_launches = mlt_phases(dev, gpu)
     pre_launches = preprocessed_phases(dev, gpu)
+    sm_launches = spectral_megabatch_phases(dev, gpu)
     for entry in kernels:
         entry["launches_direct"] = direct.get(entry["name"], 0)
         entry["launches_maps"] = maps.get(entry["name"], 0)
         entry["launches_media"] = media_launches.get(entry["name"], 0)
         entry["launches_mlt"] = mlt_launches.get(entry["name"], 0)
         entry["launches_preprocessed"] = pre_launches.get(entry["name"], 0)
+        entry["launches_spectral_megabatch"] = sm_launches.get(entry["name"], 0)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(gpu, flush=True)
     emit({"kernels": kernels})

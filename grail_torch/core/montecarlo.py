@@ -34,6 +34,13 @@ def cosine_sample_hemisphere(u1, u2):
     return torch.stack([dx, dy, z], dim=-1)
 
 
+def uniform_sample_hemisphere(u1, u2):
+    z = u1
+    r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    phi = TWO_PI * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
 def uniform_sample_sphere(u1, u2):
     z = 1.0 - 2.0 * u1
     r = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))

@@ -46,7 +46,14 @@ drawn once a wave from the wave's first lane's sample index. The kinds with
 a preprocess, "dipole" (engine/subsurface.py), "photon"
 (engine/photonmap.py), "irradiancecache" (engine/irradiance.py),
 "diffuseprt", "glossyprt" and "useprobes" (engine/prt.py), have their own
-Li, which render.py dispatches to. Material-sorted shading is not ported.
+Li, which render.py dispatches to.
+
+Material-sorted shading (mat_sort, shade/megabatch.py; off by default, as in
+the reference) replaces a path bounce's masked texture and lobe evaluation by
+one sorted visit, on waves of at least mat_sort_min lanes under the "one" and
+"power" strategies: the visit gives the light branch's f and pdf, the
+continuation's sample and the reuse partner's pdf, and the image is the
+unsorted pass's.
 """
 from __future__ import annotations
 
@@ -64,6 +71,7 @@ from ..shade import lights as lt
 from ..shade import geometry as geom
 from ..shade import materials as mtl
 from ..shade import media as med
+from ..shade.megabatch import megabatch_shade
 from ..shade.textures import eval_texture_rows, eval_textures
 from . import igi
 
@@ -114,8 +122,7 @@ BUMP_DU = 0.01      # Material::Bump's offset: the reference's fixed fallback
 
 @dataclasses.dataclass(frozen=True)
 class IntegratorConfig:
-    """The reference's fields, with its names and defaults (material-sorted
-    shading's are not ported)."""
+    """The reference's fields, with its names and defaults."""
     kind: str = "path"            # path | direct | whitted | ao | igi, or preprocessed
     max_depth: int = 5
     rr_depth: int = 3             # Russian roulette after this many bounces
@@ -125,6 +132,13 @@ class IntegratorConfig:
     compact: bool = True
     compact_frac: float = 0.25
     compact_min: int = 8192       # lane count below which compaction is skipped
+    # material-sorted shading (shade/megabatch.py): sort each path bounce's
+    # shade queue by material and evaluate each material on its own lanes,
+    # in chunks of mat_block lanes, on waves of at least mat_sort_min lanes;
+    # the image is the unsorted pass's. Off, as in the reference
+    mat_sort: bool = False
+    mat_sort_min: int = 16384
+    mat_block: int = 8192
     light_strategy: str = "one"   # one (uniform) | power | all
     ao_samples: int = 1
     ao_maxdist: float = 1.0e7
@@ -271,14 +285,22 @@ def _apply_bump(scene, meta, sg):
                 ts=torch.where(has, ts_b, sg["ts"]))
 
 
-def _shade_context(scene, meta, hit, o, d, camdiff=None, time=None):
-    """Post-hit work: shading geometry (with uv screen derivatives from the
-    camera differential rays when given), bump, textures, lobes, local wo."""
+def _shade_geom(scene, meta, hit, o, d, camdiff=None, time=None):
+    """The material-independent post-hit work: shading geometry (with uv
+    screen derivatives from the camera differential rays when given) and
+    bump. The material-sorted pass starts from here."""
     sg = geom.shading_geometry(scene, hit, o, d, time=time)
     if camdiff is not None:
         sg["duvdx"], sg["duvdy"] = geom.uv_differentials(sg, *camdiff)
     if meta.bump_rows:
         sg = _apply_bump(scene, meta, sg)
+    return sg
+
+
+def _shade_context(scene, meta, hit, o, d, camdiff=None, time=None):
+    """Post-hit work, masked over every material: _shade_geom, textures,
+    lobes, local wo."""
+    sg = _shade_geom(scene, meta, hit, o, d, camdiff, time)
     tex_values = eval_textures(meta.tex_specs, scene["tex_data"], sg,
                                scene.get("images", ()), scene.get("mipmaps", ()))
     lobes = mtl.gather_lobes(scene, sg, tex_values)
@@ -296,7 +318,7 @@ def _detach(x):
 
 def estimate_direct(scene, meta, sg, lobes, wo_local, light_idx, light_pmf,
                     u_light, u_tri, u_comp, u_dir, active, time=None,
-                    bsdf_branch=True, roles=("shadow", "bsdf")):
+                    bsdf_branch=True, roles=("shadow", "bsdf"), precomputed=None, ls=None):
     """One-light direct lighting with MIS (pbrt EstimateDirect): the
     light-sampling branch with the power heuristic against the BSDF pdf,
     then, where the scene has an area or infinite light and the chosen
@@ -305,16 +327,23 @@ def estimate_direct(scene, meta, sg, lobes, wo_local, light_idx, light_pmf,
     chosen light's pdf in that direction). bsdf_branch=False drops the BSDF
     branch and its wave: kind="path" takes that strategy from its
     continuation ray (path-vertex reuse). roles: the WAVES entries of the
-    shadow wave and of the BSDF branch's wave. Returns Ld (N,3) /
-    light_pmf."""
+    shadow wave and of the BSDF branch's wave. precomputed: the light
+    branch's (f, BSDF pdf) from the material-sorted pass, for the light
+    sample `ls` it was given (lobes, wo_local and the light draws are then
+    unread; only without the BSDF branch). Returns Ld (N,3) / light_pmf."""
     present = meta.lobe_types
     p = sg["p"]
     eps = sg["ray_eps"]
-    ls = lt.sample_li(scene, light_idx, p, u_light[0], u_light[1], u_tri,
-                      meta.light_types, meta.light_image_rows)
-    wi_l = geom.world_to_local(sg, ls["wi"])
+    if ls is None:
+        ls = lt.sample_li(scene, light_idx, p, u_light[0], u_light[1], u_tri,
+                          meta.light_types, meta.light_image_rows)
     tables = scene.get("brdf_tables", ())
-    f_l = bx.bsdf_f(lobes, wo_local, wi_l, present, include_specular=False, tables=tables)
+    if precomputed is None:
+        wi_l = geom.world_to_local(sg, ls["wi"])
+        f_l = bx.bsdf_f(lobes, wo_local, wi_l, present, include_specular=False,
+                        tables=tables)
+    else:
+        f_l, bsdf_pdf_l = precomputed
     cos_l = absdot(ls["wi"], sg["ns"])
     contrib_possible = (active & (ls["pdf"] > 0.0) & (cos_l > 0.0)
                         & torch.any(ls["radiance"] > 0.0, dim=-1)
@@ -328,7 +357,8 @@ def estimate_direct(scene, meta, sg, lobes, wo_local, light_idx, light_pmf,
         # VisibilityTester::Transmittance through the media
         radiance = radiance * med.transmittance(scene, meta, p, ls["wi"], ls["dist"],
                                                 torch.full_like(cos_l, 0.5))
-    bsdf_pdf_l = bx.bsdf_pdf(lobes, wo_local, wi_l, present, include_specular=False)
+    if precomputed is None:
+        bsdf_pdf_l = bx.bsdf_pdf(lobes, wo_local, wi_l, present, include_specular=False)
     w_l = torch.where(ls["delta"], 1.0,
                       mc.power_heuristic(1.0, ls["pdf"], 1.0, bsdf_pdf_l))
     Ld = torch.where(
@@ -420,6 +450,29 @@ def _direct_light(scene, meta, cfg, pix, samp, bounce, sg, lobes, wo_local,
     return Ld
 
 
+def _sorted_visit(scene, meta, cfg, pix, samp, bounce, sg, wo_local, active, u_dir,
+                  u_comp, time):
+    """The material-sorted pass of a path bounce (the reference's
+    megabatch branch): the light is picked and sampled with the unsorted
+    path's draws, megabatch_shade evaluates the light branch's BSDF terms
+    and the continuation together, and estimate_direct traces the shadow
+    wave with them. Returns (the pass's outputs, Ld or None)."""
+    if meta.n_lights == 0:
+        return megabatch_shade(scene, meta, sg, wo_local, wo_local, u_dir[0], u_dir[1],
+                               u_comp, active, block=cfg.mat_block), None
+    lidx, pmf = _pick_light(scene, meta, cfg, pix, samp, bounce)
+    u2d = _sample_2d(meta, pix, samp, bounce, _D_LIGHT_POS)
+    ls = lt.sample_li(scene, lidx, sg["p"], u2d[0], u2d[1],
+                      _sample_1d(meta, pix, samp, bounce, _D_LIGHT_TRI),
+                      meta.light_types, meta.light_image_rows)
+    mb = megabatch_shade(scene, meta, sg, wo_local, geom.world_to_local(sg, ls["wi"]),
+                         u_dir[0], u_dir[1], u_comp, active, block=cfg.mat_block)
+    Ld = estimate_direct(scene, meta, sg, None, None, lidx, pmf, None, None, None, None,
+                         active, time, bsdf_branch=False,
+                         precomputed=(mb["f_l"], mb["pdf_l"]), ls=ls)
+    return mb, Ld
+
+
 def _whitted_light(scene, meta, pix, samp, bounce, sg, lobes, wo_local, active, time):
     """whitted.cpp: every light sampled once, no MIS and no BSDF branch."""
     eps = sg["ray_eps"]
@@ -470,6 +523,10 @@ def _make_bounce_body(scene, meta, cfg, pix, samp, camdiff=None, time=None, vpls
     ray times, or None; vpls: kind="igi"'s set of virtual point lights."""
     path_reuse = cfg.kind == "path"
     has_media = scene.get("media") is not None
+    # the material-sorted pass, gated as the reference gates it (its image
+    # is the unsorted pass's, so only the wave's width decides)
+    use_mb = (path_reuse and cfg.mat_sort and len(meta.mat_specs) > 0
+              and pix.shape[0] >= cfg.mat_sort_min and cfg.light_strategy != "all")
 
     def bounce_body(bounce, state):
         o, d, L, throughput, active, spec_bounce, pdf_prev = state
@@ -499,7 +556,11 @@ def _make_bounce_body(scene, meta, cfg, pix, samp, camdiff=None, time=None, vpls
                                     throughput * Le, 0.0)
         active = active & ~miss
 
-        sg, lobes, wo_local = _shade_context(scene, meta, hit, o, d, camdiff, time)
+        if use_mb:
+            sg = _shade_geom(scene, meta, hit, o, d, camdiff, time)
+            lobes, wo_local = None, geom.world_to_local(sg, -d)
+        else:
+            sg, lobes, wo_local = _shade_context(scene, meta, hit, o, d, camdiff, time)
 
         # emitted at hit: camera/specular vertices unweighted; with
         # path-vertex reuse, other vertices MIS-weighted by the light
@@ -526,7 +587,14 @@ def _make_bounce_body(scene, meta, cfg, pix, samp, camdiff=None, time=None, vpls
             Lv = igi.vpl_radiance(scene, meta, cfg, sg, lobes, wo_local, vpls, active)
             L = L + torch.where(active[..., None], throughput * Lv, 0.0)
 
-        if meta.n_lights > 0:
+        u_dir = _sample_2d(meta, pix, samp, bounce, _D_BSDF_DIR)
+        u_comp = _sample_1d(meta, pix, samp, bounce, _D_BSDF_COMP)
+        if use_mb:
+            mb, Ld = _sorted_visit(scene, meta, cfg, pix, samp, bounce, sg, wo_local,
+                                   active, u_dir, u_comp, time)
+            if Ld is not None:
+                L = L + torch.where(active[..., None], throughput * Ld, 0.0)
+        elif meta.n_lights > 0:
             if cfg.kind == "whitted":
                 Ld = _whitted_light(scene, meta, pix, samp, bounce, sg, lobes,
                                     wo_local, active, time)
@@ -537,12 +605,15 @@ def _make_bounce_body(scene, meta, cfg, pix, samp, camdiff=None, time=None, vpls
 
         # continuation: sample the BSDF (dead work on the final bounce, as in
         # the reference, whose loop exits before the next intersect)
-        u_dir = _sample_2d(meta, pix, samp, bounce, _D_BSDF_DIR)
-        u_comp = _sample_1d(meta, pix, samp, bounce, _D_BSDF_COMP)
-        bs = bx.bsdf_sample(lobes, wo_local, u_dir[0], u_dir[1], u_comp,
-                            meta.lobe_types, include_specular=True,
-                            tables=scene.get("brdf_tables", ()))
-        wi_w = geom.local_to_world(sg, bs["wi"])
+        if use_mb:
+            bs = {"f": mb["f"], "pdf": mb["pdf"], "specular": mb["spec"],
+                  "valid": mb["valid"]}
+            wi_w = mb["wi_w"]
+        else:
+            bs = bx.bsdf_sample(lobes, wo_local, u_dir[0], u_dir[1], u_comp,
+                                meta.lobe_types, include_specular=True,
+                                tables=scene.get("brdf_tables", ()))
+            wi_w = geom.local_to_world(sg, bs["wi"])
         cos_c = absdot(wi_w, sg["ns"])
         contrib = bs["f"] * (cos_c
                              / _detach(torch.clamp_min(bs["pdf"], 1e-12)))[..., None]
@@ -556,7 +627,8 @@ def _make_bounce_body(scene, meta, cfg, pix, samp, camdiff=None, time=None, vpls
             # the light strategy's partner pdf for the next hit's emission
             pdf_prev = torch.where(
                 bs["specular"], 0.0,
-                _detach(bx.bsdf_pdf(lobes, wo_local, geom.world_to_local(sg, wi_w),
+                _detach(mb["pdf_prev_nospec"] if use_mb else
+                        bx.bsdf_pdf(lobes, wo_local, geom.world_to_local(sg, wi_w),
                                     meta.lobe_types, include_specular=False)))
 
             # Russian roulette (path.cpp: after rr_depth bounces)

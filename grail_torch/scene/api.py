@@ -181,6 +181,9 @@ class PbrtAPI:
         self.mlt_spp = None         # ... and mutations a pixel
         self.probe_bake = None      # Renderer "createprobes": lmax, nsamples, filename, spacing
         self.surfacepoints_out = None   # Renderer "surfacepoints": filename, npoints
+        # TransformTimes' (start, end): stored as the reference stores it;
+        # nothing reads it (a moving transform spans the camera's shutter)
+        self.transform_times_range = None
 
     # --------------------------------------------------------------- CTM helpers
     def _for_active(self, fn):
@@ -225,6 +228,9 @@ class PbrtAPI:
     def active_transform(self, which):
         self.active_bits = {"StartTime": START_BIT,
                             "EndTime": END_BIT}.get(which, ALL_TRANSFORM_BITS)
+
+    def transform_times(self, start, end):
+        self.transform_times_range = (start, end)
 
     # ----------------------------------------------------------- options block
     def camera(self, name, params):

@@ -78,6 +78,8 @@ def meta_from(meta) -> SceneMeta:
         alpha_rows=tuple(int(r) for r in meta.alpha_rows),
         media_kinds=tuple(int(k) for k in getattr(meta, "media_kinds", ())),
         crop=tuple(float(c) for c in getattr(meta, "crop", (0.0, 1.0, 0.0, 1.0))),
+        mat_specs=tuple(tuple(tuple(int(v) for v in slot) for slot in spec)
+                        for spec in getattr(meta, "mat_specs", ())),
     )
 
 

@@ -93,6 +93,9 @@ class SceneMeta:
     alpha_rows: Tuple[int, ...] = ()    # the alpha-cutout texture rows in use
     media_kinds: Tuple[int, ...] = ()   # each media region's kind (shade/media.py)
     crop: Tuple[float, float, float, float] = (0.0, 1.0, 0.0, 1.0)   # film crop window
+    # each material's lobe slots, as tuples in MAT_FIELDS order (the static
+    # table the material-sorted pass and the spectral promotion read)
+    mat_specs: Tuple[Tuple[Tuple[int, ...], ...], ...] = ()
 
 
 def _motion_bounds(m0, m1, omin, omax, steps=16):
@@ -550,6 +553,9 @@ class SceneBuilder:
                     fields[slot][mi, ki] = lobe.get(slot, zero_tex)
                 fields["f0_conv"][mi, ki] = lobe.get("f0_conv", CONV_ID)
                 fields["f1_conv"][mi, ki] = lobe.get("f1_conv", CONV_ID)
+        mat_specs = tuple(tuple(tuple(int(fields[f][mi, ki]) for f in MAT_FIELDS)
+                                for ki in range(len(row)))
+                          for mi, row in enumerate(self.mat_rows))
         fields["bump"] = np.full(M, -1, np.int32)
         fields["bump"][:len(self.mat_bump)] = self.mat_bump
         scene["materials"] = fields
@@ -693,5 +699,6 @@ class SceneBuilder:
                                      if a >= 0})),
             media_kinds=tuple(int(m["type"]) for m in self.media_regions),
             crop=tuple(float(c) for c in self.crop),
+            mat_specs=mat_specs,
         )
         return to_torch(scene, device), meta

@@ -179,7 +179,7 @@ def parse(ts: _TokenStream, api: PbrtAPI):
             which = ts.next()
             api.active_transform(which[1] if which else "All")
         elif d == "TransformTimes":
-            raise NotImplementedError("TransformTimes is not ported yet")
+            api.transform_times(*_read_floats(ts, 2))
         elif d == "Camera":
             api.camera(_read_string(ts), _read_params(ts, api.search_path))
         elif d == "Sampler":

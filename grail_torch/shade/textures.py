@@ -268,16 +268,18 @@ def eval_textures(tex_specs, tex_data, sg, images=(), mipmaps=()):
     return torch.stack(vals, dim=0)
 
 
-def eval_texture_rows(tex_specs, tex_data, sg, rows, images=()):
-    """Evaluate `rows` and their inputs only, with no MIP pyramids (image
-    rows read bilinearly), as the reference's eval_texture_rows: {row:
-    (N, 3)} over the rows' closure."""
+def eval_texture_rows(tex_specs, tex_data, sg, rows, images=(), mipmaps=()):
+    """Evaluate `rows` and their inputs only: {row: (N, 3)} over the rows'
+    closure, each row as eval_textures computes it. Without mipmaps (the
+    reference's eval_texture_rows) image rows read bilinearly; with them
+    (the reference's eval_textures(needed=, as_dict=True)) they filter as
+    in eval_textures."""
     needed = rows_closure(tex_specs, rows)
     n = sg["p"].shape[0]
     vals = {}
     for row in sorted(needed):
         vals[row] = _eval_row(tex_specs[row], tex_data["w2t"][row],
-                              tex_data["const"][row], vals, sg, images, (), n)
+                              tex_data["const"][row], vals, sg, images, mipmaps, n)
     return vals
 
 

@@ -3,7 +3,7 @@
     python3 -m grail_torch.tools.profile_render
         [--scene cornell|mesh|mesh1m|inst] [--res 256] [--spp 16] [--depth 5]
         [--grid N] [--kind path|direct|whitted|ao] [--strategy one|power|all]
-        [--ao-samples N]
+        [--ao-samples N] [--mat-sort]
     python3 -m grail_torch.tools.profile_render --pbrt scenes/envlight.pbrt
         [--res N] [--spp N] [--kind igi]
 
@@ -15,7 +15,8 @@ instances of a 50,176-triangle sphere: its bench is --spp 4 --depth 3; or a
 .pbrt scene file through the port's parser, at its authored depth and
 integrator, and its authored resolution and samples unless --res (a square
 film) or --spp name others; --kind igi renders the file under instant GI)
-with the path integrator unless --kind names another, once to warm up, once timed, then once under torch.profiler, and prints JSON
+with the path integrator unless --kind names another (--mat-sort: with
+material-sorted shading, whose pass is the stage `megabatch`), once to warm up, once timed, then once under torch.profiler, and prints JSON
 lines: the render's wall time (unprofiled and
 profiled), the summed kernel time and the device's busy share (kernel time
 over the unprofiled wall time), the number of kernel launches; for each stage
@@ -73,6 +74,9 @@ _STAGES = {
     "environment": (lights, ("env_pdf", "escaped_radiance")),
     "shading_geometry": (geometry, ("shading_geometry",)),
     "textures_lobes": (materials, ("gather_lobes",)),
+    # the material-sorted pass (mat_sort): the sort, each material's
+    # textures and lobes, the BSDF work, the gather back
+    "megabatch": (integrator, ("megabatch_shade",)),
     "bsdf_sample": (bsdf, ("bsdf_sample",)),
     "bsdf_eval": (bsdf, ("bsdf_f", "bsdf_pdf")),    # also inside bsdf_sample
     "sample_li": (lights, ("sample_li",)),
@@ -141,6 +145,8 @@ def main(argv=None):
     ap.add_argument("--kind", choices=integrator.KINDS, default="path")
     ap.add_argument("--strategy", choices=integrator.STRATEGIES, default="one")
     ap.add_argument("--ao-samples", type=int, default=1)
+    ap.add_argument("--mat-sort", action="store_true",
+                    help="material-sorted shading (IntegratorConfig.mat_sort)")
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -148,7 +154,8 @@ def main(argv=None):
     dev = torch.device("cuda", 0)
     cfg = integrator.IntegratorConfig(kind=args.kind, max_depth=args.depth,
                                       light_strategy=args.strategy,
-                                      ao_samples=args.ao_samples)
+                                      ao_samples=args.ao_samples,
+                                      mat_sort=args.mat_sort)
     if args.pbrt:
         with open(args.pbrt) as f:
             text = f.read()
@@ -164,6 +171,7 @@ def main(argv=None):
         cfg = api.integrator_config
         if args.kind == "igi":
             cfg = dataclasses.replace(cfg, kind="igi")
+        cfg = dataclasses.replace(cfg, mat_sort=args.mat_sort)
         args.scene, args.res, args.spp, args.depth = (
             args.pbrt, meta.xres, meta.sampler.spp, cfg.max_depth)
     else:
@@ -203,7 +211,8 @@ def main(argv=None):
     kernel_us = sum(e.self_device_time_total for e in kernels)
     print(json.dumps({
         "render": {"scene": args.scene, "kind": cfg.kind,
-                   "light_strategy": cfg.light_strategy, "n_tris": meta.n_tris,
+                   "light_strategy": cfg.light_strategy, "mat_sort": cfg.mat_sort,
+                   "n_tris": meta.n_tris,
                    "res": args.res, "spp": args.spp, "max_depth": args.depth,
                    "wall_ms": wall_plain * 1e3, "wall_ms_profiled": wall * 1e3,
                    "kernel_ms": kernel_us / 1e3,

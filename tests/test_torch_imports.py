@@ -19,5 +19,5 @@ def test_port_imports_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True,
                          text=True, timeout=120, check=True).stdout.split()
     n_modules, bad = int(out[0]), " ".join(out[1:])
-    assert n_modules >= 58
+    assert n_modules >= 64
     assert bad == "[]", bad

@@ -233,6 +233,13 @@ def test_builder_matches_reference(scenes):
     np.testing.assert_array_equal(wb[1], np.maximum([5, 0, 5], sn["inst"]["wmax"].max(0)))
 
 
+def test_mat_specs_match_reference(scenes):
+    """Each material's lobe slots (SceneMeta.mat_specs), from the port's
+    builder and through the bridge, as the reference's."""
+    _, jm, _, _, own_meta, _, tm = scenes
+    assert own_meta.mat_specs == tm.mat_specs == jm.mat_specs and len(jm.mat_specs) == 2
+
+
 def test_single_leaf_object_root():
     """An object of at most 4 triangles is one leaf: its root is the leaf ref
     ~first, and no node is stored for it."""

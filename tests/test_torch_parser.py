@@ -140,6 +140,7 @@ def assert_same_scene(ported, reference):
             else dataclasses.asdict(tapi.mlt_config) == dataclasses.asdict(ref_mlt))
     assert tapi.probe_bake == getattr(japi, "probe_bake", None)
     assert tapi.surfacepoints_out == getattr(japi, "surfacepoints_out", None)
+    assert tapi.transform_times_range == getattr(japi, "transform_times_range", None)
 
 
 @pytest.mark.parametrize("name", MATCHING)
@@ -204,6 +205,8 @@ OPTION_SNIPPETS = {
                                  sampler="lowdiscrepancy"),
     "adaptive": _HEADER.format(film="", sampler="adaptive").replace(
         '"integer pixelsamples" [1]', '"integer minsamples" [2] "integer maxsamples" [8]'),
+    "transform_times": _HEADER.format(film="", sampler="lowdiscrepancy").replace(
+        "WorldBegin", "TransformTimes 0.25 0.75\nWorldBegin"),
 }
 
 
@@ -250,6 +253,8 @@ def test_option_snippet_matches_reference(case):
     assert_same_scene(ported, reference)
     if case == "cropwindow":
         assert ported[1].crop == (0.0, 0.75, 0.125, 0.5)
+    elif case == "transform_times":
+        assert ported[2].transform_times_range == (0.25, 0.75)
     else:
         assert ported[2].adaptive == {"min": 2, "max": 8} and ported[1].sampler.spp == 8
 
@@ -257,7 +262,6 @@ def test_option_snippet_matches_reference(case):
 # parameters and directives that the port refuses where they are used
 UNPORTED_SNIPPETS = {
     "area": ("", "lowdiscrepancy", 'AreaLightSource "other"\n', 'AreaLightSource "other"'),
-    "transform_times": ("", "lowdiscrepancy", "TransformTimes 0 1\n", "TransformTimes"),
 }
 
 
@@ -411,8 +415,8 @@ def test_cli_renders_and_refuses(tmp_path):
     img = tio.read_image(out)
     assert img.shape == (64, 64, 3) and np.isfinite(img).all() and img.mean() > 0
     refused = tmp_path / "refused.pbrt"
-    refused.write_text(_HEADER.format(film="", sampler="lowdiscrepancy") + "TransformTimes 0 1\n"
-                       + "WorldEnd\n")
+    refused.write_text(_HEADER.format(film="", sampler="lowdiscrepancy")
+                       + 'AreaLightSource "other"\n' + "WorldEnd\n")
     assert cli_main([str(refused), "--cpu", "--quiet"]) == 1
     # the reference's --checkpoint option renders (no file yet: from sample 0)
     assert cli_main([_scene_path("envlight"), "--cpu", "--spp", "1", "--quiet",

@@ -13,10 +13,11 @@ import jax
 
 import grail.kernels.bvh_stream as jbs
 from grail.scene.presets import cornell_box as jax_cornell
+from grail.scene.presets import mesh_scene as jax_mesh_scene
 from grail.scene.presets import mesh_scene_1m as jax_mesh_scene_1m
 from grail_torch.scene.bridge import scene_from_numpy
 from grail_torch.scene.buffers import SceneBuilder, attach_record_table
-from grail_torch.scene.presets import cornell_box, mesh_scene_1m
+from grail_torch.scene.presets import cornell_box, mesh_scene, mesh_scene_1m
 
 torch.set_num_threads(2)
 
@@ -67,6 +68,21 @@ def test_scene_meta_matches(both):
                 [dataclasses.asdict(s) for s in ref]
         else:
             assert got == ref, field.name
+
+
+@pytest.mark.parametrize("preset", ["cornell", "mesh"])
+def test_mat_specs_match_reference(preset):
+    """Each material's lobe slots (SceneMeta.mat_specs), from the port's
+    preset and through the bridge, as the reference's, tuple for tuple."""
+    if preset == "cornell":
+        (js, jm, _), (_, tm, _) = jax_cornell(8, 8, 1), cornell_box(8, 8, 1, device="cpu")
+    else:
+        (js, jm, _), (_, tm, _) = (jax_mesh_scene(8, 8, 1, grid=8),
+                                   mesh_scene(8, 8, 1, grid=8, device="cpu"))
+    _, bm = scene_from_numpy(jax.tree_util.tree_map(np.asarray, js), jm, device="cpu")
+    assert tm.mat_specs == bm.mat_specs == jm.mat_specs
+    assert len(jm.mat_specs) == len(js["materials"]["lobe_type"])
+    assert all(isinstance(v, int) for spec in tm.mat_specs for slot in spec for v in slot)
 
 
 def test_clustered_scene_carries(monkeypatch):
