@@ -206,11 +206,35 @@ failure ends the run with a non-zero exit code:
       (tools/profile_render.py's stage); bsdftest on the card (every case
       OK, exit code 0); each kernel against its plain version on the
       busiest wave of each (kernel, role) of the group's renders, bitwise.
+  the multi-rank group (grail_torch/dist: sharding.py, scene_shard.py,
+  launch.py; photonmap.shoot_photons_sharded, metropolis.render_mlt_sharded,
+  entry.py), at world size torch.cuda.device_count() through NCCL: in this
+  process on one card, one process a card (dist/launch.py) otherwise; each
+  line gives the world size:
+  28. sharded: render_sharded on mesh100k (path, depth 5, 256x256, 16 spp),
+      fused and not, in turns with render (camera rays/s, median of 3 after
+      a warm-up; the image against render's, relative MAE < 1e-3; launches
+      per render; the all-reduce's ms on the band film's bytes);
+      render_scene_sharded with compact off, on the Cornell box by brute
+      force (bitwise the replicated render) and on mesh100k with a 4-wide
+      table a shard (within atol 1e-5, rtol 1e-4), in turns with the
+      replicated render and the replicated band render, whose launches the
+      ring's equal at one rank, with the partition's seconds and the ring's
+      transfers; the sharded photon shoot of photon.pbrt bitwise the
+      replicated one, and its render against render's; render_mlt_sharded
+      on mlt.pbrt (4,096 chains, one wave) against render_mlt; each kernel
+      against its plain version, bitwise, on the busiest wave of each
+      (kernel, role) of these renders, the ring's local steps among them;
+      make_train_step on the Cornell box and mesh100k (256x256, 1 spp,
+      depth 5: forward and backward seconds, peak memory, the gradient
+      within the grad gate of one card's through render_wave); the entry's
+      dry run; each path at 32x32 on the card against the CPU.
 Then a {"kernels": [...]} line (each kernel's "launches_direct",
 "launches_maps", "launches_media", "launches_mlt",
-"launches_preprocessed" and "launches_spectral_megabatch": its launches in
-the direct, maps, media, Metropolis, preprocessed and spectral/sorted
-groups' renders) and, last, {"ok": true, "device": {...}}.
+"launches_preprocessed", "launches_spectral_megabatch" and
+"launches_sharded": its launches in the direct, maps, media, Metropolis,
+preprocessed, spectral/sorted and multi-rank groups' renders) and, last,
+{"ok": true, "device": {...}}.
 Needs a CUDA device and nvcc; imports nothing of JAX.
 """
 import contextlib
@@ -220,6 +244,7 @@ import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -231,6 +256,8 @@ import numpy as np
 import torch
 
 from grail_torch.core import rng as rngmod
+from grail_torch.dist import launch, scene_shard
+from grail_torch.dist import sharding
 from grail_torch.core import sampled_spectrum as ssp
 from grail_torch.core import transform as tr
 from grail_torch.engine.imageio import read_image
@@ -241,7 +268,7 @@ from grail_torch.engine import integrator as integ
 from grail_torch.engine import metropolis as mlt
 from grail_torch.engine.integrator import WAVES, IntegratorConfig
 from grail_torch.engine import subsurface
-from grail_torch.engine import prt
+from grail_torch.engine import photonmap, prt
 from grail_torch.engine import render as render_mod
 from grail_torch.engine.render import (auto_spp_chunk, camera_rays, megawave_lanes,
                                        occupancy_probe, photon_config, preprocess, render,
@@ -267,6 +294,7 @@ from grail_torch.tools import bsdftest, gen_assets, instbench, profile_render
 from grail_torch.tools.instbench import (N_INST, SPHERE_NU, SPHERE_NV, build_flattened,
                                          build_instanced)
 from grail_torch.tools.optimize import optimize_albedo
+from grail_torch.entry import dryrun_rank
 
 N_RAYS = 1 << 20
 MESH_GRID = 224
@@ -1653,43 +1681,52 @@ def role_waves(waves):
     (live, tables, (o, d, tmin, tmax), keywords)}: role is the integrator's
     (integrator.WAVES: camera, continuation, bsdf, shadow, occlusion,
     alpha), the rays as the kernel receives them (binned or not, dead lanes
-    inert), the walk with roots among them (the instanced sweep's rounds)."""
+    inert), the walk with roots among them (the instanced sweep's rounds),
+    and the scene-sharded ring's local steps as "ring_<role>"."""
     role = [None]
     trace = integ._trace
-    kernels = (isect.bvh4_traverse, instanced.bvh4_traverse, isect.brute_intersect)
+    kernels = (isect.bvh4_traverse, instanced.bvh4_traverse, isect.brute_intersect,
+               scene_shard.bvh4_traverse, scene_shard.brute_intersect)
 
     def named(*args, **kw):
         role[0] = kw["role"]
         return trace(*args, **kw)
 
-    def record(kernel, tables, rays, kw):
+    def record(kernel, tables, rays, kw, prefix):
         if rays[0].device.type != "cuda":          # the CPU's plain version
             return
         live = int((rays[3] > rays[2]).sum())
-        key = (kernel, role[0])
+        key = (kernel, prefix + role[0])
         if live and live > waves.get(key, (0,))[0]:
             keep = {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in kw.items()}
             waves[key] = (live, tables, tuple(a.detach().clone() for a in rays), keep)
 
-    def walk(fn):
+    def walk(fn, prefix=""):
         def run(nodes, tris, o, d, tmin, tmax, any_hit=False, **kw):
             name = (b4.KERNELS if kw.get("roots") is None else b4.ROOT_KERNELS)[int(any_hit)]
-            record(name, (nodes, tris), (o, d, tmin, tmax), dict(kw, any_hit=any_hit))
+            record(name, (nodes, tris), (o, d, tmin, tmax), dict(kw, any_hit=any_hit),
+                   prefix)
             return fn(nodes, tris, o, d, tmin, tmax, any_hit, **kw)
         return run
 
-    def brute(tris9, o, d, tmin, tmax, any_hit=False):
-        record(bi.KERNELS[int(any_hit)], (tris9,), (o, d, tmin, tmax), {"any_hit": any_hit})
-        return kernels[2](tris9, o, d, tmin, tmax, any_hit)
+    def brute(fn, prefix=""):
+        def run(tris9, o, d, tmin, tmax, any_hit=False):
+            record(bi.KERNELS[int(any_hit)], (tris9,), (o, d, tmin, tmax),
+                   {"any_hit": any_hit}, prefix)
+            return fn(tris9, o, d, tmin, tmax, any_hit)
+        return run
 
     integ._trace = named
     isect.bvh4_traverse, instanced.bvh4_traverse = walk(kernels[0]), walk(kernels[1])
-    isect.brute_intersect = brute
+    isect.brute_intersect = brute(kernels[2])
+    scene_shard.bvh4_traverse = walk(kernels[3], "ring_")
+    scene_shard.brute_intersect = brute(kernels[4], "ring_")
     try:
         yield waves
     finally:
         integ._trace = trace
-        isect.bvh4_traverse, instanced.bvh4_traverse, isect.brute_intersect = kernels
+        (isect.bvh4_traverse, instanced.bvh4_traverse, isect.brute_intersect,
+         scene_shard.bvh4_traverse, scene_shard.brute_intersect) = kernels
 
 
 def wave_parity(source, kernel, role, tables, rays, kw, phase="direct_parity"):
@@ -2904,6 +2941,340 @@ def spectral_megabatch_phases(dev, gpu):
     return total
 
 
+SHARD_RES, SHARD_SPP = 256, 16     # the sharded group's full-width renders
+SHARD_CFG = IntegratorConfig(kind="path", max_depth=5)
+SHARD_KERNELS = bi.KERNELS + b4.KERNELS
+STREAM_ATOL, STREAM_RTOL = 1e-5, 1e-4   # the 4-wide ring: tests/test_scene_shard.py's
+MLT_ATOL, MLT_RTOL = 1e-4, 1e-3         # chains over ranks: tests/test_sharding.py's
+SHARD_TIMEOUT_S = 900
+
+
+def in_turns(fns, reps=3, warmup=True):
+    """A warm-up of each fn, then reps rounds calling each in turn, timed to
+    a synchronize: {name: (seconds, launches of the first timed call, last
+    result)}."""
+    for fn in fns.values() if warmup else ():
+        fn()
+    torch.cuda.synchronize()
+    out = {name: ([], None, None) for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            _reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            times, launches, _ = out[name]
+            out[name] = (times + [time.perf_counter() - t0],
+                         launches or _launch_counts(), res)
+    return out
+
+
+def _rays_per_sec(meta, spp, times):
+    return meta.xres * meta.yres * spp / statistics.median(times)
+
+
+def _l2_grads(scene, meta, cfg, dev, target):
+    """The training loss's tex_data gradient through one full-grid wave on
+    this card alone (the grad phase's path: render_wave, dense film)."""
+    params = sharding._requiring_grad(scene["tex_data"])
+    film = render_wave(dict(scene, tex_data=params), meta, cfg,
+                       new_film(meta.xres, meta.yres, dev), 0, device=dev)
+    loss = torch.mean((develop(film) - target) ** 2)
+    leaves = [params["const"], params["w2t"]]
+    got = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return float(loss.detach()), {k: torch.zeros_like(x) if g is None else g
+                         for k, x, g in zip(("const", "w2t"), leaves, got)}
+
+
+def _within_gate(got, ref):
+    tol = GRAD_ATOL * float(ref.abs().max())
+    return bool(torch.isfinite(got).all()) and bool(
+        torch.allclose(got, ref, rtol=GRAD_RTOL, atol=tol)), float((got - ref).abs().max())
+
+
+def shard_train(mesh, say, name, make):
+    """make_train_step at 256x256, 1 spp, depth 5: forward and backward
+    seconds (the backward: the step's autograd.grad call), peak memory, and
+    the gradient against the single-card gradient of the same loss."""
+    dev = mesh.device
+    scene, meta, _ = make(SHARD_RES, SHARD_RES, 1, device=dev)
+    target = torch.zeros((meta.yres, meta.xres, 3), device=dev)
+    step = sharding.make_train_step(meta, SHARD_CFG, mesh)
+    step(scene, target, 0)
+    grad_fn, marks = torch.autograd.grad, []
+
+    def timed_grad(*args, **kw):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        out = grad_fn(*args, **kw)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        return out
+
+    _reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(sharding.torch.autograd, "grad", timed_grad):
+        loss, grads = step(scene, target, 0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated(dev)
+    launches = _launch_counts()
+    loss_1, ref = _l2_grads(scene, meta, SHARD_CFG, dev, target)
+    gate = {k: _within_gate(grads["tex_data"][k], ref[k]) for k in ref}
+    say({"phase": "sharded_train", "scene": name, "world_size": mesh.world_size,
+         "res": SHARD_RES, "spp": 1, "max_depth": SHARD_CFG.max_depth,
+         "loss": float(loss), "loss_single_card": loss_1,
+         "forward_seconds": marks[0] - t0, "backward_seconds": marks[1] - marks[0],
+         "step_seconds": t1 - t0, "peak_memory_bytes": peak, "launches": launches,
+         "max_abs_diff_vs_single_card": {k: g[1] for k, g in gate.items()},
+         "within_gate": {k: g[0] for k, g in gate.items()}})
+    check(all(g[0] for g in gate.values()) and bool((grads["tex_data"]["const"] != 0).any()),
+          f"the sharded {name} training step's gradient is outside the gate: {gate}")
+    check(abs(float(loss) - loss_1) <= 1e-4 * abs(loss_1),
+          f"the sharded {name} loss {float(loss)} differs from one card's {loss_1}")
+
+
+def shard_ring(mesh, say, gpu, name, scene, meta, stream, add):
+    """render_scene_sharded at SHARD_RES, SHARD_SPP, depth 5, compact=False:
+    rate (each render partitions the scene; the partition's seconds alone
+    too), the image against the replicated render's, launches against the
+    replicated band render's (render_sharded, the same waves)."""
+    dev = mesh.device
+    cfg = dataclasses.replace(SHARD_CFG, compact=False)
+    t0 = time.perf_counter()
+    scene_shard.partition_scene(scene, mesh.world_size, stream=stream)
+    torch.cuda.synchronize()
+    part_s = time.perf_counter() - t0
+    scene_shard.STATS.update(passes=0, bytes=0)
+    runs = in_turns({
+        "replicated": lambda: render(scene, meta, cfg, spp=SHARD_SPP, device=dev)[0],
+        "band": lambda: sharding.render_sharded(scene, meta, cfg, SHARD_SPP, mesh)[0],
+        "ring": lambda: sharding.render_scene_sharded(scene, meta, cfg, SHARD_SPP, mesh,
+                                                      stream=stream)[0]})
+    passes = dict(scene_shard.STATS)
+    rep, ring_img = runs["replicated"][2].cpu().numpy(), runs["ring"][2].cpu().numpy()
+    bitwise = bool(np.array_equal(ring_img, rep))
+    close = bool(np.allclose(ring_img, rep, atol=STREAM_ATOL, rtol=STREAM_RTOL))
+    launches = runs["ring"][1]
+    say({"phase": "sharded_ring", "scene": name, "world_size": mesh.world_size,
+         "local_step": "bvh4" if stream else "brute_force", "res": SHARD_RES,
+         "spp": SHARD_SPP, "max_depth": cfg.max_depth, "compact": False,
+         "partition_seconds": part_s,
+         "render_seconds": {k: v[0] for k, v in runs.items()},
+         "camera_rays_per_sec": {k: _rays_per_sec(meta, SHARD_SPP, v[0])
+                                 for k, v in runs.items()},
+         "launches_per_render": {k: v[1] for k, v in runs.items()},
+         "ring_passes_and_bytes_sent": passes, "bitwise_equal_vs_replicated": bitwise,
+         "max_abs_diff_vs_replicated": float(np.abs(ring_img - rep).max()),
+         "image_mean": float(ring_img.mean()), "gpu": gpu})
+    check(bitwise if not stream else close,
+          f"the {name} ring render differs from the replicated render")
+    check(mesh.world_size > 1 or launches == runs["band"][1],
+          f"the {name} ring launched {launches}, the band render {runs['band'][1]}")
+    add(launches)
+
+
+def shard_vs_cpu(mesh, say):
+    """Each sharded path at 32x32 on the card against the CPU (a lone CPU
+    rank): relative MAE < RELMAE_MAX; the training step's gradients within
+    the gate."""
+    cpu = sharding.Mesh(1, 0, torch.device("cpu"))
+    cfg3 = IntegratorConfig(kind="path", max_depth=3)
+    ring_cfg = dataclasses.replace(cfg3, compact=False)
+    photon_cfg = IntegratorConfig(kind="photon", max_depth=3, photon_paths=1024,
+                                  photon_radius=0.3)
+    mlt_cfg = mlt.MLTConfig(max_depth=3, n_chains=256, n_bootstrap=256,
+                            mutations_per_wave=4)
+    res, spp = PBRT_SMALL_RES, PBRT_SMALL_SPP
+
+    def mesh100k(where):
+        return mesh_scene(res, res, spp, grid=MESH_GRID, device=where)[:2]
+
+    def cornell(where, **kw):
+        return cornell_box(res, res, spp, device=where, **kw)[:2]
+
+    paths = {
+        "render_sharded": lambda m: sharding.render_sharded(
+            *mesh100k(m.device), cfg3, spp, m)[0],
+        "ring_brute": lambda m: sharding.render_scene_sharded(
+            *cornell(m.device), ring_cfg, spp, m)[0],
+        "ring_stream": lambda m: sharding.render_scene_sharded(
+            *cornell(m.device), ring_cfg, spp, m, stream=True)[0],
+        "photon_sharded": lambda m: sharding.render_sharded(
+            *cornell(m.device), photon_cfg, spp, m)[0],
+        "mlt_sharded": lambda m: mlt.render_mlt_sharded(
+            *cornell(m.device, with_boxes=False), mlt_cfg, 1, m)[0],
+    }
+    for name, run_path in paths.items():
+        t0 = time.perf_counter()
+        card, host = run_path(mesh).cpu().numpy(), run_path(cpu).numpy()
+        err = relative_mae(card, host)
+        say({"phase": "sharded_vs_cpu", "path": name, "world_size": mesh.world_size,
+             "res": res, "relative_mae": err, "seconds": time.perf_counter() - t0})
+        check(np.isfinite(card).all() and card.mean() > 0 and err < RELMAE_MAX,
+              f"sharded path {name} on the card differs from the CPU ({err})")
+    t0 = time.perf_counter()
+    got = {}
+    for side, m in (("card", mesh), ("cpu", cpu)):
+        scene, meta = cornell(m.device)
+        target = torch.zeros((meta.yres, meta.xres, 3), device=m.device)
+        got[side] = sharding.make_train_step(meta, cfg3, m)(scene, target, 0)[1]["tex_data"]
+    gate = {k: _within_gate(got["card"][k].cpu(), got["cpu"][k]) for k in got["cpu"]}
+    say({"phase": "sharded_vs_cpu", "path": "train_step", "world_size": mesh.world_size,
+         "res": res, "max_abs_diff": {k: g[1] for k, g in gate.items()},
+         "seconds": time.perf_counter() - t0})
+    check(all(g[0] for g in gate.values()),
+          f"the training step's gradient on the card differs from the CPU's: {gate}")
+
+
+def sharded_rank(mesh, gpu):
+    """Phase 28 on one rank (every rank runs it; rank 0 prints). Returns
+    {kernel: launches} over the phase's renders (parity launches apart)."""
+    say = emit if mesh.rank == 0 else (lambda obj: None)
+    dev = mesh.device
+    total = dict.fromkeys(SHARD_KERNELS, 0)
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    waves = {}
+    with role_waves(waves):
+        # the band render on mesh100k, fused and not, in turns with render
+        t0 = time.perf_counter()
+        scene, meta, _ = mesh_scene(SHARD_RES, SHARD_RES, SHARD_SPP, grid=MESH_GRID,
+                                    device=dev)
+        runs = in_turns({
+            "render": lambda: render(scene, meta, SHARD_CFG, spp=SHARD_SPP, device=dev)[0],
+            "fused": lambda: sharding.render_sharded(scene, meta, SHARD_CFG, SHARD_SPP,
+                                                     mesh)[0],
+            "unfused": lambda: sharding.render_sharded(scene, meta, SHARD_CFG, SHARD_SPP,
+                                                       mesh, fused=False)[0]})
+        ref = runs["render"][2].cpu().numpy()
+        errs = {k: relative_mae(runs[k][2].cpu().numpy(), ref) for k in ("fused", "unfused")}
+        rows, margin, _ = sharding._band_layout(meta, mesh.world_size)
+        buf = torch.zeros((mesh.world_size * rows + 2 * margin) * meta.xres * 7, device=dev)
+        reduce_ms = cuda_ms(lambda: mesh.all_reduce(buf), 20)
+        say({"phase": "sharded_render", "scene": "mesh100k", "world_size": mesh.world_size,
+             "res": SHARD_RES, "spp": SHARD_SPP, "max_depth": SHARD_CFG.max_depth,
+             "band_rows": rows, "band_margin": margin,
+             "render_seconds": {k: v[0] for k, v in runs.items()},
+             "camera_rays_per_sec": {k: _rays_per_sec(meta, SHARD_SPP, v[0])
+                                     for k, v in runs.items()},
+             "launches_per_render": {k: v[1] for k, v in runs.items()},
+             "relative_mae_vs_render": errs, "all_reduce_bytes": buf.numel() * 4,
+             "all_reduce_ms": reduce_ms, "all_reduces_per_render": {
+                 "fused": 1, "unfused": SHARD_SPP},
+             "gpu": gpu, "seconds": time.perf_counter() - t0})
+        check(all(e < RELMAE_MAX for e in errs.values()),
+              f"the sharded render differs from render: {errs}")
+        add(runs["fused"][1])
+        add(runs["unfused"][1])
+
+        # the scene-sharded ring: Cornell by brute force, mesh100k by 4-wide tables
+        cornell = cornell_box(SHARD_RES, SHARD_RES, SHARD_SPP, device=dev)
+        shard_ring(mesh, say, gpu, "cornell", cornell[0], cornell[1], False, add)
+        shard_ring(mesh, say, gpu, "mesh100k", scene, meta, True, add)
+        del scene, cornell
+
+        # the sharded photon shoot and render at photon.pbrt's settings
+        t0 = time.perf_counter()
+        scene, meta, api = parse_file(_scene_file("photon"), device=dev)
+        cfg = api.integrator_config
+        spp = meta.sampler.spp
+        pcfg = photon_config(cfg)
+        grids = {"sharded": photonmap.shoot_photons_sharded(scene, meta, pcfg, mesh),
+                 "replicated": photonmap.shoot_photons(scene, meta, pcfg)}
+        same = {k: torch.equal(grids["sharded"][k], grids["replicated"][k])
+                for k in grids["replicated"]}
+        runs = in_turns({
+            "render": lambda: render(scene, meta, cfg, spp=spp, device=dev)[0],
+            "sharded": lambda: sharding.render_sharded(scene, meta, cfg, spp, mesh)[0]},
+            reps=1, warmup=False)
+        err = relative_mae(runs["sharded"][2].cpu().numpy(), runs["render"][2].cpu().numpy())
+        say({"phase": "sharded_photon", "world_size": mesh.world_size, "paths": pcfg.n_paths,
+             "res": [meta.xres, meta.yres], "spp": spp,
+             "grid_bitwise_vs_replicated": same,
+             "render_seconds": {k: v[0] for k, v in runs.items()},
+             "launches_per_render": {k: v[1] for k, v in runs.items()},
+             "relative_mae_vs_render": err, "gpu": gpu,
+             "seconds": time.perf_counter() - t0})
+        check(all(same.values()) and err < RELMAE_MAX,
+              f"the sharded photon shoot or render differs: {same}, {err}")
+        add(runs["sharded"][1])
+        del scene, grids
+
+        # Metropolis with the chains over the ranks, one wave of mlt.pbrt
+        t0 = time.perf_counter()
+        scene, meta, api = parse_file(_scene_file("mlt"), device=dev)
+        mcfg = api.mlt_config
+        runs = in_turns({
+            "render_mlt": lambda: mlt.render_mlt(scene, meta, mcfg, n_waves=1,
+                                                 device=dev)[0],
+            "sharded": lambda: mlt.render_mlt_sharded(scene, meta, mcfg, 1, mesh)[0]},
+            reps=1, warmup=False)
+        a, b = (runs[k][2].cpu().numpy() for k in ("render_mlt", "sharded"))
+        close = bool(np.allclose(b, a, atol=MLT_ATOL, rtol=MLT_RTOL))
+        say({"phase": "sharded_mlt", "world_size": mesh.world_size,
+             "chains": mcfg.n_chains, "waves": 1,
+             "render_seconds": {k: v[0] for k, v in runs.items()},
+             "launches_per_render": {k: v[1] for k, v in runs.items()},
+             "max_abs_diff": float(np.abs(a - b).max()), "allclose": close,
+             "gpu": gpu, "seconds": time.perf_counter() - t0})
+        check(close and np.isfinite(b).all(), "render_mlt_sharded differs from render_mlt")
+        add(runs["sharded"][1])
+        del scene
+
+    # each kernel on the busiest wave of each (kernel, role), the ring's too
+    t0 = time.perf_counter()
+    for (kernel, role), (_, tables, rays, kw) in sorted(waves.items(), key=lambda w: w[0]):
+        wave_parity("sharded", kernel, role, tables, rays, kw, "sharded_parity")
+    say({"phase": "sharded_parity", "cases": [list(k) for k in sorted(waves)],
+         "seconds": time.perf_counter() - t0})
+    check(any(role.startswith("ring_") for _, role in waves),
+          "no ring local step was captured")
+    del waves
+
+    # the training step at the grad phase's width, the entry's dry run
+    shard_train(mesh, say, "cornell", cornell_box)
+    shard_train(mesh, say, "mesh100k", functools.partial(mesh_scene, grid=MESH_GRID))
+    loss, gnorm = dryrun_rank(mesh)
+    say({"phase": "sharded_dryrun", "world_size": mesh.world_size, "loss": loss,
+         "grad_norm": gnorm})
+
+    shard_vs_cpu(mesh, say)
+    say({"phase": "sharded_launches", "launches": total})
+    check(all(total[k] > 0 for k in SHARD_KERNELS),
+          f"a kernel of the sharded paths was not launched: {total}")
+    return total
+
+
+def sharded_phases(dev, gpu):
+    """Phase 28: the multi-rank paths at world size device_count() through
+    NCCL: in this process on one card, one process a card otherwise.
+    Returns {kernel: launches} over rank 0's renders."""
+    t0 = time.perf_counter()
+    world = torch.cuda.device_count()
+    if world == 1:
+        store = tempfile.mkdtemp(prefix="grail_smoke_")
+        mesh = launch.init_rank(0, 1, dev, "file://" + os.path.join(store, "store"),
+                                SHARD_TIMEOUT_S)
+        try:
+            check(torch.distributed.get_backend() == "nccl", "the group is not NCCL")
+            total = sharded_rank(mesh, gpu)
+        finally:
+            torch.distributed.destroy_process_group()
+            shutil.rmtree(store, ignore_errors=True)
+    else:
+        total = launch.run_ranks(sharded_rank, world, "cuda", SHARD_TIMEOUT_S, (gpu,))[0]
+    emit({"phase": "sharded", "world_size": world, "backend": "nccl",
+          "seconds": time.perf_counter() - t0})
+    return total
+
+
 def main():
     check(torch.cuda.is_available(), "no CUDA device")
     dev = torch.device("cuda", 0)
@@ -2945,6 +3316,7 @@ def main():
     mlt_launches = mlt_phases(dev, gpu)
     pre_launches = preprocessed_phases(dev, gpu)
     sm_launches = spectral_megabatch_phases(dev, gpu)
+    sharded_launches = sharded_phases(dev, gpu)
     for entry in kernels:
         entry["launches_direct"] = direct.get(entry["name"], 0)
         entry["launches_maps"] = maps.get(entry["name"], 0)
@@ -2952,6 +3324,7 @@ def main():
         entry["launches_mlt"] = mlt_launches.get(entry["name"], 0)
         entry["launches_preprocessed"] = pre_launches.get(entry["name"], 0)
         entry["launches_spectral_megabatch"] = sm_launches.get(entry["name"], 0)
+        entry["launches_sharded"] = sharded_launches.get(entry["name"], 0)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(gpu, flush=True)
     emit({"kernels": kernels})

@@ -3,6 +3,8 @@
 The film is a dict {rgb (H,W,3), weight (H,W), splat (H,W,3)}. Full-grid
 waves accumulate with dense shifted adds (no scatter), wave by wave in sample
 order, so the film is bitwise independent of how the samples are chunked.
+A sharded render's rank accumulates its row band the same way into a band
+film (add_samples_band), which dist/sharding.py places and all-reduces.
 Other waves (a crop window's pixels, adaptive sampling's flagged pixels) and
 Metropolis's splats scatter their samples into the film with
 index_put(accumulate=True): on the CPU the adds run in lane order, as the
@@ -152,6 +154,47 @@ def add_samples_grid(film, fcfg: flt.FilterConfig, sx, sy, L, chunk,
                                  py[sl] + dy - dimy[sl]) * weight[sl]
                 rgb = _add_shifted(rgb, to_image(w[..., None] * L[sl]), dy, dx)
                 wsum = _add_shifted(wsum, to_image(w), dy, dx)
+    return {"rgb": rgb, "weight": wsum, "splat": film["splat"]}
+
+
+def new_band_film(rows, xres, margin, device):
+    """A band film: `rows` pixel rows plus `margin` filter-spill rows on
+    each side."""
+    return new_film(xres, rows + 2 * margin, device)
+
+
+def add_samples_band(film, fcfg: flt.FilterConfig, sx, sy, L, margin, weight=None,
+                     tiled=False):
+    """AddSample for a rank's row band (the sharded render's film): film
+    holds R rows plus `margin` spill rows each side (new_band_film); the
+    lanes are the band's full pixel grid (R*W, raster or 8x16 tile order),
+    one sample each; sx, sy are global raster coordinates. Each static tap
+    offset becomes a shifted dense add, taps up to `margin` rows outside the
+    band landing in the spill rows. Requires floor(ywidth + 0.5) <= margin.
+    Returns a new film."""
+    rows = film["weight"].shape[0] - 2 * margin
+    xres = film["weight"].shape[1]
+    dimx = sx - 0.5
+    dimy = sy - 0.5
+    px = torch.floor(sx)
+    py = torch.floor(sy)
+    rx = int(math.floor(fcfg.xwidth + 0.5))
+    ry = int(math.floor(fcfg.ywidth + 0.5))
+    if ry > margin:
+        raise ValueError(f"the filter's y extent {ry} exceeds the band margin {margin}")
+    if weight is None:
+        weight = torch.ones_like(sx)
+
+    def to_band(x):
+        x = _untile(x, rows, xres) if tiled else x.reshape(rows, xres, *x.shape[1:])
+        return F.pad(x, (0, 0) * (x.dim() - 1) + (margin, margin))
+
+    rgb, wsum = film["rgb"], film["weight"]
+    for dy in range(-ry, ry + 1):
+        for dx in range(-rx, rx + 1):
+            w = flt.evaluate(fcfg, px + dx - dimx, py + dy - dimy) * weight
+            rgb = _add_shifted(rgb, to_band(w[..., None] * L), dy, dx)
+            wsum = _add_shifted(wsum, to_band(w), dy, dx)
     return {"rgb": rgb, "weight": wsum, "splat": film["splat"]}
 
 

@@ -569,7 +569,9 @@ def _make_bounce_body(scene, meta, cfg, pix, samp, camdiff=None, time=None, vpls
             Le = lt.area_light_emitted(scene, sg, -d)
             if path_reuse:
                 cos_at = dot(sg["ng"], -d)
-                on_light = sg["light"] >= 0
+                # a miss reads triangle 0's record, an area light's where the
+                # scene declares one first (ROADMAP C.15)
+                on_light = (sg["light"] >= 0) & ~miss
                 # the pdf is read on light hits only; elsewhere t may be the
                 # miss sentinel, whose square overflows and would turn the
                 # gradient into NaN (the reference's fault, ROADMAP C.4)

@@ -30,7 +30,9 @@ launches of an evaluation); each visibility test stays its own wave.
 The waves it hands the intersect dispatch count in integrator.WAVES as
 "mlt_camera" (the camera subpath's closest hits, and eval_path's),
 "mlt_light" (the light subpath's) and "mlt_connect" (every visibility test,
-any hit). render_mlt_sharded (chains over several devices) is not ported.
+any hit). render_mlt_sharded splits the chains over the ranks of a
+dist/sharding.py Mesh: the same chains advance as in render_mlt, each rank
+splats into its own film, and one all-reduce merges them.
 """
 from __future__ import annotations
 
@@ -643,6 +645,33 @@ def render_mlt(scene, meta, cfg: MLTConfig, n_waves=8, seed=0, device=None):
         total_mutations += cfg.mutations_per_wave * cfg.n_chains
     # splat normalization: E[image] = b * splat / mutations * pixels
     splat_scale = float(b) * meta.xres * meta.yres / total_mutations
+    img = flm.develop(film, splat_scale=splat_scale)
+    return _maybe_direct(scene, meta, cfg, img, device), film
+
+
+@torch.no_grad()
+def render_mlt_sharded(scene, meta, cfg: MLTConfig, n_waves, mesh, seed=0):
+    """Metropolis with the chains split over the ranks of `mesh`: the
+    bootstrap runs on every rank (one normalization and one set of chain
+    starts), rank k advances chains [k*per, (k+1)*per) keyed by their global
+    ids, so every chain follows render_mlt's trajectory, into a film of its
+    own; one all-reduce merges the films. Returns (image, film), the same on
+    every rank; the film differs from render_mlt's only by the order of its
+    float sums."""
+    device = mesh.device
+    check_on(scene["verts"], device, "the scene")
+    n = cfg.n_chains
+    if n % mesh.world_size:
+        raise ValueError(f"n_chains={n} must divide over {mesh.world_size} ranks")
+    per = n // mesh.world_size
+    evalf = eval_path_bidir if cfg.bidirectional else eval_path
+    u, b = _bootstrap(scene, meta, cfg, evalf, seed)
+    u = u[mesh.rank * per:(mesh.rank + 1) * per]
+    film = flm.new_film(meta.xres, meta.yres, device)
+    for wv in range(n_waves):
+        film, u = _mlt_wave(scene, meta, cfg, evalf, film, u, wv, chain_base=mesh.rank * per)
+    film = mesh.reduce(film)
+    splat_scale = float(b) * meta.xres * meta.yres / (n_waves * cfg.mutations_per_wave * n)
     img = flm.develop(film, splat_scale=splat_scale)
     return _maybe_direct(scene, meta, cfg, img, device), film
 

@@ -20,7 +20,10 @@ estimate takes pbrt's Simpson kernel. Li is direct lighting, the caustic
 estimate at the first hit, and a final gather of two strategies (a BSDF
 sample and a cone about a nearby indirect photon's direction, combined by
 the power heuristic), each gather ray a "final_gather" wave whose hit is
-shaded by the indirect map. The reference's sharded shoot is not ported.
+shaded by the indirect map. shoot_photons_sharded splits the shoot over the
+ranks of a dist/sharding.py Mesh: each shoots its slice of the counter
+stream, and the gathered photons, laid out depth-major again, give the
+replicated shoot's grid bitwise.
 """
 from __future__ import annotations
 
@@ -88,6 +91,30 @@ def _shoot_block(scene, meta, cfg: PhotonConfig, samp0, count, seed=0):
 def shoot_photons(scene, meta, cfg: PhotonConfig, seed=0):
     """Shoot every path and return the photon grid."""
     return build_photon_grid(_shoot_block(scene, meta, cfg, 0, cfg.n_paths, seed), cfg)
+
+
+def gather_photons(scene, meta, cfg: PhotonConfig, mesh, seed=0):
+    """The raw photons of every path, shot over the ranks: rank k traces
+    paths [k*per, (k+1)*per) and the blocks, all-gathered, are laid out
+    depth-major, (max_depth, rank, per), as _shoot_block(0, n_paths) lays
+    them out. Requires n_paths divisible by the world size."""
+    n_dev = mesh.world_size
+    if cfg.n_paths % n_dev:
+        raise ValueError(f"n_paths={cfg.n_paths} must divide over {n_dev} ranks")
+    per = cfg.n_paths // n_dev
+    block = _shoot_block(scene, meta, cfg, mesh.rank * per, per, seed)
+
+    def regather(x):
+        g = mesh.all_gather(x).reshape((n_dev, cfg.max_depth, per) + x.shape[1:])
+        return g.transpose(0, 1).reshape((cfg.max_depth * n_dev * per,) + x.shape[1:])
+
+    return {k: regather(v) for k, v in block.items()}
+
+
+def shoot_photons_sharded(scene, meta, cfg: PhotonConfig, mesh, seed=0):
+    """The photon grid, shot over the ranks of `mesh` (gather_photons): the
+    same on every rank, and bitwise the replicated shoot_photons'."""
+    return build_photon_grid(gather_photons(scene, meta, cfg, mesh, seed), cfg)
 
 
 def _cell_of(p, radius):

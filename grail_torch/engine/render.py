@@ -109,18 +109,21 @@ _PREPROCESSED_LI = {"dipole": subsurface.dipole_li, "photon": _photon_li,
 
 
 def render_wave(scene, meta, cfg, film, samp_idx, pix=None, mask=None, grid_chunk=None,
-                tiled=False, device=None, aux=None):
+                tiled=False, device=None, aux=None, band=None):
     """One megawave: raygen -> Li -> film accumulate; returns the new film,
     differentiable to the scene's leaves that require grad.
 
     pix: (N,) pixel ids (defaults to the full grid, one sample each);
     samp_idx: a scalar sample index or (N,) per-lane indices. grid_chunk:
     with pix the full pixel grid tiled grid_chunk times (lane i <-> pixel
-    i % npix), which takes the dense film path; other waves scatter. mask:
+    i % npix), which takes the dense film path; other waves scatter. band:
+    (margin, band_tiled) when `film` is a rank's band film and pix the
+    band's full pixel grid (film.add_samples_band, dist/sharding.py). mask:
     (N,) bool, False lanes add nothing (padding). aux: the render's
     preprocess (made here when a kind needs one and none is given)."""
     device = resolve_device(device)
-    check_on(scene["verts"], device, "the scene")
+    # the camera: a scene-sharded ring scene has no mesh leaves
+    check_on(scene["camera"]["raster2cam"], device, "the scene")
     if pix is None:
         pix, tiled = _wave_pixels(meta, device)
         if grid_chunk is None:
@@ -139,6 +142,10 @@ def render_wave(scene, meta, cfg, film, samp_idx, pix=None, mask=None, grid_chun
     sx = px.to(torch.float32) + ufx
     sy = py.to(torch.float32) + ufy
     w = None if mask is None else mask.to(torch.float32)
+    if band is not None:
+        margin, band_tiled = band
+        return flm.add_samples_band(film, meta.filter, sx, sy, L, margin, weight=w,
+                                    tiled=band_tiled)
     if grid_chunk is not None:
         return flm.add_samples_grid(film, meta.filter, sx, sy, L, grid_chunk, weight=w,
                                     tiled=tiled)

@@ -10,9 +10,10 @@ the backward differentiates Möller-Trumbore at the hit triangle) and, to
 the rays, on instance hits (the same backward in the instance's object
 space); any hit returns booleans and has no gradient. Gradients to the
 instanced geometry or the instance transforms are not ported: the sweep
-raises where one is asked of it. Scenes with a scene-sharded ring take a
-route that is not ported yet: the dispatch raises for them rather than
-picking something else.
+raises where one is asked of it. A scene-sharded scene (its "ring", a
+rank's shard: dist/scene_shard.py) takes the ring route: every rank's rays
+pass around the ring of shards, and the hit carries its triangle's record
+(hit["tri"]), since no rank holds the mesh.
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ from .binning import N_RAY_BUCKETS, bin_rays_key, bucket_rank, sort_by_rank, uns
 from .brute_intersect import brute_intersect
 from .bvh4 import bvh4_traverse
 from .instanced import gather_pack, instances_intersect, w2o_ray
+from ..dist.scene_shard import ring_intersect
 
 BIG_T = 3.0e37
 SORT_MIN = 8192     # waves of at least this many rays are binned first
@@ -136,10 +138,17 @@ def intersect_p_brute(scene, o, d, tmax, tmin=None):
 
 
 def _check_routes(scene, o, device):
+    """The route of a trace: "ring", the scene's BVH (the 4-wide route) or
+    None (brute force)."""
     check_on(o, resolve_device(device), "the rays")
-    if scene.get("ring") is not None:
-        raise NotImplementedError("scene has a 'ring' table: that intersection "
-                                  "route is not ported yet")
+    ring = scene.get("ring")
+    if ring is not None:
+        if "mesh" not in ring:
+            raise ValueError("the scene holds a whole partition, not a rank's shard: "
+                             "render it through dist.sharding.render_scene_sharded")
+        if scene.get("inst") is not None:
+            raise NotImplementedError("the ring route has no instances")
+        return "ring"
     bvh = scene.get("bvh")
     if bvh is not None and "bvh4_nodes" not in bvh:
         raise NotImplementedError("a BVH scene needs its 4-wide tables "
@@ -204,7 +213,10 @@ def intersect(scene, o, d, tmax, tmin=None, device=None, sort=None, time=None):
     sort: ray-binning hint for the stream route (False for camera waves,
     which arrive in tile order). time (N,): the rays' times, which pick the
     animated instance transforms (None: shutter open)."""
-    if _check_routes(scene, o, device) is not None:
+    route = _check_routes(scene, o, device)
+    if route == "ring":
+        return ring_intersect(scene["ring"], o, d, tmax, tmin)
+    if route is not None:
         hit = _stream_bvh(scene, o, d, tmax, tmin, sort=sort)
     else:
         t, prim, b1, b2 = ClosestHit.apply(
@@ -223,7 +235,10 @@ def intersect(scene, o, d, tmax, tmin=None, device=None, sort=None, time=None):
 
 def intersect_p(scene, o, d, tmax, tmin=None, device=None, time=None):
     """Occlusion test (Scene::IntersectP analog): occluded (N,) bool."""
-    if _check_routes(scene, o, device) is not None:
+    route = _check_routes(scene, o, device)
+    if route == "ring":
+        return ring_intersect(scene["ring"], o, d, tmax, tmin, any_hit=True)["occluded"]
+    if route is not None:
         occ = _stream_bvh(scene, o, d, tmax, tmin, any_hit=True)
     else:
         with torch.no_grad():

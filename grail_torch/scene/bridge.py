@@ -13,9 +13,12 @@ reference's own binary tree (for a single record table and for clustered
 tables alike; the record
 table is the port's own, on request: buffers.attach_record_table), and the
 instance table, whose BLAS table is collapsed from the reference's own
-per-object binary trees, the measured BRDF tables, and the media regions
-with their density grids. Leaves the port does not read are dropped; a
-scene that needs a route the port lacks raises. `aux_from_numpy` carries a
+per-object binary trees, the measured BRDF tables, the media regions
+with their density grids, and a scene-sharded partition ("ring": its
+per-shard record fields and gid as they are; where the reference packed
+each shard's TPU record table, each shard gets the port's 4-wide table
+built from its triangles, dist/scene_shard.py). Leaves the port does not
+read are dropped. `aux_from_numpy` carries a
 preprocess across the same way: the photon grid, the irradiance cache's
 entries, PRT's incident expansion, the probe grid, the dipole's points or a
 VPL set, so that the port's Li can be run on the reference's own
@@ -32,6 +35,7 @@ import torch
 from ..core.rng import SamplerConfig
 from ..engine.camera import ENVIRONMENT
 from ..device import resolve_device
+from ..dist.scene_shard import PAD_GID, TRI_FIELDS, TRI_IFIELDS, shard_table
 from ..engine.filters import FilterConfig
 from ..kernels.bvh4 import build_bvh4_blas, build_bvh4_tables
 from ..shade.lights import INFINITE
@@ -49,8 +53,6 @@ _PYRAMID = ("flat", "h", "w", "off")
 _INSTANCE = ("obj", "t", "q", "s", "anim", "m0", "m0_inv", "swap", "wmin", "wmax")
 _MEDIA = ("w2v", "bounds_min", "bounds_max", "sigma_a", "sigma_s", "g", "le", "grid_id",
           "exp_a", "exp_b", "updir")
-# reference-side features whose routes are not ported yet
-_UNPORTED_LEAVES = ("ring",)
 
 
 def _same_fields(cls, obj):
@@ -117,9 +119,6 @@ def instance_table(inst_np, verts, tri_idx):
 def scene_from_numpy(scene_np, meta, device=None):
     """(port scene dict, port SceneMeta) from the reference's numpy scene."""
     device = resolve_device(device)
-    for key in _UNPORTED_LEAVES:
-        if scene_np.get(key) is not None:
-            raise NotImplementedError(f"scene has {key!r}: not ported yet")
     scene = {k: scene_np[k] for k in _GEOMETRY}
     scene["materials"] = {k: scene_np["materials"][k] for k in MAT_FIELDS + ("bump",)}
     scene["tex_data"] = {k: scene_np["tex_data"][k] for k in ("const", "w2t")}
@@ -160,7 +159,23 @@ def scene_from_numpy(scene_np, meta, device=None):
         if np.array_equal(base, SENTINEL_TRI):     # an instanced-only scene
             base = base[:0]
         scene["world_bounds"] = world_bounds(base, scene["inst"])
-    return to_torch(scene, device), meta_from(meta)
+    scene = to_torch(scene, device)
+    if scene_np.get("ring") is not None:
+        scene["ring"] = ring_from_numpy(scene_np["ring"], scene_np["verts"],
+                                        scene_np["tri_idx"], device)
+    return scene, meta_from(meta)
+
+
+def ring_from_numpy(ring_np, verts, tri_idx, device):
+    """The port's partition (scene_shard.partition_scene's layout) from the
+    reference's: the record fields and gid as they are; for the
+    reference's per-shard record tables ("stream"), each shard's 4-wide
+    table built from its own triangles."""
+    ring = {k: ring_np[k] for k in TRI_FIELDS + TRI_IFIELDS + ("gid",)}
+    if ring_np.get("stream") is not None:
+        ring["bvh4"] = tuple(shard_table(verts, tri_idx, g[g < PAD_GID])
+                             for g in np.asarray(ring_np["gid"]))
+    return to_torch(ring, device)
 
 
 def aux_from_numpy(aux_np, device=None):

@@ -1,6 +1,8 @@
-"""Differential geometry at hit points (port of grail/shade/geometry.py,
-without the scene-sharded ring record), and the uv screen derivatives that
-texture filtering reads at camera hits."""
+"""Differential geometry at hit points (port of grail/shade/geometry.py),
+and the uv screen derivatives that texture filtering reads at camera hits.
+A hit of the scene-sharded ring (dist/scene_shard.py) carries its
+triangle's record (hit["tri"]), which is read in place of the mesh
+leaves: a ring scene has none."""
 from __future__ import annotations
 
 import torch
@@ -22,31 +24,38 @@ def shading_geometry(scene, hit, ray_o, ray_d, time=None):
     (hit["inst"] >= 0) takes its object-space triangle to world space with
     the instance's transform at the ray's time (None: shutter open), as
     pbrt's TransformedPrimitive::Intersect does."""
-    prim = torch.clamp_min(hit["prim"], 0)
-    idx = scene["tri_idx"][prim]                    # (N,3)
-    v0 = scene["verts"][idx[..., 0]]
-    v1 = scene["verts"][idx[..., 1]]
-    v2 = scene["verts"][idx[..., 2]]
-    n0 = scene["vnorm"][idx[..., 0]]
-    n1 = scene["vnorm"][idx[..., 1]]
-    n2 = scene["vnorm"][idx[..., 2]]
     inst = scene.get("inst")
     on_inst = None
-    if inst is not None and "inst" in hit:
-        on_inst = hit["inst"] >= 0
-        pk = gather_pack(inst, torch.clamp_min(hit["inst"], 0))
-        t_lane = time if time is not None else torch.zeros_like(hit["t"])
-        m = on_inst[..., None]
-        v0, v1, v2 = (torch.where(m, o2w_point(pk, t_lane, v), v) for v in (v0, v1, v2))
-        n0, n1, n2 = (torch.where(m, o2w_normal(pk, t_lane, v), v) for v in (n0, n1, n2))
-    e1 = v1 - v0
-    e2 = v2 - v0
-    uv0 = scene["vuv"][idx[..., 0]]
-    uv1 = scene["vuv"][idx[..., 1]]
-    uv2 = scene["vuv"][idx[..., 2]]
-    flags = scene["tri_flags"][prim]
-    mat_id = scene["tri_mat"][prim]
-    light_id = scene["tri_light"][prim]
+    if "tri" in hit:
+        tri = hit["tri"]
+        e1, e2 = tri["e1"], tri["e2"]
+        n0, n1, n2 = tri["n0"], tri["n1"], tri["n2"]
+        uv0, uv1, uv2 = tri["uv0"], tri["uv1"], tri["uv2"]
+        flags, mat_id, light_id = tri["flags"], tri["mat"], tri["light"]
+    else:
+        prim = torch.clamp_min(hit["prim"], 0)
+        idx = scene["tri_idx"][prim]                    # (N,3)
+        v0 = scene["verts"][idx[..., 0]]
+        v1 = scene["verts"][idx[..., 1]]
+        v2 = scene["verts"][idx[..., 2]]
+        n0 = scene["vnorm"][idx[..., 0]]
+        n1 = scene["vnorm"][idx[..., 1]]
+        n2 = scene["vnorm"][idx[..., 2]]
+        if inst is not None and "inst" in hit:
+            on_inst = hit["inst"] >= 0
+            pk = gather_pack(inst, torch.clamp_min(hit["inst"], 0))
+            t_lane = time if time is not None else torch.zeros_like(hit["t"])
+            m = on_inst[..., None]
+            v0, v1, v2 = (torch.where(m, o2w_point(pk, t_lane, v), v) for v in (v0, v1, v2))
+            n0, n1, n2 = (torch.where(m, o2w_normal(pk, t_lane, v), v) for v in (n0, n1, n2))
+        e1 = v1 - v0
+        e2 = v2 - v0
+        uv0 = scene["vuv"][idx[..., 0]]
+        uv1 = scene["vuv"][idx[..., 1]]
+        uv2 = scene["vuv"][idx[..., 2]]
+        flags = scene["tri_flags"][prim]
+        mat_id = scene["tri_mat"][prim]
+        light_id = scene["tri_light"][prim]
 
     b1 = hit["b1"][..., None]
     b2 = hit["b2"][..., None]
@@ -118,17 +127,23 @@ def shading_geometry(scene, hit, ray_o, ray_d, time=None):
 
 def hit_geometric(scene, hit):
     """Lean hit record: orientation-corrected geometric normal + light id."""
-    prim = torch.clamp_min(hit["prim"], 0)
-    idx = scene["tri_idx"][prim]
-    v0 = scene["verts"][idx[..., 0]]
-    v1 = scene["verts"][idx[..., 1]]
-    v2 = scene["verts"][idx[..., 2]]
-    ng = normalize(cross(v1 - v0, v2 - v0))
-    flags = scene["tri_flags"][prim]
+    if "tri" in hit:
+        tri = hit["tri"]
+        ng = normalize(cross(tri["e1"], tri["e2"]))
+        flags, light = tri["flags"], tri["light"]
+    else:
+        prim = torch.clamp_min(hit["prim"], 0)
+        idx = scene["tri_idx"][prim]
+        v0 = scene["verts"][idx[..., 0]]
+        v1 = scene["verts"][idx[..., 1]]
+        v2 = scene["verts"][idx[..., 2]]
+        ng = normalize(cross(v1 - v0, v2 - v0))
+        flags = scene["tri_flags"][prim]
+        light = scene["tri_light"][prim]
     flip = (((flags & REVERSE_ORIENTATION) != 0)
             ^ ((flags & XFORM_SWAPS_HANDEDNESS) != 0))
     ng = torch.where(flip[..., None], -ng, ng)
-    return {"ng": ng, "light": scene["tri_light"][prim]}
+    return {"ng": ng, "light": light}
 
 
 def world_to_local(sg, w):

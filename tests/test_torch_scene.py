@@ -12,6 +12,7 @@ import torch
 import jax
 
 import grail.kernels.bvh_stream as jbs
+from grail.dist.scene_shard import partition_scene as jax_partition
 from grail.scene.presets import cornell_box as jax_cornell
 from grail.scene.presets import mesh_scene as jax_mesh_scene
 from grail.scene.presets import mesh_scene_1m as jax_mesh_scene_1m
@@ -106,9 +107,11 @@ def test_clustered_scene_carries(monkeypatch):
 
 def test_unported_scenes_raise(both):
     scene_np, jm, _, _ = both
-    with pytest.raises(NotImplementedError, match="ring"):
-        scene_from_numpy(dict(scene_np, ring={"verts": np.zeros((1, 3))}), jm,
-                         device="cpu")
+    # the scene-sharded partition is ported: a reference ring leaf carries
+    # across (tests/test_torch_scene_shard.py holds it leaf for leaf)
+    ring = jax.tree_util.tree_map(np.asarray, jax_partition(scene_np, 2))
+    got = scene_from_numpy(dict(scene_np, ring=ring), jm, device="cpu")[0]["ring"]
+    np.testing.assert_array_equal(got["gid"].numpy(), ring["gid"])
     # a crop window is carried across (engine/render.py renders it)
     _, tm_crop = scene_from_numpy(scene_np, dataclasses.replace(jm, crop=(0.0, 0.5, 0.0, 1.0)),
                                   device="cpu")
