@@ -203,7 +203,7 @@ failure ends the run with a non-zero exit code:
       rtol 2e-4), both rates, both renders' launches (equal), the unsorted
       render's busy share, and on the Cornell preset and mesh100k the
       sorted render's with the megabatch stage's device ms a render
-      (tools/profile_render.py's stage); bsdftest on the card (every case
+      (the program's `megabatch` span); bsdftest on the card (every case
       OK, exit code 0); each kernel against its plain version on the
       busiest wave of each (kernel, role) of the group's renders, bitwise.
   the multi-rank group (grail_torch/dist: sharding.py, scene_shard.py,
@@ -255,6 +255,7 @@ from unittest import mock
 import numpy as np
 import torch
 
+from grail_torch import telemetry
 from grail_torch.core import rng as rngmod
 from grail_torch.dist import launch, scene_shard
 from grail_torch.dist import sharding
@@ -290,7 +291,7 @@ from grail_torch.scene.shapes import sphere
 from grail_torch.shade import media
 from grail_torch.shade import megabatch
 from grail_torch.shade.lights import AREA, INFINITE
-from grail_torch.tools import bsdftest, gen_assets, instbench, profile_render
+from grail_torch.tools import bsdftest, gen_assets, instbench
 from grail_torch.tools.instbench import (N_INST, SPHERE_NU, SPHERE_NV, build_flattened,
                                          build_instanced)
 from grail_torch.tools.optimize import optimize_albedo
@@ -2688,24 +2689,20 @@ def _sm_scenes(dev):
 
 def sorted_profile(scene, meta, cfg, spp, dev, wall):
     """(kernel ms, launches, busy share, the megabatch stage's kernel ms) of
-    one render under torch.profiler, the sorted pass in
-    tools/profile_render.py's range for its stage (the only range: every
-    other stage's would multiply the profiler's host events)."""
-    module, (name,) = profile_render._STAGES["megabatch"]
-    fn = getattr(module, name)
-    setattr(module, name, profile_render._ranged("megabatch", fn))
-    try:
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            render(scene, meta, cfg, spp=spp, device=dev)
-            torch.cuda.synchronize()
-    finally:
-        setattr(module, name, fn)
+    one render under torch.profiler: the sorted pass is the program's
+    `megabatch` span (grail_torch/telemetry.py), whose range is
+    "grail:megabatch"."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        render(scene, meta, cfg, spp=spp, device=dev)
+        torch.cuda.synchronize()
+    telemetry.reset()
     events = prof.key_averages()
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.key.startswith("stage:")]
+               and not e.key.startswith(telemetry.PREFIX)]
     kernel_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    stage = sum(e.device_time_total for e in events if e.key == "stage:megabatch"
+    stage = sum(e.device_time_total for e in events
+                if e.key == telemetry.PREFIX + "megabatch"
                 and e.device_type == torch.autograd.DeviceType.CPU) / 1e3
     return kernel_ms, sum(e.count for e in kernels), kernel_ms / (wall * 1e3), stage
 

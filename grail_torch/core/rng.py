@@ -18,6 +18,8 @@ import math
 import numpy as np
 import torch
 
+from .. import telemetry
+
 RANDOM = 0
 STRATIFIED = 1
 ZERO_TWO = 2
@@ -101,7 +103,7 @@ def sobol2(n, scramble):
     32-step bit loop is evaluated a byte at a time through XOR tables; XOR is
     associative, so the bits are identical."""
     n = torch.as_tensor(_u32(n))
-    tab = torch.as_tensor(_SOBOL2, device=n.device)
+    tab = telemetry.sync("sobol_table", torch.as_tensor, _SOBOL2, device=n.device)
     result = _u32(scramble)
     for k in range(4):
         result = result ^ tab[k][(n >> (8 * k)) & 0xFF]
@@ -151,6 +153,7 @@ class SamplerConfig:
     seed: int = 0
 
 
+@telemetry.spanned("rng")
 def sample_1d(cfg: SamplerConfig, pixel_id, samp_idx, dim, traced=False):
     """One uniform in [0,1) for (pixel, sample index, dimension).
 
@@ -184,6 +187,7 @@ def sample_1d(cfg: SamplerConfig, pixel_id, samp_idx, dim, traced=False):
     raise ValueError(f"unknown sampler kind {cfg.kind}")
 
 
+@telemetry.spanned("rng")
 def sample_2d(cfg: SamplerConfig, pixel_id, samp_idx, dim):
     """A 2D uniform sample; `dim` identifies the 2D slot."""
     pixel_id = _u32(pixel_id)

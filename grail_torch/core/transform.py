@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import telemetry
 from .vecmath import cross
 
 
@@ -240,7 +241,7 @@ def animated_apply(packed, time, v, is_point=True):
     order as AnimatedTransform::Interpolate; a still transform applies its
     one matrix (the reference selects the same branch with a `where`; here
     the flag is read on the host)."""
-    if bool(packed["animated"]):
+    if telemetry.sync("animated", bool, packed["animated"]):
         S = ((1.0 - time)[..., None, None] * packed["s"][0]
              + time[..., None, None] * packed["s"][1])
         shape = time.shape + (4,)

@@ -16,6 +16,7 @@ import math
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..core.vecmath import normalize, lerp
 from ..core import transform as tr
 from ..core import montecarlo as mc
@@ -65,6 +66,7 @@ def build_camera(cam_type, cam2world_start, cam2world_end, xres, yres, fov=90.0,
     return pack
 
 
+@telemetry.spanned("camera")
 def generate_rays(camera, px, py, u_film_x, u_film_y, u_lens_1, u_lens_2, u_time,
                   cam_kind):
     """Raster samples -> world rays. px, py integer pixel coords (N,); u_* in
@@ -91,7 +93,7 @@ def generate_rays(camera, px, py, u_film_x, u_film_y, u_lens_1, u_lens_2, u_time
         # focus at focal_distance / d.z; the reference selects it with a
         # `where` on the lens radius, read here on the host
         lens_r = camera["lens_radius"]
-        if float(lens_r) > 0.0:
+        if telemetry.sync("lens", float, lens_r) > 0.0:
             lx, ly = mc.concentric_sample_disk(u_lens_1, u_lens_2)
             lx = lx * lens_r
             ly = ly * lens_r

@@ -19,6 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .. import telemetry
 from . import filters as flt
 
 TILE_H, TILE_W = 8, 16   # lane-order pixel tile (the reference's 128-ray packet)
@@ -38,6 +39,7 @@ def _scatter_add(acc, py, px, val):
     return acc.index_put((py.to(torch.int64), px.to(torch.int64)), val, accumulate=True)
 
 
+@telemetry.spanned("film")
 def add_samples(film, fcfg: flt.FilterConfig, sx, sy, L, weight=None):
     """ImageFilm::AddSample for any wave: sx, sy (N,) continuous raster
     coordinates, L (N,3). Every pixel of the static filter footprint (the
@@ -124,6 +126,7 @@ def _add_shifted(acc, a, dy, dx):
     return acc + F.pad(src, pad)
 
 
+@telemetry.spanned("film")
 def add_samples_grid(film, fcfg: flt.FilterConfig, sx, sy, L, chunk,
                      weight=None, tiled=False):
     """AddSample for full-grid waves: lane i carries pixel i % (H*W), tiled
@@ -198,6 +201,7 @@ def add_samples_band(film, fcfg: flt.FilterConfig, sx, sy, L, margin, weight=Non
     return {"rgb": rgb, "weight": wsum, "splat": film["splat"]}
 
 
+@telemetry.spanned("film")
 def develop(film, splat_scale=1.0):
     """ImageFilm::WriteImage math: rgb/weight + splatScale*splat, clamp
     negatives."""

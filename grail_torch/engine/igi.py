@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import telemetry
 from ..core import montecarlo as mc
 from ..core import rng as rngmod
 from ..core import transform as tr
@@ -162,6 +163,7 @@ def light_path_continue(meta, pix, samp, dim, sg, lobes, wo_l, throughput):
     return bs, wi_w, new_tp / torch.clamp_min(q, 1e-6)[..., None], survive
 
 
+@telemetry.spanned("vpl")
 def generate_vpls(scene, meta, cfg, set_idx):
     """One VPL set: igi_n_paths x igi_max_depth candidate lights (depth-major)
     as {p, n, contrib, alpha, valid}."""
@@ -192,6 +194,7 @@ def generate_vpls(scene, meta, cfg, set_idx):
             "valid": torch.cat(vpl_ok)}
 
 
+@telemetry.spanned("vpl")
 def vpl_radiance(scene, meta, cfg, sg, lobes, wo_local, vpls, active):
     """The sum over the set's VPLs of f G contrib, G clamped to igi_g_limit,
     each behind a "vpl_shadow" visibility wave of the full width (igi.cpp

@@ -61,6 +61,7 @@ import dataclasses
 
 import torch
 
+from .. import telemetry
 from ..core.vecmath import absdot, cross, dot, normalize
 from ..core import rng as rngmod
 from ..core import montecarlo as mc
@@ -198,12 +199,14 @@ def _trace(scene, o, d, tmax, tmin=None, sort=None, time=None, any_hit=False,
     the hit record, or (any_hit) the occlusion bools."""
     if o.shape[0]:
         WAVES[role] += 1
-    if any_hit:
-        return isect.intersect_p(scene, o, d, tmax, tmin, device=o.device, time=time)
-    return isect.intersect(scene, o, d, tmax, tmin, device=o.device, sort=sort,
-                           time=time)
+    with telemetry.span("wave/" + role, lanes=o.shape[0]):
+        if any_hit:
+            return isect.intersect_p(scene, o, d, tmax, tmin, device=o.device, time=time)
+        return isect.intersect(scene, o, d, tmax, tmin, device=o.device, sort=sort,
+                               time=time)
 
 
+@telemetry.spanned("alpha")
 def _alpha_at(scene, meta, hit, o, d):
     """The alpha texture's value at each hit (1 for misses and triangles
     without a cutout), as the reference evaluates it: shading geometry at
@@ -251,6 +254,7 @@ def scene_intersect_p(scene, meta, o, d, tmax, time=None, role="shadow"):
     return scene_intersect(scene, meta, o, d, tmax, time=time, role=role)["prim"] >= 0
 
 
+@telemetry.spanned("bump")
 def _apply_bump(scene, meta, sg):
     """Material::Bump (material.cpp): finite differences of the displacement
     texture along dpdu and dpdv at the reference's fixed offset BUMP_DU
@@ -316,6 +320,7 @@ def _detach(x):
     return x.detach()
 
 
+@telemetry.spanned("direct_lighting")
 def estimate_direct(scene, meta, sg, lobes, wo_local, light_idx, light_pmf,
                     u_light, u_tri, u_comp, u_dir, active, time=None,
                     bsdf_branch=True, roles=("shadow", "bsdf"), precomputed=None, ls=None):
@@ -473,6 +478,7 @@ def _sorted_visit(scene, meta, cfg, pix, samp, bounce, sg, wo_local, active, u_d
     return mb, Ld
 
 
+@telemetry.spanned("direct_lighting")
 def _whitted_light(scene, meta, pix, samp, bounce, sg, lobes, wo_local, active, time):
     """whitted.cpp: every light sampled once, no MIS and no BSDF branch."""
     eps = sg["ray_eps"]
@@ -697,11 +703,13 @@ def li(scene, meta, cfg: IntegratorConfig, rays, pix, samp, with_stats=False):
     if cfg.kind == "igi":
         # one VPL set a wave, chosen by the wave's first lane (igi.cpp picks
         # a set a sample)
-        vpls = igi.generate_vpls(scene, meta, cfg, int(samp[0]) % cfg.igi_n_sets)
+        vpls = igi.generate_vpls(scene, meta, cfg,
+                                 telemetry.sync("igi_set", int, samp[0]) % cfg.igi_n_sets)
 
     tally(0, state)
-    state = _make_bounce_body(scene, meta, cfg, pix, samp,
-                              rays.get("camdiff"), time, vpls)(0, state)
+    with telemetry.span("bounce/0"):
+        state = _make_bounce_body(scene, meta, cfg, pix, samp,
+                                  rays.get("camdiff"), time, vpls)(0, state)
 
     # multi-split compaction (kind="path" only, as the reference: the other
     # kinds run every bounce at full width): the tail repacks survivors at
@@ -728,7 +736,8 @@ def li(scene, meta, cfg: IntegratorConfig, rays, pix, samp, with_stats=False):
         def run(st, b0, b1):
             for b in range(b0, b1):
                 tally(b, st)
-                st = bodyw(b, st)
+                with telemetry.span(f"bounce/{b}"):
+                    st = bodyw(b, st)
             return st
 
         # next applicable split (its capacity must shrink the width)
@@ -738,20 +747,28 @@ def li(scene, meta, cfg: IntegratorConfig, rays, pix, samp, with_stats=False):
             return run(st, from_b, max_depth + 1)[2]
         sb, cap = splits[0]
         st = run(st, from_b, sb)
-        take, count = _compaction_take(st[4], cap)
-        count = int(count)
+        # the split (its three `compaction` spans leave the narrower tail
+        # out): the survivors' count, read back by the host ...
+        with telemetry.span("compaction"):
+            take, count = _compaction_take(st[4], cap)
+            count = telemetry.sync("compaction", int, count)
         if count > cap:
             return tail(st, pix_t, samp_t, time_t, width, sb, splits[1:])
-        gidx = torch.clamp_max(take, width - 1)
-        live = torch.arange(cap, device=take.device) < count
-        sub = tuple(a[gidx] for a in st)
-        sub = sub[:4] + (sub[4] & live,) + sub[5:]
-        subL = tail(sub, pix_t[gidx], samp_t[gidx],
-                    None if time_t is None else time_t[gidx], cap, sb, splits[1:])
-        # only the first `count` take entries name live lanes; the rest would
-        # fall outside the wave (the reference drops them in its scatter).
-        # Out of place, so gradients reach both waves.
-        return st[2].index_put((take[:count],), subL[:count])
+        # ... their gather into the narrower wave ...
+        with telemetry.span("compaction"):
+            gidx = torch.clamp_max(take, width - 1)
+            live = torch.arange(cap, device=take.device) < count
+            sub = tuple(a[gidx] for a in st)
+            sub = sub[:4] + (sub[4] & live,) + sub[5:]
+            pix_s, samp_s = pix_t[gidx], samp_t[gidx]
+            time_s = None if time_t is None else time_t[gidx]
+        subL = tail(sub, pix_s, samp_s, time_s, cap, sb, splits[1:])
+        # ... and their radiance put back: only the first `count` take entries
+        # name live lanes; the rest would fall outside the wave (the reference
+        # drops them in its scatter). Out of place, so gradients reach both
+        # waves.
+        with telemetry.span("compaction"):
+            return st[2].index_put((take[:count],), subL[:count])
 
     L = tail(state, pix, samp, time, n, 1, splits) * rays["weight"][..., None]
     if with_stats:
@@ -759,6 +776,7 @@ def li(scene, meta, cfg: IntegratorConfig, rays, pix, samp, with_stats=False):
     return L
 
 
+@telemetry.spanned("ambient_occlusion")
 def _ao_li(scene, meta, cfg, rays, pix, samp, time):
     """ambientocclusion.cpp: the fraction of ao_samples cosine-sampled rays
     from the first hit, flipped to the side of the geometric normal, that

@@ -20,6 +20,7 @@ import math
 
 import torch
 
+from .. import telemetry
 from ..core import montecarlo as mc
 from ..core import rng as rngmod
 from ..core.vecmath import coordinate_system, dot
@@ -64,6 +65,7 @@ def _gather_radiance(scene, meta, p, n_normal, eps, pix, samp, dim):
     return L, torch.where(active, hit["t"], 1.0e7)
 
 
+@telemetry.spanned("ic_preprocess")
 def irradiance_preprocess(scene, meta, cfg):
     """The cache: {p, n, E, max_dist, valid} of the ic_grid[0] x ic_grid[1]
     seed entries (ic_grid[2] is read by nothing, as in the reference)."""
@@ -109,6 +111,7 @@ def _interpolate_chunk(aux, p, n_normal, max_error):
     return torch.where(wsum > 0.0, E, aux["E"][nearest])
 
 
+@telemetry.spanned("ic_interpolate")
 def _interpolate(aux, p, n_normal, max_error):
     """pbrt IrradianceCache::InterpolateE's weight and cutoff, dense over the
     entry table, LANE_CHUNK lanes at a time: E (N,3)."""

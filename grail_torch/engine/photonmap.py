@@ -31,6 +31,7 @@ import dataclasses
 
 import torch
 
+from .. import telemetry
 from ..core import montecarlo as mc
 from ..core import rng as rngmod
 from ..core.vecmath import PI, absdot, cross, normalize
@@ -59,6 +60,7 @@ class PhotonConfig:
     cos_gather_angle: float = 0.9848077  # cos(10 degrees)
 
 
+@telemetry.spanned("photon_shoot")
 def _shoot_block(scene, meta, cfg: PhotonConfig, samp0, count, seed=0):
     """Trace `count` light paths with sample indices samp0 .. samp0+count-1;
     returns the raw depth-major photon arrays."""
@@ -129,6 +131,7 @@ def _cell_id(cell):
     return (cell[..., 0] * _RES + cell[..., 1]) * _RES + cell[..., 2]
 
 
+@telemetry.spanned("photon_grid")
 def build_photon_grid(photons, cfg):
     """Photons sorted by cell id (stable; invalid photons last, with id
     2^30 and their fields zeroed)."""
@@ -143,6 +146,7 @@ def build_photon_grid(photons, cfg):
             "cid": cid[order]}
 
 
+@telemetry.spanned("photon_scan")
 def _neighbor_scan(cfg, pmap, p, use_caustic, active, fn, carry):
     """Fold fn(carry, idx, ok, d2) over the 27 cells about each lane's point
     p (N,3), a cell at a time: idx, ok and d2 are (N, max_per_cell), the

@@ -27,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..core import montecarlo as mc
 from ..core import rng as rngmod
 from ..core import sh
@@ -68,6 +69,7 @@ def project_incident_direct(scene, meta, p, eps, lmax, n_samples, pix, samp,
     return c
 
 
+@telemetry.spanned("prt_transfer")
 def compute_diffuse_transfer(scene, meta, p, ns_normal, eps, lmax, n_samples, pix, samp,
                              dim_base=_TRANSFER_DIM):
     """SHComputeDiffuseTransfer: T_i = 1/ns sum Y_i(w) V(w) max(0, w.n)/pdf
@@ -128,6 +130,7 @@ def diffuseprt_li(scene, meta, cfg, rays, pix, samp, aux):
     return L * rays["weight"][..., None]
 
 
+@telemetry.spanned("prt_transfer")
 def project_transferred(scene, meta, p, eps, lmax, n_samples, pix, samp, c_in):
     """The transferred radiance c_t (N, terms, 3): V(w) max(0, L_in(w))
     projected over n_samples uniform sphere directions, L_in rebuilt from
@@ -175,6 +178,7 @@ def glossyprt_li(scene, meta, cfg, rays, pix, samp, aux):
 
 
 # ------------------------------------------------------------------- probes
+@telemetry.spanned("probe_bake")
 def bake_probes(scene, meta, cfg, nx, ny, nz, n_samples=64, lmax=None):
     """createprobes.cpp: the incident direct radiance projected at the cell
     centres of an (nx, ny, nz) grid over the scene's bound. Returns

@@ -32,6 +32,7 @@ import time
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..core import rng as rngmod
 from ..device import check_on, resolve_device
 from . import camera as cam
@@ -108,6 +109,7 @@ _PREPROCESSED_LI = {"dipole": subsurface.dipole_li, "photon": _photon_li,
                     "useprobes": prt.useprobes_li}
 
 
+@telemetry.spanned("megawave")
 def render_wave(scene, meta, cfg, film, samp_idx, pix=None, mask=None, grid_chunk=None,
                 tiled=False, device=None, aux=None, band=None):
     """One megawave: raygen -> Li -> film accumulate; returns the new film,
@@ -128,7 +130,12 @@ def render_wave(scene, meta, cfg, film, samp_idx, pix=None, mask=None, grid_chun
         pix, tiled = _wave_pixels(meta, device)
         if grid_chunk is None:
             grid_chunk = 1
-    samp = torch.as_tensor(samp_idx, dtype=torch.int64, device=device).expand(pix.shape)
+    if isinstance(samp_idx, torch.Tensor):
+        samp = torch.as_tensor(samp_idx, dtype=torch.int64, device=device)
+    else:       # a number: copied to the device
+        samp = telemetry.sync("sample_index", torch.as_tensor, samp_idx, dtype=torch.int64,
+                              device=device)
+    samp = samp.expand(pix.shape)
     rays, px, py, ufx, ufy = camera_rays(scene, meta, pix, samp)
     if cfg.kind in _PREPROCESSED_LI:
         aux = aux if aux is not None else preprocess(scene, meta, cfg)
@@ -215,7 +222,7 @@ def occupancy_probe(scene, meta, cfg, samp_idx=0, device=None):
 
 def _sync(device):
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        telemetry.sync("metrics", torch.cuda.synchronize, device)
 
 
 def _append_json(path, record):
@@ -223,6 +230,7 @@ def _append_json(path, record):
         f.write(json.dumps(record) + "\n")
 
 
+@telemetry.spanned("render")
 @torch.no_grad()
 def render(scene, meta, cfg: IntegratorConfig, spp=None, film=None, start_wave=0,
            progress=None, checkpoint_path=None, checkpoint_every=0, metrics_path=None,
@@ -282,6 +290,7 @@ def render(scene, meta, cfg: IntegratorConfig, spp=None, film=None, start_wave=0
 _LUMA = np.array([0.212671, 0.715160, 0.072169], np.float32)
 
 
+@telemetry.spanned("render")
 @torch.no_grad()
 def render_adaptive(scene, meta, cfg: IntegratorConfig, min_spp=4, max_spp=32,
                     threshold=0.02, progress=None, device=None):
@@ -307,7 +316,8 @@ def render_adaptive(scene, meta, cfg: IntegratorConfig, min_spp=4, max_spp=32,
     while s < max_spp:
         # the contrast of the two half-film estimates (adaptive.cpp's
         # needsSupersampling compares the samples with their mean)
-        lum_a, lum_b = (flm.develop(f).cpu().numpy() @ _LUMA for f in films)
+        lum_a, lum_b = (telemetry.sync("adaptive", flm.develop(f).cpu).numpy() @ _LUMA
+                        for f in films)
         err = np.abs(lum_a - lum_b) / np.maximum(0.5 * (lum_a + lum_b), 1e-3)
         flagged = np.nonzero((err.reshape(-1) > threshold) & (spp_map < max_spp))[0]
         if flagged.size == 0:

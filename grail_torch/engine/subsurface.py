@@ -25,6 +25,7 @@ import math
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..core import rng as rngmod
 from ..core.vecmath import dot
 from ..shade import bsdf as bx
@@ -146,12 +147,14 @@ def irradiance_at_points(scene, meta, p, n, n_samples=4):
     return E
 
 
+@telemetry.spanned("dipole_preprocess")
 def dipole_preprocess(scene, meta, cfg):
     """The point cloud and its irradiance, once a render."""
     p, n, area = sample_surface_points(scene, cfg.sss_npoints)
     return {"p": p, "n": n, "area": area, "E": irradiance_at_points(scene, meta, p, n)}
 
 
+@telemetry.spanned("dipole_contraction")
 def _mo(p, aux, sigma_a, sigma_ps, eta):
     """Mo = sum_i Rd(|p - p_i|^2) E_i A_i for lanes p (N,3), in chunks of
     lanes and of points (the points in the reference's order)."""

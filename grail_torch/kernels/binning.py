@@ -10,7 +10,10 @@ from __future__ import annotations
 
 import torch
 
+from .. import telemetry
 
+
+@telemetry.spanned("binning")
 def bucket_rank(key, n_buckets):
     """Stable counting-sort slot per lane: key int in [0, n_buckets).
     Returns rank (N,) int64, a permutation."""
@@ -20,12 +23,14 @@ def bucket_rank(key, n_buckets):
     return rank
 
 
+@telemetry.spanned("binning")
 def sort_by_rank(rank, *arrays):
     """Scatter each array into bucket-sorted order (rank is a permutation);
     out of place, so gradients flow back through it."""
     return tuple(torch.empty_like(a).index_put((rank,), a) for a in arrays)
 
 
+@telemetry.spanned("binning")
 def unsort(rank, *arrays):
     """Gather sorted-order results back to the original lane order."""
     return tuple(a[rank] for a in arrays)
@@ -43,6 +48,7 @@ def _morton3_bits(x, bits):
     return (spread(q[:, 0]) << 2) | (spread(q[:, 1]) << 1) | spread(q[:, 2])
 
 
+@telemetry.spanned("binning")
 def bin_rays_key(o, d, bmin, bmax, origin_bits=1, dir_bits=0):
     """Coherence key: [octant:3 | origin Morton:3*origin_bits | direction
     Morton:3*dir_bits] (int64). The octant is the high field, so rays of one

@@ -17,6 +17,7 @@ import ctypes
 
 import torch
 
+from .. import telemetry
 from . import build
 
 MAX_TRIS = 1024        # 48-byte rows staged in shared memory: 48 KB at the cap
@@ -105,6 +106,7 @@ def _check(tris9, o, d, tmin, tmax):
         raise ValueError("too many rays for one launch")
 
 
+@telemetry.spanned("launch/brute_intersect")
 def brute_intersect(tris9, o, d, tmin, tmax, any_hit=False):
     """Closest hit (or first hit, any_hit=True) of each ray over the table.
     Returns (t, prim, b1, b2) as brute_intersect_plain."""

@@ -42,6 +42,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..native import collapse_bvh4
 from . import build
 
@@ -301,6 +302,7 @@ def _check(nodes, tris, o, d, tmin, tmax, roots):
         raise ValueError("ray batch too large for one launch")
 
 
+@telemetry.spanned("launch/bvh4")
 def bvh4_traverse(nodes, tris, o, d, tmin, tmax, any_hit=False, *, stack,
                   roots=None):
     """Closest hit (or any hit) of each ray through the 4-wide tables.

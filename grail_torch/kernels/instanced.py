@@ -35,6 +35,7 @@ import collections
 
 import torch
 
+from .. import telemetry
 from ..core.transform import quat_rotate, slerp
 from ..core.vecmath import cross
 from .bvh4 import bvh4_traverse
@@ -101,6 +102,7 @@ def o2w_normal(pk, time, nrm):
     return torch.where(pk["anim"][:, None], out, fixed)
 
 
+@telemetry.spanned("to_object_space")
 def w2o_ray(pk, time, o, d):
     """The ray in object space; d is not normalized (t carries over)."""
     T, q, S = _interp(pk, time)
@@ -115,6 +117,7 @@ def w2o_ray(pk, time, o, d):
     return torch.where(anim, o_r, o_f), torch.where(anim, d_r, d_f)
 
 
+@telemetry.spanned("tlas_cull")
 def _instance_nears(inst, o, d, tmin, tcur):
     """(N,I) slab-entry t of each ray into each instance's motion-bound world
     box, or BIG_T where culled (a miss, behind tmin, or past the current
@@ -162,6 +165,7 @@ def object_rays(inst, sel, act, o, d, time, t):
             inst["root"][sel].contiguous())
 
 
+@telemetry.spanned("instanced")
 def instances_intersect(scene, o, d, tmax, tmin=None, time=None, any_hit=False):
     """Closest hit (or occlusion) against all instanced geometry.
 
@@ -196,7 +200,7 @@ def instances_intersect(scene, o, d, tmax, tmin=None, time=None, any_hit=False):
     while True:
         sel, selnear, act = next_candidates(inst, o, d, tmin, t, last_near, last_id,
                                             occ)
-        if not bool(act.any()):
+        if not telemetry.sync("sweep_round", bool, act.any()):
             break
         rounds += 1
         o_obj, d_obj, sub_tmax, roots = object_rays(inst, sel, act, o, d, time, t)

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import telemetry
 from ..core.vecmath import cross, dot
 from ..device import check_on, resolve_device
 from .binning import N_RAY_BUCKETS, bin_rays_key, bucket_rank, sort_by_rank, unsort
@@ -208,6 +209,7 @@ def _brute_rays(o, d, tmax, tmin):
     return o.contiguous(), d.contiguous(), tmin.contiguous(), tmax.contiguous()
 
 
+@telemetry.spanned("intersect")
 def intersect(scene, o, d, tmax, tmin=None, device=None, sort=None, time=None):
     """Closest hit (Scene::Intersect analog). A miss has t = BIG_T.
     sort: ray-binning hint for the stream route (False for camera waves,
@@ -233,6 +235,7 @@ def intersect(scene, o, d, tmax, tmin=None, device=None, sort=None, time=None):
     return out
 
 
+@telemetry.spanned("intersect")
 def intersect_p(scene, o, d, tmax, tmin=None, device=None, time=None):
     """Occlusion test (Scene::IntersectP analog): occluded (N,) bool."""
     route = _check_routes(scene, o, device)

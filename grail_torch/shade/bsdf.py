@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import telemetry
 from ..core.vecmath import INV_PI, INV_TWOPI, PI, dot, normalize, safe_sqrt
 from ..core import montecarlo as mc
 from . import measured
@@ -392,6 +393,7 @@ def diffuse_albedo(lobes):
     return rho
 
 
+@telemetry.spanned("bsdf_eval")
 def bsdf_f(lobes, wo, wi, present, include_specular=True, tables=()):
     """Sum over lobe slots of lobe_f (pbrt BSDF::f); tables: the scene's
     measured BRDF tables."""
@@ -410,6 +412,7 @@ def _reads_f1(present):
     return bool({ANISO, FRESNEL_BLEND, MEASURED} & set(present))
 
 
+@telemetry.spanned("bsdf_eval")
 def bsdf_pdf(lobes, wo, wi, present, include_specular=False):
     """Average pdf over matching lobes (pbrt BSDF::Pdf)."""
     match = _matching_mask(lobes, include_specular)
@@ -423,6 +426,7 @@ def bsdf_pdf(lobes, wo, wi, present, include_specular=False):
     return torch.where(n > 0, total / torch.clamp_min(n, 1.0), 0.0)
 
 
+@telemetry.spanned("bsdf_sample")
 def bsdf_sample(lobes, wo, u1, u2, u_comp, present, include_specular=True, tables=()):
     """pbrt BSDF::Sample_f over the lobe stack. Returns dict: wi (N,3),
     f (N,3), pdf (N,), specular (N,) bool, valid (N,) bool."""

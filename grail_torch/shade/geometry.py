@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import telemetry
 from ..core.vecmath import cross, dot, normalize, face_forward, coordinate_system
 from ..kernels.instanced import gather_pack, o2w_normal, o2w_point
 
@@ -18,6 +19,7 @@ REVERSE_ORIENTATION = 8
 XFORM_SWAPS_HANDEDNESS = 16
 
 
+@telemetry.spanned("shading_geometry")
 def shading_geometry(scene, hit, ray_o, ray_d, time=None):
     """Shading record for a batch of hits. Misses (prim<0) produce
     garbage-but-finite entries; callers mask by hit. An instance hit
@@ -96,7 +98,8 @@ def shading_geometry(scene, hit, ray_o, ray_d, time=None):
     # shading normal: interpolate vertex normals if present
     has_ns = ((flags & HAS_NS) != 0)[..., None]
     n_sum = b0 * n0 + b1 * n1 + b2 * n2
-    n_sum = torch.where(has_ns, n_sum, n_sum.new_tensor([0.0, 0.0, 1.0]))
+    n_sum = torch.where(has_ns, n_sum,
+                        telemetry.sync("default_normal", n_sum.new_tensor, [0.0, 0.0, 1.0]))
     ns_interp = normalize(n_sum)
     ns_interp = torch.where(rev[..., None], -ns_interp, ns_interp)
     ns = torch.where(has_ns, ns_interp, ng)
@@ -155,6 +158,7 @@ def local_to_world(sg, w):
     return w[..., 0:1] * sg["ss"] + w[..., 1:2] * sg["ts"] + w[..., 2:3] * sg["ns"]
 
 
+@telemetry.spanned("uv_differentials")
 def uv_differentials(sg, rx_o, rx_d, ry_o, ry_d):
     """DifferentialGeometry::ComputeDifferentials: intersect the x/y offset
     rays with the tangent plane at p, then solve dpdx = dudx*dpdu + dvdx*dpdv

@@ -26,6 +26,7 @@ import operator
 
 import torch
 
+from .. import telemetry
 from ..core.vecmath import (PI, TWO_PI, cross, dot, length_sq, normalize,
                             spherical_direction, spherical_phi, spherical_theta)
 from ..core import montecarlo as mc
@@ -122,6 +123,7 @@ def _area_sample(scene, li, p, u1, u2, u3):
     return wi, n_l, cos_l, pdf, dist
 
 
+@telemetry.spanned("sample_li")
 def sample_li(scene, li, p, u1, u2, u3, present_types, light_image_rows=()):
     """Light::Sample_L(p) masked over the present light types.
 
@@ -206,6 +208,7 @@ def env_radiance(scene, li, w_world):
     return emit * image_bilinear(scene["env_map"], s, t)
 
 
+@telemetry.spanned("environment")
 def escaped_radiance(scene, d, present_types):
     """Sum of the lights' Le for escaped rays (pbrt Light::Le)."""
     if INFINITE not in present_types:
@@ -214,6 +217,7 @@ def escaped_radiance(scene, d, present_types):
     return env_radiance(scene, li, d)
 
 
+@telemetry.spanned("environment")
 def env_pdf(scene, li, w_world):
     """InfiniteAreaLight::Pdf(p, wi): map pdf over the lat-long Jacobian."""
     wl = normalize(tr.xform_v(scene["lights"]["w2l"][li], w_world))

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import telemetry
+
 CONV_ID = 0
 CONV_INV = 1        # exponent = 1/roughness
 CONV_RADIANS = 2    # sigma degrees -> radians
@@ -12,6 +14,7 @@ MAT_FIELDS = ("lobe_type", "fr", "s0", "s1", "s2", "f0", "f1", "f2",
               "f0_conv", "f1_conv")
 
 
+@telemetry.spanned("textures_lobes")
 def gather_lobes(scene, sg, tex_values):
     """Materialize per-shade-point lobe stacks from the material table.
     tex_values (NT, N, 3) from eval_textures. The reference picks each lane's

@@ -21,6 +21,7 @@ import math
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..core.spectrum import spd_to_rgb
 from ..core.vecmath import normalize
 from ..scene.floatfile import read_float_file
@@ -144,6 +145,7 @@ def _halfdiff_coords(wo, wi):
     return th, td, pd
 
 
+@telemetry.spanned("measured")
 def lookup(tables, grid_id, wo, wi):
     """Each lane's nearest cell of its table (RegularHalfangleBRDF::f, with
     the sqrt warp on theta_half). tables: tuple of (NH,ND,NP,3) tensors;

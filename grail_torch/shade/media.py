@@ -23,6 +23,7 @@ import math
 
 import torch
 
+from .. import telemetry
 from ..core import montecarlo as mc
 from ..core import rng as rngmod
 from ..core import transform as tr
@@ -143,6 +144,7 @@ def tau(scene, meta, o, d, tmax, u_jitter):
     return total
 
 
+@telemetry.spanned("medium")
 def transmittance(scene, meta, o, d, tmax, u_jitter):
     """exp(-tau) (EmissionIntegrator::Transmittance); ones without media."""
     if _regions(scene, meta) is None:
@@ -185,6 +187,7 @@ def phase_schlick(g, cos_theta):
     return INV_4PI * (1.0 - k * k) / ((1.0 - kc) * (1.0 - kc))
 
 
+@telemetry.spanned("medium")
 def emission_li(scene, meta, o, d, tmax, pix, samp, dim_base=MEDIA_DIM):
     """EmissionIntegrator::Li: the integral of T sigma_a Lve along the
     segment, closed form in a homogeneous region. Returns (Lv, T)."""
@@ -218,6 +221,7 @@ def emission_li(scene, meta, o, d, tmax, pix, samp, dim_base=MEDIA_DIM):
     return L, T_total
 
 
+@telemetry.spanned("medium")
 def single_scatter_li(scene, meta, o, d, tmax, pix, samp, trace, dim_base=MEDIA_DIM):
     """SingleScatteringIntegrator::Li: march the segment and at each step add
     sigma_s phase T_l L_l for one uniformly picked light, plus emission.

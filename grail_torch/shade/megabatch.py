@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import telemetry
 from ..kernels.binning import bucket_rank, sort_by_rank
 from . import bsdf as bx
 from . import geometry as geom
@@ -126,6 +127,7 @@ def _dead(n, like):
             "valid": zb, "pdf_prev_nospec": z1}
 
 
+@telemetry.spanned("megabatch")
 def megabatch_shade(scene, meta, sg, wo_local, wi_l_local, u1, u2, u_comp, active,
                     block=8192):
     """Sorted, per-material shading pass.
@@ -141,7 +143,7 @@ def megabatch_shade(scene, meta, sg, wo_local, wi_l_local, u1, u2, u_comp, activ
     M = len(meta.mat_specs)
     mat = sg["mat"]
     key = torch.where(active & (mat >= 0), torch.clamp_min(mat, 0), M).to(torch.int64)
-    counts = torch.bincount(key, minlength=M + 1).tolist()
+    counts = telemetry.sync("megabatch", torch.bincount(key, minlength=M + 1).tolist)
     STATS["visits"] += 1
     STATS["lanes"] += n - counts[M]
     inputs = {"wo": wo_local, "wil": wi_l_local, "u1": u1, "u2": u2, "uc": u_comp}

@@ -20,6 +20,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..core import transform as tr
 from ..core.vecmath import (INV_PI, INV_TWOPI, PI, normalize, spherical_phi,
                             spherical_theta)
@@ -108,6 +109,7 @@ def _lerp_pairs(w, wt):
     return a + wt[..., None] * (b - a)
 
 
+@telemetry.spanned("noise")
 def noise(p):
     """Perlin noise at points p (..., 3): pbrt texture.cpp Noise(x, y, z), in
     [-1, 1]."""
@@ -255,6 +257,7 @@ def _eval_row(spec, w2t, const, vals, sg, images, mipmaps, n):
     raise ValueError(f"unknown texture kind {kind}")
 
 
+@telemetry.spanned("textures")
 def eval_textures(tex_specs, tex_data, sg, images=(), mipmaps=()):
     """Evaluate the texture table at shade points: (NT, N, 3). Float
     textures use channel 0 (stored replicated)."""

@@ -16,117 +16,166 @@ instances of a 50,176-triangle sphere: its bench is --spp 4 --depth 3; or a
 integrator, and its authored resolution and samples unless --res (a square
 film) or --spp name others; --kind igi renders the file under instant GI)
 with the path integrator unless --kind names another (--mat-sort: with
-material-sorted shading, whose pass is the stage `megabatch`), once to warm up, once timed, then once under torch.profiler, and prints JSON
-lines: the render's wall time (unprofiled and
-profiled), the summed kernel time and the device's busy share (kernel time
-over the unprofiled wall time), the number of kernel launches; for each stage
-of the path its kernel time, the device timeline it spans and the host time
-spent issuing it (all inclusive of what runs inside; sample_li lies inside
-direct lighting and bsdf_eval partly inside bsdf_sample, the march's transmittance inside
-`medium`, so stages nest);
-and the kernels and operators that take the most device time. The stream traversal
-kernels are launched through ctypes and do not appear in the profiler's
-kernel list; chip_smoke.py times them with CUDA events. Needs a CUDA device.
+material-sorted shading, whose pass is the span `megabatch`), once to warm
+up, once timed, then once under torch.profiler, and prints JSON lines:
+
+- the render: its wall time (unprofiled and profiled), the summed kernel
+  time, the device's busy time (the union of kernel, copy and fill
+  intervals) and busy share (busy time over the unprofiled wall time), and
+  the number of kernel launches;
+- for each of the program's spans (grail_torch/telemetry.py; every stage
+  of the path is one, e.g. `shading_geometry`, `textures`,
+  `textures_lobes`, the integrator's `megawave`, `bounce/<b>` and
+  `compaction`, each intersect kernel's host launch `launch/<kernel>`): its
+  calls, its host time and host self time (less the spans inside it), the
+  device time of the kernels launched while it was the innermost span, and
+  the device idle time that began while it was;
+- the host's waits for the device (`sync/<site>`: reads of device values,
+  copies from pageable host memory): count and wait;
+- the lanes handed to the intersect dispatch, by role and per camera ray;
+- the kernels and the operators that take the most device time.
+
+Every device number comes from the profiler's Chrome trace, whose kernel
+events include the intersect kernels launched through ctypes (they have no
+operator, so `key_averages()` lists them under no operator row). Needs a
+CUDA device.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
-import functools
 import json
 import os
 import re
+import tempfile
 import time
 
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import ProfilerActivity, profile
 
-from ..core import rng
-from ..engine import (camera, film, igi, integrator, irradiance, photonmap, prt,
-                      render as rnd, subsurface)
-from ..kernels import intersect
+from .. import telemetry
+from ..engine import integrator, render as rnd
 from ..kernels import instanced
 from ..scene.parser import parse_string
 from ..scene.presets import cornell_box, mesh_scene, mesh_scene_1m
-from ..shade import bsdf, geometry, lights, materials, measured, media, textures
 from .instbench import build_instanced
 
-# stage name -> (module, function names) wrapped in a profiler range
-_STAGES = {
-    "rng": (rng, ("sample_1d", "sample_2d")),
-    "camera": (camera, ("generate_rays",)),
-    "intersect": (intersect, ("intersect", "intersect_p")),
-    "binning": (intersect, ("bin_rays_key", "bucket_rank", "sort_by_rank",
-                            "unsort")),                 # inside intersect
-    "traversal": (intersect, ("bvh4_traverse",)),       # inside intersect
-    # the instanced sweep (inside intersect) and its parts: the (N, I) TLAS
-    # cull, the rays to object space, the BLAS walk with per-ray roots
-    "instanced": (intersect, ("instances_intersect",)),
-    "tlas_cull": (instanced, ("_instance_nears",)),
-    "to_object_space": (instanced, ("w2o_ray",)),
-    "blas_walk": (instanced, ("bvh4_traverse",)),
-    "uv_differentials": (geometry, ("uv_differentials",)),
-    "textures": (integrator, ("eval_textures",)),
-    "noise": (textures, ("noise",)),                # Perlin noise, inside textures
-    "bump": (integrator, ("_apply_bump",)),
-    "alpha": (integrator, ("_alpha_at",)),          # the cutouts' alpha lookups
-    "environment": (lights, ("env_pdf", "escaped_radiance")),
-    "shading_geometry": (geometry, ("shading_geometry",)),
-    "textures_lobes": (materials, ("gather_lobes",)),
-    # the material-sorted pass (mat_sort): the sort, each material's
-    # textures and lobes, the BSDF work, the gather back
-    "megabatch": (integrator, ("megabatch_shade",)),
-    "bsdf_sample": (bsdf, ("bsdf_sample",)),
-    "bsdf_eval": (bsdf, ("bsdf_f", "bsdf_pdf")),    # also inside bsdf_sample
-    "sample_li": (lights, ("sample_li",)),
-    "direct_lighting": (integrator, ("estimate_direct", "_whitted_light")),
-    "ambient_occlusion": (integrator, ("_ao_li",)),
-    "compaction": (integrator, ("_compaction_take",)),
-    # participating media: the volume integrator on the camera segment (the
-    # march's shadow waves inside it) and the transmittance of later
-    # segments and light samples
-    "medium": (media, ("single_scatter_li", "emission_li", "transmittance")),
-    "measured": (measured, ("lookup",)),         # the half-angle table fetch
-    # kind="dipole": the point cloud and its irradiance (once a render), and
-    # the dense Mo contraction
-    "dipole_preprocess": (subsurface, ("dipole_preprocess",)),
-    "dipole_contraction": (subsurface, ("_mo",)),
-    # the preprocessed kinds: photon shooting, the grid's sort and the
-    # 27-cell scans (the k-NN histogram, the estimate, the gathered
-    # directions); the irradiance cache's preprocess and its dense
-    # interpolation; PRT's transfer projections (diffuse and glossy) and the
-    # probes' bake; instant GI's VPL paths and its gather over the VPLs
-    "photon_shoot": (photonmap, ("_shoot_block",)),
-    "photon_grid": (photonmap, ("build_photon_grid",)),
-    "photon_scan": (photonmap, ("_neighbor_scan",)),
-    "ic_preprocess": (irradiance, ("irradiance_preprocess",)),
-    "ic_interpolate": (irradiance, ("_interpolate",)),
-    "prt_transfer": (prt, ("compute_diffuse_transfer", "project_transferred")),
-    "probe_bake": (prt, ("bake_probes",)),
-    "vpl": (igi, ("generate_vpls", "vpl_radiance")),
-    "film": (film, ("add_samples_grid", "develop")),
-}
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+_LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 
 
-def _ranged(stage, fn):
-    @functools.wraps(fn)
-    def wrapper(*args, **kwargs):
-        with record_function("stage:" + stage):
-            return fn(*args, **kwargs)
-    return wrapper
+def trace_events(prof):
+    """The complete ("X") events of the profiler's Chrome trace."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            data = json.load(f)
+    events = data["traceEvents"] if isinstance(data, dict) else data
+    return [e for e in events if e.get("ph") == "X"]
 
 
-def _instrument():
-    """Wrap each stage's functions in a named profiler range; returns the
-    originals so the caller can restore them."""
-    saved = []
-    for stage, (module, names) in _STAGES.items():
-        for name in names:
-            fn = getattr(module, name)
-            saved.append((module, name, fn))
-            setattr(module, name, _ranged(stage, fn))
-    return saved
+def _union(intervals):
+    out = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
+def _innermost(ranges, times):
+    """For each time, the name of the innermost of `ranges` ((start, end,
+    name), nested, one thread) open at it, or None."""
+    items = sorted([(s, 0, e, name) for s, e, name in ranges]
+                   + [(t, 1, i, None) for i, t in enumerate(times)])
+    out, stack = [None] * len(times), []
+    for t, kind, x, name in items:
+        while stack and stack[-1][0] < t:
+            stack.pop()
+        if kind == 0:
+            stack.append((x, name))
+        else:
+            out[x] = stack[-1][1] if stack else None
+    return out
+
+
+class Timeline:
+    """A Chrome trace reduced (microseconds on the profiler's clock): device
+    intervals, the program's `grail:` ranges by thread, and for each kernel
+    the innermost range open when its launching call was made."""
+
+    def __init__(self, events):
+        self.device = [e for e in events if e.get("cat") in _DEVICE_CATS]
+        self.kernels = [e for e in self.device if e["cat"] == "kernel"]
+        self.ranges = collections.defaultdict(list)
+        for e in events:
+            if (e.get("cat") == "user_annotation"
+                    and e["name"].startswith(telemetry.PREFIX)):
+                self.ranges[e.get("tid")].append(
+                    (e["ts"], e["ts"] + e["dur"], e["name"][len(telemetry.PREFIX):]))
+        launch = {e.get("args", {}).get("correlation"): (e["ts"], e.get("tid"))
+                  for e in events if e.get("cat") in _LAUNCH_CATS}
+        by_tid = collections.defaultdict(list)
+        for i, k in enumerate(self.kernels):
+            ts, tid = launch.get(k.get("args", {}).get("correlation"), (None, None))
+            if ts is not None:
+                by_tid[tid].append((i, ts))
+        self.launched_in = [None] * len(self.kernels)
+        for tid, items in by_tid.items():
+            names = _innermost(self.ranges.get(tid, ()), [ts for _, ts in items])
+            for (i, _), name in zip(items, names):
+                self.launched_in[i] = name
+
+    def busy_intervals(self):
+        return _union((e["ts"], e["ts"] + e["dur"]) for e in self.device)
+
+    def idle_by_span(self):
+        """Device idle time (us) inside the program's outermost ranges, summed
+        by the innermost range the busiest thread was in when each gap
+        began."""
+        tid = max(self.ranges, key=lambda t: len(self.ranges[t]), default=None)
+        if tid is None:
+            return {}
+        ranges = self.ranges[tid]
+        t0, t1 = min(r[0] for r in ranges), max(r[1] for r in ranges)
+        edges = [t0] + [x for iv in self.busy_intervals()
+                        if iv[1] > t0 and iv[0] < t1 for x in iv] + [t1]
+        gaps = [(max(s, t0), min(e, t1)) for s, e in zip(edges[0::2], edges[1::2])
+                if min(e, t1) > max(s, t0)]
+        out = collections.Counter()
+        for (s, e), name in zip(gaps, _innermost(ranges, [s for s, _ in gaps])):
+            out[name] += e - s
+        return out
+
+
+def span_table(spans, timeline):
+    """Per span name: calls, host and host self ms (from the span log),
+    kernel ms launched while it was innermost, idle ms begun while it was."""
+    child = collections.Counter()
+    for s in spans:
+        if s.parent is not None:
+            child[s.parent] += s.end - s.start
+    kernel_us = collections.Counter()
+    for k, name in zip(timeline.kernels, timeline.launched_in):
+        kernel_us[name] += k["dur"]
+    idle_us = timeline.idle_by_span()
+    table = {}
+    for s in spans:
+        row = table.setdefault(s.name, {"calls": 0, "host_ms": 0.0, "host_self_ms": 0.0})
+        row["calls"] += 1
+        row["host_ms"] += (s.end - s.start) * 1e-6
+        row["host_self_ms"] += (s.end - s.start - child[s.id]) * 1e-6
+    for name, row in table.items():
+        row["kernel_ms"] = kernel_us.pop(name, 0.0) * 1e-3
+        row["idle_ms"] = idle_us.pop(name, 0.0) * 1e-3
+    # kernels launched, and gaps begun, outside every span
+    table["(no span)"] = {"kernel_ms": kernel_us.pop(None, 0.0) * 1e-3,
+                          "idle_ms": idle_us.pop(None, 0.0) * 1e-3}
+    return table
 
 
 def main(argv=None):
@@ -191,56 +240,58 @@ def main(argv=None):
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
 
-    saved = _instrument()
+    telemetry.reset()
     instanced.LAST_SWEEPS.clear()
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            rnd.render(scene, meta, cfg, spp=args.spp, device=dev)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        for module, name, fn in saved:
-            setattr(module, name, fn)
-
-    events = prof.key_averages()
-    # the stage ranges appear twice: as host ranges (CPU) and as the device
-    # timeline span they cover (CUDA user annotations, idle gaps included)
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not e.key.startswith("stage:")]
-    kernel_us = sum(e.self_device_time_total for e in kernels)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        rnd.render(scene, meta, cfg, spp=args.spp, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = list(telemetry.SPANS)
+    telemetry.reset()
+    tl = Timeline(trace_events(prof))
+    kernel_us = sum(k["dur"] for k in tl.kernels)
+    busy_us = sum(e - s for s, e in tl.busy_intervals())
     print(json.dumps({
         "render": {"scene": args.scene, "kind": cfg.kind,
                    "light_strategy": cfg.light_strategy, "mat_sort": cfg.mat_sort,
                    "n_tris": meta.n_tris,
                    "res": args.res, "spp": args.spp, "max_depth": args.depth,
                    "wall_ms": wall_plain * 1e3, "wall_ms_profiled": wall * 1e3,
-                   "kernel_ms": kernel_us / 1e3,
-                   "device_busy_share": kernel_us / 1e3 / (wall_plain * 1e3),
-                   "kernel_launches": sum(e.count for e in kernels),
+                   "kernel_ms": kernel_us / 1e3, "device_busy_ms": busy_us / 1e3,
+                   "device_busy_share": busy_us / 1e3 / (wall_plain * 1e3),
+                   "kernel_launches": len(tl.kernels),
                    "gpu": torch.cuda.get_device_name(0)}}))
-    stages = {}
-    for e in events:
-        if e.key.startswith("stage:"):
-            st = stages.setdefault(e.key[len("stage:"):], {"calls": e.count})
-            if e.device_type == DeviceType.CUDA:
-                st["device_span_ms"] = e.self_device_time_total / 1e3
-            else:
-                st["kernel_ms"] = e.device_time_total / 1e3
-                st["host_ms_profiled"] = e.cpu_time_total / 1e3
-    print(json.dumps({"stages": stages}))
+    print(json.dumps({"spans": span_table(spans, tl)}))
+    syncs = {}
+    for s in spans:
+        if s.name.startswith("sync/"):
+            row = syncs.setdefault(s.name[len("sync/"):], {"count": 0, "ms": 0.0})
+            row["count"] += 1
+            row["ms"] += (s.end - s.start) * 1e-6
+    lanes = collections.Counter()
+    for s in spans:
+        if s.name.startswith("wave/"):
+            lanes[s.name[len("wave/"):]] += s.lanes
+    print(json.dumps({"syncs": syncs, "lanes": lanes,
+                      "lanes_per_camera_ray": sum(lanes.values())
+                      / (meta.xres * meta.yres * args.spp)}))
     if args.scene == "inst":
         # (kind, rays, rounds) of each instanced sweep of the profiled
         # render: one BLAS launch and one host sync a round
         print(json.dumps({"sweeps": [list(s) for s in instanced.LAST_SWEEPS]}))
-    for kind, rows in (("kernel", kernels),
-                       ("operator", [e for e in events
-                                     if e.device_type == DeviceType.CPU
-                                     and e.key.startswith("aten::")])):
-        rows = sorted(rows, key=lambda e: e.self_device_time_total, reverse=True)
-        for e in rows[:args.top]:
-            print(json.dumps({kind: e.key[:120], "count": e.count,
-                              "self_device_ms": e.self_device_time_total / 1e3}))
+    by_kernel = collections.defaultdict(lambda: [0, 0.0])
+    for k in tl.kernels:
+        row = by_kernel[k["name"][:120]]
+        row[0] += 1
+        row[1] += k["dur"] * 1e-3
+    for name, (count, ms) in sorted(by_kernel.items(), key=lambda kv: -kv[1][1])[:args.top]:
+        print(json.dumps({"kernel": name, "count": count, "device_ms": ms}))
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU
+           and e.key.startswith("aten::")]
+    for e in sorted(ops, key=lambda e: e.self_device_time_total, reverse=True)[:args.top]:
+        print(json.dumps({"operator": e.key[:120], "count": e.count,
+                          "self_device_ms": e.self_device_time_total / 1e3}))
 
 
 if __name__ == "__main__":
