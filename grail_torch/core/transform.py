@@ -9,7 +9,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import telemetry
 from .vecmath import cross
 
 
@@ -237,20 +236,23 @@ def quat_rotate(q, v):
 
 
 def animated_apply(packed, time, v, is_point=True):
-    """Apply the transform interpolated at `time` (...,) to v (...,3). TRS
-    order as AnimatedTransform::Interpolate; a still transform applies its
-    one matrix (the reference selects the same branch with a `where`; here
-    the flag is read on the host)."""
-    if telemetry.sync("animated", bool, packed["animated"]):
-        S = ((1.0 - time)[..., None, None] * packed["s"][0]
-             + time[..., None, None] * packed["s"][1])
-        shape = time.shape + (4,)
-        q = slerp(time, packed["q"][0].expand(shape), packed["q"][1].expand(shape))
-        out = quat_rotate(q, xform_v(S, v))
-        if is_point:
-            tt = time[..., None]
-            out = out + ((1.0 - tt) * packed["t"][0] + tt * packed["t"][1])
-        return out
+    """Apply the transform interpolated at `time` (...,) to v (...,3), TRS
+    order as AnimatedTransform::Interpolate. The caller reads the pack's
+    `animated` flag on the host and takes `still_apply` where it is clear
+    (the reference selects the same branch with a `where`)."""
+    S = ((1.0 - time)[..., None, None] * packed["s"][0]
+         + time[..., None, None] * packed["s"][1])
+    shape = time.shape + (4,)
+    q = slerp(time, packed["q"][0].expand(shape), packed["q"][1].expand(shape))
+    out = quat_rotate(q, xform_v(S, v))
+    if is_point:
+        tt = time[..., None]
+        out = out + ((1.0 - tt) * packed["t"][0] + tt * packed["t"][1])
+    return out
+
+
+def still_apply(packed, v, is_point=True):
+    """Apply a still transform's one matrix to v (...,3)."""
     m0 = packed["m0"]
     fixed = xform_v(m0, v)
     if is_point:

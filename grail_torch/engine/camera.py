@@ -94,19 +94,27 @@ def generate_rays(camera, px, py, u_film_x, u_film_y, u_lens_1, u_lens_2, u_time
         # `where` on the lens radius, read here on the host
         lens_r = camera["lens_radius"]
         if telemetry.sync("lens", float, lens_r) > 0.0:
-            lx, ly = mc.concentric_sample_disk(u_lens_1, u_lens_2)
-            lx = lx * lens_r
-            ly = ly * lens_r
-            dz = torch.where(torch.abs(d[..., 2]) > 1e-9, d[..., 2], 1.0)
-            ft = camera["focal_distance"] / dz
-            pfocus = o + ft[..., None] * d
-            o = torch.stack([o[..., 0] + lx, o[..., 1] + ly, o[..., 2]], dim=-1)
-            d = normalize(pfocus - o)
+            with telemetry.span("camera/lens", lanes=px.shape[0]):
+                lx, ly = mc.concentric_sample_disk(u_lens_1, u_lens_2)
+                lx = lx * lens_r
+                ly = ly * lens_r
+                dz = torch.where(torch.abs(d[..., 2]) > 1e-9, d[..., 2], 1.0)
+                ft = camera["focal_distance"] / dz
+                pfocus = o + ft[..., None] * d
+                o = torch.stack([o[..., 0] + lx, o[..., 1] + ly, o[..., 2]], dim=-1)
+                d = normalize(pfocus - o)
     else:
         raise ValueError(f"unknown camera kind {cam_kind}")
 
     time = lerp(u_time, camera["shutter"][0], camera["shutter"][1])
-    o_w = tr.animated_apply(camera["c2w"], time, o, is_point=True)
-    d_w = normalize(tr.animated_apply(camera["c2w"], time, d, is_point=False))
+    c2w = camera["c2w"]
+    # a still camera applies its one matrix; the flag is read once a call
+    if telemetry.sync("animated", bool, c2w["animated"]):
+        with telemetry.span("camera/motion", lanes=px.shape[0]):
+            o_w = tr.animated_apply(c2w, time, o, is_point=True)
+            d_w = normalize(tr.animated_apply(c2w, time, d, is_point=False))
+    else:
+        o_w = tr.still_apply(c2w, o, is_point=True)
+        d_w = normalize(tr.still_apply(c2w, d, is_point=False))
     return {"o": o_w, "d": d_w, "time": time,
             "weight": torch.ones(px.shape, dtype=torch.float32, device=px.device)}

@@ -11,6 +11,11 @@ intersect dispatch got, each split reads its survivor count once inside
 inside its parent's, and the image is bitwise the unprofiled one.
 tools/profile_render.py's reduction of the log and the trace counts each
 span's calls, and its self times add up to the render's.
+
+On the 1M-triangle preset cut to grid=24 (a thin lens and a moving camera),
+each `camera` span holds one `camera/lens` and one `camera/motion`, each
+with the camera's lanes; the still pinhole of the Cornell box records
+neither.
 """
 import collections
 import json
@@ -24,7 +29,7 @@ from grail_torch.engine import integrator
 from grail_torch.engine.integrator import IntegratorConfig
 from grail_torch.engine.render import render
 from grail_torch.kernels import intersect as isect
-from grail_torch.scene.presets import cornell_box
+from grail_torch.scene.presets import cornell_box, mesh_scene_1m
 from grail_torch.tools import profile_render
 
 torch.set_num_threads(2)
@@ -136,3 +141,42 @@ def test_profile_render_reads_the_spans(traced):
     (root,) = [s for s in spans if s.parent is None]
     total = sum(v.get("host_self_ms", 0.0) for v in table.values())
     assert total == pytest.approx((root.end - root.start) * 1e-6, rel=1e-9)
+
+
+@pytest.fixture(scope="module")
+def lens_spans():
+    """(the log after an unprofiled render, the spans of a profiled one) of
+    the 1M-triangle preset cut to grid=24 at 16x16, 1 spp."""
+    scene, meta, _ = mesh_scene_1m(16, 16, 1, grid=24, device="cpu")
+    cfg = IntegratorConfig(kind="path", max_depth=2)
+    telemetry.reset()
+    render(scene, meta, cfg, spp=1, device="cpu")
+    unprofiled = list(telemetry.SPANS)
+    with profile(activities=[ProfilerActivity.CPU]):
+        render(scene, meta, cfg, spp=1, device="cpu")
+    spans = list(telemetry.SPANS)
+    telemetry.reset()
+    return unprofiled, spans
+
+
+def test_lens_and_motion_nest_in_the_camera(lens_spans):
+    spans = lens_spans[1]
+    by_id = {s.id: s for s in spans}
+    cams = [s for s in spans if s.name == "camera"]
+    # the camera rays and both differentials (the preset has an image texture)
+    assert len(cams) == 3
+    for name in ("camera/lens", "camera/motion"):
+        inner = [s for s in spans if s.name == name]
+        assert sorted(s.parent for s in inner) == sorted(c.id for c in cams), name
+        for s in inner:
+            p = by_id[s.parent]
+            assert p.start <= s.start <= s.end <= p.end and s.lanes == 16 * 16, name
+
+
+def test_lens_and_motion_only_while_profiling(lens_spans):
+    assert not lens_spans[0]
+
+
+def test_a_still_pinhole_records_neither(traced):
+    names = {s.name for s in traced[2]}
+    assert "camera" in names and not names & {"camera/lens", "camera/motion"}
