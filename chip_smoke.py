@@ -92,9 +92,24 @@ failure ends the run with a non-zero exit code:
       the host's time a call of each) and at one chunk, the backward's at
       16 chunks and at one, the training step's call, beside the plain
       version's autograd backward there.
+  the sampler kernel (kernels/csrc/sampler.cu, core/rng.py::sample_1d and
+  sample_2d):
+  22. sampler: tests/test_torch_rng_card.py in this process, without the
+      tests' conftest: the kernel bitwise the plain version for each
+      sampler kind in 1D and 2D, static, traced and per-lane dims,
+      Python-int, int32, expanded and strided operands, STRATIFIED at 12
+      and 48 samples, Metropolis's 2-D broadcast and zero lanes; then one
+      render at cornell.path's traffic (256x256, 64 spp, path depth 5)
+      under torch.profiler: the kernel's launches, which must equal the
+      `rng` spans (156, one a call), their lanes, no plain-version call on
+      the card and no `sync/sobol_table` span; sample_1d and sample_2d
+      (ZERO_TWO, the cells' kind) at a megawave's 1,048,576 lanes of int64
+      pixel ids and sample indices, the kernel beside the plain version
+      (CUDA events; the host's time a call), bitwise, with the byte bound
+      and its share, and each kernel instance's registers.
   pbrt scene files (scenes/cornell.pbrt, glossy.pbrt, envlight.pbrt, through
   the port's own parser, 4-wide kernels):
-  22. pbrt: each scene rendered at its authored settings by the command line
+  23. pbrt: each scene rendered at its authored settings by the command line
       (python -m grail_torch.cli.main SCENE --outfile OUT.exr, one process a
       scene, run together), the EXR read back against the scene's golden
       (tests/goldens, relative MAE < 0.02); in this process, the parse's
@@ -106,7 +121,7 @@ failure ends the run with a non-zero exit code:
       launches per render of each kernel, the image against the golden);
       and the scene at 32x32, 2 spp on the card against the CPU.
   the direct group (the integrator kinds direct, whitted and ao):
-  23. direct: the seven goldens of those kinds (nurbs, instances, dof,
+  24. direct: the seven goldens of those kinds (nurbs, instances, dof,
       heightfield, whittedigi, subdiv, ao) through the command line, seven
       processes at once, each EXR against its golden; each at 32x32, 2 spp
       on the card against the CPU, and the Cornell box under direct with
@@ -126,7 +141,7 @@ failure ends the run with a non-zero exit code:
   textures and mappings, bump maps, alpha cutouts, the projection and
   goniometric lights; every scene read from a copy of scenes/ that
   grail_torch/tools/gen_assets.py writes the image assets into):
-  24. maps: the four goldens of these features (orthodisk, proctex, bump,
+  25. maps: the four goldens of these features (orthodisk, proctex, bump,
       projgonio) through the command line, four processes at once, each EXR
       against its golden; each of them and alphacut (a checkerboard alpha
       cutout over a floor) at 32x32, 2 spp on the card against the CPU, and
@@ -141,7 +156,7 @@ failure ends the run with a non-zero exit code:
       IntersectP run as closest hit among them.
   the media group (participating media, measured BRDFs, the dipole
   subsurface integrator):
-  25. media: the three goldens of these features (spotfog, measured,
+  26. media: the three goldens of these features (spotfog, measured,
       dipole) through the command line, three processes at once, each EXR
       against its golden; each at 32x32, 2 spp on the card against the CPU,
       and spotfog's world with its fog made a seeded density grid and an
@@ -158,7 +173,7 @@ failure ends the run with a non-zero exit code:
       busiest wave of each (kernel, role).
   the Metropolis group (engine/metropolis.py and the render loop's other
   paths):
-  26. mlt: scenes/mlt.pbrt at its authored settings (64x64, 64 mutations a
+  27. mlt: scenes/mlt.pbrt at its authored settings (64x64, 64 mutations a
       pixel, 4,096 chains, 4 waves, bidirectional) through the command line
       in its own process, the EXR against its golden (relative MAE < 0.05)
       and against the long path-traced reference (8x8 block errors:
@@ -177,7 +192,7 @@ failure ends the run with a non-zero exit code:
       card against CPU; mesh100k's occupancy line at 256x256.
   the preprocessed group (photon mapping, the irradiance cache, PRT with
   spherical harmonics and radiance probes, instant GI):
-  27. preprocessed: the four goldens (photon, irradcache, prtteapot,
+  28. preprocessed: the four goldens (photon, irradcache, prtteapot,
       useprobes) through the command line, four processes at once, each EXR
       against its golden, and the photon image against the long path-traced
       reference (energy ratio within 0.18, median 8x8-block error under
@@ -200,7 +215,7 @@ failure ends the run with a non-zero exit code:
       vpl_shadow) among them. TF32 matmuls must stay off.
   the spectral and material-sorted group (core/sampled_spectrum.py,
   shade/megabatch.py, tools/bsdftest.py):
-  28. spectral_megabatch: render_spectral (ten 3-band passes, path, depth
+  29. spectral_megabatch: render_spectral (ten 3-band passes, path, depth
       5, 256x256, 16 spp) on the Cornell preset (row 1) and on mesh100k
       (rows 2, 4, 5; its image texture and environment map promoted): the
       host seconds of the promotion and of the band tables apart; the
@@ -225,7 +240,7 @@ failure ends the run with a non-zero exit code:
   entry.py), at world size torch.cuda.device_count() through NCCL: in this
   process on one card, one process a card (dist/launch.py) otherwise; each
   line gives the world size:
-  29. sharded: render_sharded on mesh100k (path, depth 5, 256x256, 16 spp),
+  30. sharded: render_sharded on mesh100k (path, depth 5, 256x256, 16 spp),
       fused and not, in turns with render (camera rays/s, median of 3 after
       a warm-up; the image against render's, relative MAE < 1e-3; launches
       per render; the all-reduce's ms on the band film's bytes);
@@ -252,6 +267,7 @@ film's two kernels, which those groups do not count) and, last,
 {"ok": true, "device": {...}}.
 Needs a CUDA device and nvcc; imports nothing of JAX.
 """
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -297,6 +313,7 @@ from grail_torch.kernels import bvh4 as b4
 from grail_torch.kernels import bvh_stream as bs
 from grail_torch.kernels import build
 from grail_torch.kernels import film as kfilm
+from grail_torch.kernels import sampler as ksampler
 from grail_torch.kernels import instanced
 from grail_torch.kernels import intersect as isect
 from grail_torch.kernels.binning import (N_RAY_BUCKETS, bin_rays_key, bucket_rank,
@@ -445,7 +462,7 @@ MEDIA_KERNELS = b4.KERNELS
 MEDIA_WAVES = (("bvh4_closest", "camera"), ("bvh4_closest", "bsdf"),
                ("bvh4_any_hit", "shadow"), ("bvh4_any_hit", "medium"),
                ("bvh4_any_hit", "irradiance"))
-# the Metropolis group (phase 26): scenes/mlt.pbrt at its authored
+# the Metropolis group (phase 27): scenes/mlt.pbrt at its authored
 # settings (64x64, 64 mutations a pixel, 4,096 chains, 16 mutations a wave:
 # 4 waves, 1 + 4 * 17 = 69 bidirectional evaluations, each 6 camera and 5
 # light closest-hit waves and 36 connection any-hit waves of 4,096 rays)
@@ -459,7 +476,7 @@ MLT_KERNELS = b4.KERNELS + bi.KERNELS        # row 1: the crop and adaptive Corn
 MLT_PARITY = (("bvh4_closest", "mlt_camera"), ("bvh4_closest", "mlt_light"),
               ("bvh4_any_hit", "mlt_connect"))
 MLT_CROP = (0.25, 0.75, 0.125, 0.625)
-# the preprocessed group (phase 27): the goldens of photon mapping, the
+# the preprocessed group (phase 28): the goldens of photon mapping, the
 # irradiance cache, diffuse PRT and radiance probes; the group's renders at
 # full width (256x256, 16 spp: one megawave of 1,048,576 camera rays), each
 # (name, scene file, the file's integrator line and its replacement or None)
@@ -504,6 +521,13 @@ FILM_CARD_TESTS = "tests/test_torch_film_card.py"
 FILM_SOURCE = "grail_torch/kernels/csrc/film.cu"
 FILM_RES, FILM_CHUNK = 256, 16
 FILM_LANE_BYTES, FILM_PIXEL_BYTES = 20, 32     # sx, sy, L; rgb and weight in and out
+# the sampler kernel (phase 22): its card tests, one render at cornell.path's
+# traffic (39 sampler calls a megawave, four megawaves), and a draw at a
+# megawave's lanes (int64 pixel ids and sample indices, a static dim)
+RNG_CARD_TESTS = "tests/test_torch_rng_card.py"
+RNG_SOURCE = "grail_torch/kernels/csrc/sampler.cu"
+RNG_LANES, RNG_RENDER_CALLS = 1 << 20, 156
+RNG_LANE_BYTES = {"sample_1d": 20, "sample_2d": 24}   # pix, samp in; one or two floats out
 
 
 def emit(obj):
@@ -1674,6 +1698,114 @@ def film_phases(dev, gpu):
         line["backward_pct_of_bound"] = 100.0 * line["backward_bound_ms"] / line["backward_ms"]
         emit(line)
     emit({"phase": "film", "seconds": time.perf_counter() - t0})
+    return entries
+
+
+def ptxas_registers(log):
+    """{entry function: registers} from ptxas's -v output (a sampler
+    instance's mangled name shortened to sampler_kernel<kind,two>)."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn = m.group(1)
+            inst = re.search(r"sampler_kernelILi(\d+)ELb(\d)E", fn)
+            if inst:
+                fn = f"sampler_kernel<{inst.group(1)},{inst.group(2)}>"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            out[fn] = int(m.group(1))
+    return out
+
+
+def sampler_phases(dev, gpu, built):
+    """Phase 22: the sampler kernel's card tests in this process (their
+    conftest, which loads JAX, skipped); its launches in a render at
+    cornell.path's traffic against the `rng` spans there; sample_1d and
+    sample_2d at a megawave's lanes beside the plain version, bitwise, with
+    their byte bound; the kernel's registers from the build's log (`built`,
+    build.build's result). Returns the kernels line's entries."""
+    t0 = time.perf_counter()
+    outcomes, log = _Outcomes(), io.StringIO()
+    with contextlib.redirect_stdout(log):
+        code = pytest.main([os.path.join(ROOT, RNG_CARD_TESTS), "--noconftest", "-q",
+                            "-p", "no:cacheprovider"], plugins=[outcomes])
+    emit({"phase": "sampler_card_tests", "outcomes": outcomes.counts, "exit_code": int(code),
+          "seconds": time.perf_counter() - t0})
+    check(code == 0 and set(outcomes.counts) == {"passed"},
+          f"the sampler kernel's card tests: {outcomes.counts}\n{log.getvalue()[-4000:]}")
+
+    # one launch a sampler call in a render at cornell.path's traffic, no
+    # copy of the Sobol table
+    t1 = time.perf_counter()
+    scene, meta, _ = cornell_box(FILM_RES, FILM_RES, 64, device=dev)
+    cfg = IntegratorConfig(kind="path", max_depth=5)
+    render(scene, meta, cfg, spp=64, device=dev)
+    _reset(ksampler.LAUNCHES)
+    telemetry.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        render(scene, meta, cfg, spp=64, device=dev)
+        torch.cuda.synchronize()
+    rng_spans = [s for s in telemetry.SPANS if s.name == "rng"]
+    syncs = collections.Counter(s.name for s in telemetry.SPANS if s.name.startswith("sync/"))
+    telemetry.reset()
+    del scene
+    render_counts = dict(ksampler.LAUNCHES)
+    render_launches = sum(render_counts.values())
+    line = {"phase": "sampler_launches", "scene": "cornell", "res": FILM_RES, "spp": 64,
+            "max_depth": cfg.max_depth, "launches": render_counts,
+            "rng_calls": len(rng_spans),
+            "rng_lanes": sum(s.lanes for s in rng_spans), "syncs": dict(syncs),
+            "seconds": time.perf_counter() - t1}
+    emit(line)
+    check(render_launches == len(rng_spans) == RNG_RENDER_CALLS
+          and "sync/sobol_table" not in syncs,
+          f"the sampler's launches in a render: {line}, want {RNG_RENDER_CALLS}, one a "
+          f"call, no Sobol-table copy")
+
+    # sample_1d and sample_2d at a megawave's lanes: the kernel beside the
+    # plain version, whose draws it must equal bit for bit
+    gen = torch.Generator(device=dev).manual_seed(20)
+    pix = torch.randint(0, 2**32, (RNG_LANES,), generator=gen, device=dev)
+    samp = torch.randint(0, 2**31, (RNG_LANES,), generator=gen, device=dev)
+    scfg = rngmod.SamplerConfig(kind=rngmod.ZERO_TWO, spp=64, seed=0x2545F491)
+    args = (scfg, pix, samp, 7)
+    registers = ptxas_registers(built.get("sampler", (0.0, ""))[1])
+    entries = []
+    for name, lane_bytes in RNG_LANE_BYTES.items():
+        kern, plain = getattr(rngmod, name), getattr(rngmod, name + "_plain")
+        got, ref = kern(*args), plain(*args)
+        if name == "sample_2d":
+            got, ref = torch.stack(got), torch.stack(ref)
+        line = {"phase": "sampler_time", "function": name, "kind": "zero_two",
+                "lanes": RNG_LANES, "bound_ms": RNG_LANES * lane_bytes / PEAK_BYTES * 1e3,
+                "differing_bits": int((got.view(torch.int32) != ref.view(torch.int32)).sum()),
+                "kernel_ms": cuda_ms(lambda: kern(*args), reps=50),
+                "plain_ms": cuda_ms(lambda: plain(*args), reps=5),
+                "registers": {k: v for k, v in registers.items()
+                              if k.endswith(f",{int(name == 'sample_2d')}>")}, "gpu": gpu}
+        host = {}
+        for label, fn in (("kernel", kern), ("plain", plain)):
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            for _ in range(10):
+                fn(*args)
+            torch.cuda.synchronize()
+            host[label] = (time.perf_counter() - t2) / 10 * 1e3
+        line["host_ms_per_call"] = host
+        line["pct_of_bound"] = 100.0 * line["bound_ms"] / line["kernel_ms"]
+        emit(line)
+        check(line["differing_bits"] == 0,
+              f"the sampler kernel's draws differ from the plain version's: {line}")
+        entries.append({
+            "name": name, "case": "megawave", "route": "cuda", "source": RNG_SOURCE,
+            "replaces": None, "launches": render_counts[name],
+            "max_abs_err": float((got - ref).abs().max()), "ms": line["kernel_ms"],
+            "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"], "bound_by": "bytes",
+            "bound_ms_every_pair": None, "library_ms": None})
+        del got, ref
+    emit({"phase": "sampler", "render_launches": render_launches, "registers": registers,
+          "seconds": time.perf_counter() - t0})
     return entries
 
 
@@ -3465,7 +3597,7 @@ def main():
     mesh1m_phases(dev, gpu)
     kernels += inst_phases(dev, gpu)
     grad_phases(dev, gpu)
-    film = film_phases(dev, gpu)
+    film = film_phases(dev, gpu) + sampler_phases(dev, gpu, built)
     pbrt_phases(dev, gpu)
     direct = direct_phases(dev, gpu)
     maps = maps_phases(dev, gpu)
@@ -3480,7 +3612,7 @@ def main():
     for entry in kernels:
         for group, counts in groups.items():
             entry["launches_" + group] = counts.get(entry["name"], 0)
-    for entry in film:    # the groups do not count the film's launches
+    for entry in film:    # the groups do not count the film's or the sampler's launches
         entry.update({"launches_" + group: None for group in groups})
     kernels += film
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

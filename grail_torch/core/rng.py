@@ -9,16 +9,23 @@ exactly as uint32 -> float32 does.
 
 Arguments may be tensors or Python ints; a Python int stays a Python int
 until it meets a tensor.
+
+sample_1d and sample_2d choose their route from the input alone: CUDA
+tensors take one launch of the card's kernel (kernels/sampler.py,
+csrc/sampler.cu), which gives the plain version's bits; CPU tensors and
+Python ints take sample_1d_plain / sample_2d_plain, the tests' baseline.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
 import torch
 
 from .. import telemetry
+from ..kernels import sampler as ksampler
 
 RANDOM = 0
 STRATIFIED = 1
@@ -118,13 +125,18 @@ _PRIMES = (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47, 53, 59, 61, 6
            73, 79, 83, 89, 97, 101, 103, 107, 109, 113, 127, 131)
 
 
+def _digits(base):
+    """radical_inverse's digit count in `base`."""
+    return max(2, int(33 / math.log2(base)) + 1) if base > 2 else 33
+
+
 def radical_inverse(n, base):
     """Radical inverse in a static base over int32 n (pbrt RadicalInverse).
     n arrives as the reference's int32 view of the sample index: values at
     or above 2^31 are negative, and `%`/`//` follow floor semantics there."""
     n = torch.as_tensor(n)
     inv_base = 1.0 / base
-    ndigits = max(2, int(33 / math.log2(base)) + 1) if base > 2 else 33
+    ndigits = _digits(base)
     val = torch.zeros(n.shape, dtype=torch.float32, device=n.device)
     inv_bi = torch.full(n.shape, inv_base, dtype=torch.float32, device=n.device)
     for _ in range(ndigits):
@@ -153,13 +165,71 @@ class SamplerConfig:
     seed: int = 0
 
 
-@telemetry.spanned("rng")
+def _halton_base(dim, traced):
+    """HALTON's base, as the reference: a static dim picks its prime; a
+    traced or per-lane dim falls back to base 2."""
+    if traced or isinstance(dim, torch.Tensor):
+        return 2
+    return _PRIMES[int(dim) % len(_PRIMES)]
+
+
+@functools.lru_cache(maxsize=256)
+def _kernel_params(cfg: SamplerConfig, two, base):
+    """csrc/sampler.cu's Params of a call, after the kind: (kind, seed, m0,
+    m1, f0, f1). STRATIFIED's reciprocals are those PyTorch multiplies by on
+    the card when it divides a float32 tensor by a Python number (taken in
+    double, rounded to float32); HALTON's 1/base is the float32 the plain
+    version starts its digit weights from."""
+    f32 = lambda v: float(np.float32(v))  # noqa: E731
+    seed = cfg.seed & _M32
+    if cfg.kind == STRATIFIED:
+        if two:
+            sx = max(int(math.sqrt(cfg.spp)), 1)
+            sy = max(cfg.spp // sx, 1)
+            return (cfg.kind, seed, sx, sy, f32(1.0 / sx), f32(1.0 / sy))
+        return (cfg.kind, seed, cfg.spp, 0, f32(1.0 / cfg.spp), 0.0)
+    if cfg.kind == HALTON:
+        return (cfg.kind, seed, base, _digits(base), f32(1.0 / base), 0.0)
+    if cfg.kind in (RANDOM, ZERO_TWO):
+        return (cfg.kind, seed, 0, 0, 0.0, 0.0)
+    raise ValueError(f"unknown sampler kind {cfg.kind}")
+
+
 def sample_1d(cfg: SamplerConfig, pixel_id, samp_idx, dim, traced=False):
     """One uniform in [0,1) for (pixel, sample index, dimension).
 
     traced: the reference computes this dimension as a traced value (inside
     lax.fori_loop, or by array arithmetic), where HALTON cannot pick the
-    dimension's prime and takes base 2. A per-lane tensor dim does the same."""
+    dimension's prime and takes base 2. A per-lane tensor dim does the same.
+    One `rng` span a call, with its lanes."""
+    operands = (pixel_id, samp_idx, dim)
+    with telemetry.span("rng") as span:
+        on_card, shape = ksampler.plan(operands)
+        if span is not None:
+            span.lanes = math.prod(shape)
+        if on_card:
+            base = _halton_base(dim, traced) if cfg.kind == HALTON else 0
+            return ksampler.draw("sample_1d", _kernel_params(cfg, False, base), shape,
+                                 operands)
+        return sample_1d_plain(cfg, pixel_id, samp_idx, dim, traced)
+
+
+def sample_2d(cfg: SamplerConfig, pixel_id, samp_idx, dim):
+    """A 2D uniform sample; `dim` identifies the 2D slot. One `rng` span a
+    call, with its lanes."""
+    operands = (pixel_id, samp_idx, dim)
+    with telemetry.span("rng") as span:
+        on_card, shape = ksampler.plan(operands)
+        if span is not None:
+            span.lanes = math.prod(shape)
+        if on_card:
+            out = ksampler.draw("sample_2d", _kernel_params(cfg, True, 2), shape, operands)
+            return out[0], out[1]
+        return sample_2d_plain(cfg, pixel_id, samp_idx, dim)
+
+
+def sample_1d_plain(cfg: SamplerConfig, pixel_id, samp_idx, dim, traced=False):
+    """sample_1d in PyTorch, on any device."""
     pixel_id = _u32(pixel_id)
     samp_idx = _u32(samp_idx)
     dim_u = _u32(dim)
@@ -176,10 +246,7 @@ def sample_1d(cfg: SamplerConfig, pixel_id, samp_idx, dim, traced=False):
         scramble = hash3(pixel_id ^ seed, dim_u, 0xA511E9B3)
         return van_der_corput(samp_idx, scramble)
     if cfg.kind == HALTON:
-        # as the reference: a static dim picks its prime; a traced or
-        # per-lane dim falls back to base 2
-        traced = traced or isinstance(dim, torch.Tensor)
-        base = 2 if traced else _PRIMES[int(dim) % len(_PRIMES)]
+        base = _halton_base(dim, traced)
         v = radical_inverse(_as_i32(samp_idx), base)
         rot = u32_to_float(hash_combine(pixel_id ^ seed, dim_u))
         v = v + rot
@@ -187,9 +254,8 @@ def sample_1d(cfg: SamplerConfig, pixel_id, samp_idx, dim, traced=False):
     raise ValueError(f"unknown sampler kind {cfg.kind}")
 
 
-@telemetry.spanned("rng")
-def sample_2d(cfg: SamplerConfig, pixel_id, samp_idx, dim):
-    """A 2D uniform sample; `dim` identifies the 2D slot."""
+def sample_2d_plain(cfg: SamplerConfig, pixel_id, samp_idx, dim):
+    """sample_2d in PyTorch, on any device."""
     pixel_id = _u32(pixel_id)
     samp_idx = _u32(samp_idx)
     dim_u = _u32(dim)
@@ -214,5 +280,5 @@ def sample_2d(cfg: SamplerConfig, pixel_id, samp_idx, dim):
     # the reference derives these dims as arrays, so HALTON sees base 2 here
     d0 = (dim_u * 2 + 1000003) & _M32
     d1 = (dim_u * 2 + 1000033) & _M32
-    return (sample_1d(cfg, pixel_id, samp_idx, d0, traced=True),
-            sample_1d(cfg, pixel_id, samp_idx, d1, traced=True))
+    return (sample_1d_plain(cfg, pixel_id, samp_idx, d0, traced=True),
+            sample_1d_plain(cfg, pixel_id, samp_idx, d1, traced=True))

@@ -33,6 +33,9 @@ up, once timed, then once under torch.profiler, and prints JSON lines:
 - the host's waits for the device (`sync/<site>`: reads of device values,
   copies from pageable host memory): count and wait;
 - the lanes handed to the intersect dispatch, by role and per camera ray;
+- the sampler (core/rng.py): its kernel's launches by function, the calls
+  on the card that took the plain version, and the `rng` spans' calls and
+  lanes (one launch a call where every call takes the kernel);
 - the kernels and the operators that take the most device time.
 
 Every device number comes from the profiler's Chrome trace, whose kernel
@@ -58,6 +61,7 @@ from torch.profiler import ProfilerActivity, profile
 from .. import telemetry
 from ..engine import integrator, render as rnd
 from ..kernels import instanced
+from ..kernels import sampler as ksampler
 from ..scene.parser import parse_string
 from ..scene.presets import cornell_box, mesh_scene, mesh_scene_1m
 from .instbench import build_instanced
@@ -242,6 +246,7 @@ def main(argv=None):
 
     telemetry.reset()
     instanced.LAST_SWEEPS.clear()
+    ksampler.LAUNCHES.update(dict.fromkeys(ksampler.LAUNCHES, 0))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         rnd.render(scene, meta, cfg, spp=args.spp, device=dev)
@@ -276,6 +281,10 @@ def main(argv=None):
     print(json.dumps({"syncs": syncs, "lanes": lanes,
                       "lanes_per_camera_ray": sum(lanes.values())
                       / (meta.xres * meta.yres * args.spp)}))
+    rng_spans = [s for s in spans if s.name == "rng"]
+    print(json.dumps({"sampler": {"launches": dict(ksampler.LAUNCHES),
+                                  "rng_calls": len(rng_spans),
+                                  "rng_lanes": sum(s.lanes for s in rng_spans)}}))
     if args.scene == "inst":
         # (kind, rays, rounds) of each instanced sweep of the profiled
         # render: one BLAS launch and one host sync a round
