@@ -21,30 +21,22 @@ failure ends the run with a non-zero exit code:
      the hit test that each pair needs) and its issue time were every pair
      to take every path of its loop;
   mesh100k (the 100k-triangle terrain at grid=224, BVH traversal):
-  6. parity: each of the four record-stream kernels against its plain
-     version at 1,048,576 rays: the bench camera wave (skip, closest hit), a
-     binned incoherent secondary wave (ordered, closest and any hit) and
-     shadow rays with random lengths and 1/8 dead lanes (skip, any hit); the
-     two 4-wide kernels on the rays of the kernels they replace on the main
-     path (closest hit on the secondary wave and on the camera wave, any hit
-     on the shadow rays), against their plain versions and against those
-     kernels;
+  6. parity: the two 4-wide kernels against their plain versions at
+     1,048,576 rays, bitwise, on each wave they take on the main path:
+     closest hit on the bench camera wave (unbinned) and on a binned
+     incoherent secondary wave, any hit on shadow rays with random lengths
+     and 1/8 dead lanes; and the any hit on the secondary wave (row 3, the
+     redesign of the ordered any hit, which a kind override reaches);
   7. main path: a 64x64, 4 spp, depth 3 render on the card against the CPU,
      through the 4-wide route;
   8. bench: the bench render (256x256, 16 spp, depth 5) through the kernels,
      with launches per render of each kernel, the closest hit's split by
      wave (camera, binned);
-  9. kernel_time: each traversal kernel's ms per launch beside its plain
-     version and its bound; each 4-wide kernel timed in turns with the
-     kernel it replaces, on each wave it takes, and the 4-wide any hit in
-     turns with the ordered any hit (row 3, reached only by a kind
-     override) on the sorted secondary wave;
-  (the record table, which only the record-stream kernels read, is built
-  on request for phases 6 and 9 and dropped before phases 7 and 8)
+  9. kernel_time: each of those beside its plain version and its bound
+     (its own walk on those rays);
   mesh1m (mesh_scene_1m: 1,001,906 triangles, a thin lens and a moving
   camera, the 4-wide tables above the card's L2):
-  10. set-up: the host build, the table sizes, and what the record table
-      would cost;
+  10. set-up: the host build and the table sizes;
   11. parity: the 4-wide closest hit on the camera wave (depth of field
       and motion blur, unbinned) and on a binned secondary wave, the any hit
       on shadow rays, each against its plain version at 1,048,576 rays,
@@ -310,7 +302,6 @@ from grail_torch.engine.render import (auto_spp_chunk, camera_rays, megawave_lan
                                        render_adaptive, render_wave)
 from grail_torch.kernels import brute_intersect as bi
 from grail_torch.kernels import bvh4 as b4
-from grail_torch.kernels import bvh_stream as bs
 from grail_torch.kernels import build
 from grail_torch.kernels import film as kfilm
 from grail_torch.kernels import sampler as ksampler
@@ -318,9 +309,8 @@ from grail_torch.kernels import instanced
 from grail_torch.kernels import intersect as isect
 from grail_torch.kernels.binning import (N_RAY_BUCKETS, bin_rays_key, bucket_rank,
                                          sort_by_rank)
-from grail_torch.kernels.intersect import (BIG_T, CLOSEST_WAVES, SORT_MIN,
-                                           moller_trumbore, pack_tris)
-from grail_torch.scene.buffers import SceneBuilder, attach_record_table
+from grail_torch.kernels.intersect import BIG_T, CLOSEST_WAVES, SORT_MIN, pack_tris
+from grail_torch.scene.buffers import SceneBuilder
 from grail_torch.scene.parser import parse_file, parse_string
 from grail_torch.scene.presets import cornell_box, mesh_scene, mesh_scene_1m
 from grail_torch.scene.shapes import sphere
@@ -346,7 +336,7 @@ PEAK_BYTES = 3.35e12
 OPS_STAGES = (29, 18, 8)
 OPS_PER_PAIR = sum(OPS_STAGES)   # every stage: 55
 LANES_PER_SM = 128         # FP32 lanes of a Hopper SM: one instruction a lane a clock
-# slab test per box record (bvh_stream.cu): 6 subtracts, 6 multiplies, one
+# slab test per box (bvh4.cu): 6 subtracts, 6 multiplies, one
 # min and one max per axis (6), 4 min/max across axes, 1 multiply and
 # 3 compares
 OPS_PER_BOX = 26
@@ -356,35 +346,28 @@ OCC_AGREE_MIN = 0.9999
 RTOL, ATOL = 1e-5, 1e-6
 RELMAE_MAX = 1e-3
 SLEEP_CYCLES = 100_000_000    # ~50 ms of the card's clock ahead of a timed run
-STREAM_SOURCE = "grail_torch/kernels/csrc/bvh_stream.cu"
-STREAM_REPLACES = {"ordered": "grail/kernels/bvh_stream.py:269",
-                   "skip": "grail/kernels/bvh_stream.py:414"}
 BVH4_SOURCE = "grail_torch/kernels/csrc/bvh4.cu"
-# the wave each record-stream kernel is held and timed on (mesh_ray_cases)
-STREAM_CASES = {"skip_closest": "camera_wave", "ordered_closest": "sorted_secondary",
-                "ordered_any_hit": "sorted_secondary", "skip_any_hit": "shadow"}
-# each 4-wide kernel, the record-stream kernel it replaces on the main path
-# and the dispatch's closest-hit route (intersect.CLOSEST_WAVES), one entry a
-# wave: closest hit on binned secondary waves, any hit on shadow waves,
-# closest hit on the camera wave
-BVH4_REPLACES = (("bvh4_closest", "ordered_closest", "binned"),
-                 ("bvh4_any_hit", "skip_any_hit", None),
-                 ("bvh4_closest", "skip_closest", "unbinned"))
-# row 3: the ordered any hit, which no main-path wave runs (a kind override
-# reaches it), against the 4-wide any hit that is its redesign; timed in
-# turns, not in the kernels line
-BVH4_ROW3 = ("bvh4_any_hit", "ordered_any_hit", None)
+# each 4-wide kernel on each main-path wave it takes (mesh_ray_cases) and the
+# TPU kernel it replaces there: closest hit on binned secondary waves (the
+# ordered kernel), any hit on shadow waves and closest hit on the camera
+# wave (the skip-link kernels)
+BVH4_WAVES = (("bvh4_closest", "sorted_secondary", "grail/kernels/bvh_stream.py:269"),
+              ("bvh4_any_hit", "shadow", "grail/kernels/bvh_stream.py:414"),
+              ("bvh4_closest", "camera_wave", "grail/kernels/bvh_stream.py:414"))
+# the dispatch's closest-hit route of each wave (intersect.CLOSEST_WAVES)
+CLOSEST_ROUTE = {"sorted_secondary": "binned", "camera_wave": "unbinned"}
+# row 3: the 4-wide any hit on the secondary wave, the redesign of the
+# ordered any hit, which no main-path wave runs (a kind override reaches
+# it); not in the kernels line
+BVH4_ROW3 = ("bvh4_any_hit", "sorted_secondary", "grail/kernels/bvh_stream.py:269")
 # a mesh render of one megawave at depth 5: the camera wave's closest hit
 # (unbinned), the binned closest hits of bounces 1-5, one shadow wave a
 # bounce, all on the 4-wide kernels
-MESH_EXPECTED = {"skip_closest": 0, "skip_any_hit": 0, "ordered_closest": 0,
-                 "ordered_any_hit": 0, "bvh4_closest": 6, "bvh4_any_hit": 6,
+MESH_EXPECTED = {"bvh4_closest": 6, "bvh4_any_hit": 6,
                  "bvh4_closest_roots": 0, "bvh4_any_hit_roots": 0,
                  "brute_intersect": 0, "brute_intersect_any_hit": 0}
 MESH_EXPECTED_WAVES = {"binned": 5, "unbinned": 1}
 MESH1M_SPP = 4                  # bench.py's mesh1m render: 256x256, 4 spp
-MESH1M_WAVES = (("bvh4_closest", "camera_wave"), ("bvh4_closest", "sorted_secondary"),
-                ("bvh4_any_hit", "shadow"))
 # instbench's render (benchmarks/instbench.py: 256x256, 4 spp, depth 3), and
 # the walk with roots on each wave of a sweep's first round it takes; row 6
 # of PERF.md, the per-stream start records of the two stream kernels that
@@ -641,40 +624,6 @@ def compare(kern, plain, any_hit=False):
     return n_bad, errs, bitwise
 
 
-def against_replaced(new, old, args, any_hit, scene):
-    """Mismatch counts of a 4-wide kernel against the record-stream kernel it
-    replaces, on the same rays; raises beyond the stated thresholds. t, b1
-    and b2 must be bitwise equal where prim agrees. Closest hit: prim agrees
-    on >= PRIM_AGREE_MIN of the rays. Any hit: occlusion agrees on
-    >= OCC_AGREE_MIN, and since the two walks visit in other orders (near
-    first here, preorder there) the first occluder found may differ, so
-    instead of prim, >= PRIM_AGREE_MIN of the reported triangles must be
-    real hits of their rays in (tmin, tmax) by moller_trumbore."""
-    same = new[1] == old[1]
-    n = new[1].numel()
-    n_prim = int((~same).sum())
-    n_occ = int(((new[1] >= 0) != (old[1] >= 0)).sum())
-    check(all(torch.equal(a[same], b[same]) for a, b in zip(new, old)),
-          "t, b1, b2 differ from the replaced kernel where prim agrees")
-    out = {"prim_mismatch": n_prim, "occlusion_mismatch": n_occ}
-    if not any_hit:
-        check(1.0 - n_prim / n >= PRIM_AGREE_MIN,
-              f"prim disagrees with the replaced kernel on {n_prim} of {n} rays")
-        return out
-    check(1.0 - n_occ / n >= OCC_AGREE_MIN,
-          f"occlusion disagrees with the replaced kernel on {n_occ} of {n} rays")
-    hit = new[1] >= 0
-    o, d, tmin, tmax = (a[hit] for a in args)
-    idx = scene["tri_idx"][new[1][hit].long()].long()
-    v = scene["verts"]
-    v0 = v[idx[:, 0]]
-    real = moller_trumbore(o, d, v0, v[idx[:, 1]] - v0, v[idx[:, 2]] - v0, tmin, tmax)[0]
-    out["reported_not_real_hit"] = int((~real).sum())
-    check(float(real.float().mean()) >= PRIM_AGREE_MIN,
-          f"{out['reported_not_real_hit']} reported occluders are not hits")
-    return out
-
-
 def cornell_phases(dev, gpu, issue_rate, sass):
     """Phases 3-5; returns the entries of the kernels line of the brute-force
     kernel's two instances (closest hit, any hit)."""
@@ -832,10 +781,6 @@ def mesh_ray_cases(scene, meta, dev):
             "shadow": shadow}
 
 
-def _kind(name):
-    return name.split("_", 1)[0], name.endswith("any_hit")
-
-
 def bvh4_parity(scene_name, name, wave, args, bvh):
     """One 4-wide kernel against its plain version on the card, bitwise; emits
     the parity line and returns the plain walk's outputs and counts."""
@@ -885,163 +830,80 @@ def bench_render(scene, meta, cfg, spp, dev):
     torch.cuda.reset_peak_memory_stats(dev)
     held = torch.cuda.memory_allocated(dev)
     for _ in range(3):
-        for counts in (bs.LAUNCHES, b4.LAUNCHES, bi.LAUNCHES, CLOSEST_WAVES):
+        for counts in (b4.LAUNCHES, bi.LAUNCHES, CLOSEST_WAVES):
             counts.update(dict.fromkeys(counts, 0))
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         img, _ = render(scene, meta, cfg, spp=spp, device=dev)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t1)
-        launches.append(dict(bs.LAUNCHES, **b4.LAUNCHES, **bi.LAUNCHES))
+        launches.append(dict(b4.LAUNCHES, **bi.LAUNCHES))
         waves.append(dict(CLOSEST_WAVES))
     return (times, launches, waves, img.cpu().numpy(),
             torch.cuda.max_memory_allocated(dev), held)
 
 
+def bvh4_phases(scene_name, scene, meta, dev, gpu, waves):
+    """Parity and kernel_time of each 4-wide kernel on each wave of `waves`
+    ((kernel, wave of mesh_ray_cases, the TPU kernel it replaces) triples):
+    bitwise its plain version; its ms beside the plain version's and its
+    bound by its own walk on these rays (bvh4_bound). Returns {(kernel,
+    wave): its entry of the kernels line}."""
+    bvh = scene["bvh"]
+    nodes, tris4, stack = (bvh[k] for k in ("bvh4_nodes", "bvh4_tris", "bvh4_stack"))
+    table4_bytes = (nodes.numel() + tris4.numel()) * 4
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cases = mesh_ray_cases(scene, meta, dev)
+    results = {}
+    for name, wave, _ in waves:
+        _, line, results[(name, wave)] = bvh4_parity(scene_name, name, wave, cases[wave],
+                                                     bvh)
+        emit(line)
+    emit({"phase": "parity", "scene": scene_name, "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    timed = {}
+    for name, wave, replaces in waves:
+        any_hit = name == "bvh4_any_hit"
+        args = cases[wave]
+        with torch.no_grad():
+            ms = cuda_ms(lambda: b4.bvh4_traverse(nodes, tris4, *args, any_hit=any_hit,
+                                                  stack=stack), 20)
+            plain_ms = cuda_ms(lambda: b4.bvh4_traverse_plain(
+                nodes, tris4, *args, any_hit=any_hit, stack=stack), 1, warmup=0)
+        r = results[(name, wave)]
+        counts = r["counts"]
+        bound, by = bvh4_bound(counts, table4_bytes)
+        emit({"phase": "kernel_time", "scene": scene_name, "kernel": name, "case": wave,
+              "rays": N_RAYS, "live_rays": r["live"], "ms": ms, "plain_ms": plain_ms,
+              "fill_blocks": b4.fill_blocks(dev.index, any_hit, stack),
+              "node_fetches": counts[0], "box_tests": counts[1], "tri_tests": counts[2],
+              "bytes_read": counts[0] * NODE_BYTES + counts[2] * TRI_BYTES,
+              "table_bytes": table4_bytes, "bound_ms": bound, "bound_by": by,
+              "percent_of_bound": 100.0 * bound / ms, "replaces": replaces, "gpu": gpu})
+        timed[(name, wave)] = {
+            "name": name, "case": wave, "route": "cuda", "source": BVH4_SOURCE,
+            "replaces": replaces, "max_abs_err": max(r["errs"].values()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": None}
+    emit({"phase": "kernel_time", "scene": scene_name, "seconds": time.perf_counter() - t0})
+    return timed
+
+
 def mesh_phases(dev, gpu):
-    """Phases 6-9; returns the entries of the kernels line: the four
-    bvh_stream kernels, and the two bvh4 kernels on each main-path wave."""
+    """Phases 6-9; returns the entries of the kernels line: the two bvh4
+    kernels on each main-path wave."""
     t0 = time.perf_counter()
     scene, meta, _ = mesh_scene(256, 256, 16, grid=MESH_GRID, device=dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     bvh = scene["bvh"]
     nodes, tris4, stack = (bvh[k] for k in ("bvh4_nodes", "bvh4_tris", "bvh4_stack"))
-    # the record table, which only the record-stream kernels (the baselines)
-    # read, built on request (the binary tree again, the records packed and
-    # uploaded) and dropped before the main path runs
-    t1 = time.perf_counter()
-    attach_record_table(scene)
-    torch.cuda.synchronize()
-    record_s = time.perf_counter() - t1
-    table, depth = bvh.pop("stream"), bvh.pop("depth")
-    table4_bytes = (nodes.numel() + tris4.numel()) * 4
     emit({"phase": "mesh_scene", "scene": "mesh100k", "grid": MESH_GRID,
-          "triangles": meta.n_tris, "records": table.shape[0] * bs.RECS_PER_ROW,
-          "record_table_bytes": table.numel() * 4,
-          "record_table_host_seconds": record_s, "tree_depth": depth,
-          "bvh4_nodes": nodes.shape[0], "bvh4_table_bytes": table4_bytes,
+          "triangles": meta.n_tris, "bvh4_nodes": nodes.shape[0],
+          "bvh4_table_bytes": (nodes.numel() + tris4.numel()) * 4,
           "bvh4_stack_bound": stack, "host_build_seconds": build_s})
-
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        cases = mesh_ray_cases(scene, meta, dev)
-    results = {}
-    for name in bs.KERNELS:
-        kind, any_hit = _kind(name)
-        case = STREAM_CASES[name]
-        args = cases[case]
-        with torch.no_grad():
-            kern = bs.stream_traverse(table, *args, any_hit=any_hit, kind=kind,
-                                      depth=depth)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            plain = bs.stream_traverse_plain(table, *args, any_hit=any_hit, kind=kind)
-            torch.cuda.synchronize()
-            plain_s = time.perf_counter() - t1
-        n_bad, errs, bitwise = compare(kern, plain, any_hit)
-        live = int((args[3] > args[2]).sum())
-        visits = (int(plain[4].sum()), int(plain[5].sum()))
-        results[name] = {"case": case, "args": args, "errs": errs, "live": live,
-                         "visits": visits, "plain_s": plain_s, "kern": kern}
-        emit({"phase": "parity", "scene": "mesh100k", "kernel": f"bvh_stream_{name}",
-              "case": case, "rays": N_RAYS, "live_rays": live,
-              "hits": int((kern[1] >= 0).sum()), "prim_mismatch": n_bad,
-              "occlusion_mismatch": int(((kern[1] >= 0) != (plain[1] >= 0)).sum()),
-              "max_abs_diff": errs, "bitwise_equal": bitwise,
-              "box_visits": visits[0], "tri_visits": visits[1],
-              "max_visits_per_ray": int((plain[4] + plain[5]).max()),
-              "plain_seconds": plain_s})
-    # the 4-wide kernels on the rays of the kernels they replace
-    results4 = {}
-    for name, old, _ in BVH4_REPLACES + (BVH4_ROW3,):
-        r = results[old]
-        kern, line, results4[old] = bvh4_parity("mesh100k", name, r["case"], r["args"],
-                                                bvh)
-        with torch.no_grad():
-            line[f"vs_bvh_stream_{old}"] = against_replaced(
-                kern, r["kern"], r["args"], name == "bvh4_any_hit", scene)
-        emit(line)
-    # keep only the rays and counts: the outputs would count in the bench
-    # render's peak memory
-    del kern, plain
-    for r in results.values():
-        del r["kern"]
-    emit({"phase": "parity", "scene": "mesh100k", "seconds": time.perf_counter() - t0})
-
-    # each kernel's time, its plain version's and its bound at 1M rays
-    t0 = time.perf_counter()
-    timed = {}
-    for name in bs.KERNELS:
-        kind, any_hit = _kind(name)
-        r = results[name]
-        args = r["args"]
-        with torch.no_grad():
-            ms = cuda_ms(lambda: bs.stream_traverse(table, *args, any_hit=any_hit,
-                                                    kind=kind, depth=depth), 20)
-            plain_ms = cuda_ms(lambda: bs.stream_traverse_plain(
-                table, *args, any_hit=any_hit, kind=kind), 1, warmup=0)
-        n_box, n_tri = r["visits"]
-        ops = OPS_PER_BOX * n_box + OPS_PER_PAIR * n_tri
-        bytes_moved = N_RAYS * RAY_BYTES + table.numel() * 4
-        t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_FP32_OPS * 1e3
-        emit({"phase": "kernel_time", "kernel": f"bvh_stream_{name}", "case": r["case"],
-              "rays": N_RAYS, "live_rays": r["live"], "ms": ms, "plain_ms": plain_ms,
-              "box_visits": n_box, "tri_visits": n_tri,
-              "record_bytes_read": (n_box + n_tri) * bs.FIELDS * 4,
-              "bytes": bytes_moved, "operations": ops, "bytes_ms": t_bytes,
-              "operations_ms": t_ops, "gpu": gpu})
-        timed[name] = {
-            "name": f"bvh_stream_{name}", "case": r["case"], "route": "cuda",
-            "source": STREAM_SOURCE, "replaces": STREAM_REPLACES[kind],
-            "max_abs_err": max(r["errs"].values()), "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes > t_ops else "operations",
-            "library_ms": None}
-    # each 4-wide kernel in turns with the kernel it replaces (old, new,
-    # new, old) on each wave, row 3's ordered any hit too; its bound counts
-    # its own walk on these rays (bvh4_bound). The bound of the replaced
-    # kernel's walk on these rays (the record table, the records it visits)
-    # is printed beside it as bound_ms_record_walk.
-    for name, old, wave in BVH4_REPLACES + (BVH4_ROW3,):
-        any_hit = name == "bvh4_any_hit"
-        r = results[old]
-        args = r["args"]
-        old_kind = _kind(old)[0]
-        runs = {"old": lambda: bs.stream_traverse(table, *args, any_hit=any_hit,
-                                                  kind=old_kind, depth=depth),
-                "new": lambda: b4.bvh4_traverse(nodes, tris4, *args, any_hit=any_hit,
-                                                stack=stack)}
-        turns = {k: [] for k in runs}
-        with torch.no_grad():
-            for who in ("old", "new", "new", "old"):
-                turns[who].append(cuda_ms(runs[who], 20))
-            plain_ms = cuda_ms(lambda: b4.bvh4_traverse_plain(
-                nodes, tris4, *args, any_hit=any_hit, stack=stack), 1, warmup=0)
-        ms = statistics.mean(turns["new"])
-        counts = results4[old]["counts"]
-        bound, by = bvh4_bound(counts, table4_bytes)
-        n_box, n_tri = r["visits"]
-        rec_bound = max((N_RAYS * RAY_BYTES + table.numel() * 4) / PEAK_BYTES,
-                        (OPS_PER_BOX * n_box + OPS_PER_PAIR * n_tri) / PEAK_FP32_OPS) * 1e3
-        emit({"phase": "kernel_time", "scene": "mesh100k", "kernel": name,
-              "case": r["case"], "rays": N_RAYS, "live_rays": r["live"], "ms": ms,
-              "ms_turns": turns, "plain_ms": plain_ms,
-              "fill_blocks": b4.fill_blocks(dev.index, any_hit, stack),
-              "node_fetches": counts[0], "box_tests": counts[1], "tri_tests": counts[2],
-              "bytes_read": counts[0] * NODE_BYTES + counts[2] * TRI_BYTES,
-              "bound_ms": bound, "bound_by": by, "replaced": f"bvh_stream_{old}",
-              "replaced_ms": statistics.mean(turns["old"]),
-              "replaced_box_visits": n_box, "replaced_tri_visits": n_tri,
-              "bound_ms_record_walk": rec_bound, "gpu": gpu})
-        timed[(name, old)] = {
-            "name": name, "case": r["case"], "route": "cuda", "source": BVH4_SOURCE,
-            "replaces": STREAM_REPLACES[old_kind],
-            "max_abs_err": max(results4[old]["errs"].values()), "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "bound_ms_record_walk": rec_bound, "library_ms": None}
-    emit({"phase": "kernel_time", "scene": "mesh100k", "seconds": time.perf_counter() - t0})
-    del cases, results, table
+    timed = bvh4_phases("mesh100k", scene, meta, dev, gpu, BVH4_WAVES + (BVH4_ROW3,))
 
     # the main path on the card against the same render on the CPU, at
     # 16,384 lanes: above the dispatch's binning threshold (SORT_MIN) at
@@ -1054,12 +916,11 @@ def mesh_phases(dev, gpu):
     imgs = {}
     for side, where in (("card", dev), ("cpu", torch.device("cpu"))):
         sc, mt, _ = mesh_scene(res_e, res_e, spp_e, grid=MESH_GRID, device=where)
-        for counts in (bs.LAUNCHES, b4.LAUNCHES):
-            counts.update(dict.fromkeys(counts, 0))
+        b4.LAUNCHES.update(dict.fromkeys(b4.LAUNCHES, 0))
         imgs[side] = render(sc, mt, cfg_e, spp=spp_e,
                                   device=where)[0].cpu().numpy()
         if side == "card":
-            gpu_launches = dict(bs.LAUNCHES, **b4.LAUNCHES)
+            gpu_launches = dict(b4.LAUNCHES)
     err = relative_mae(imgs["card"], imgs["cpu"])
     emit({"phase": "main_path_vs_cpu", "scene": "mesh100k", "res": res_e,
           "spp": spp_e, "max_depth": 3, "lanes": res_e * res_e * spp_e,
@@ -1067,10 +928,8 @@ def mesh_phases(dev, gpu):
           "bitwise_equal": bool(np.array_equal(imgs["card"], imgs["cpu"])),
           "seconds": time.perf_counter() - t0})
     check(res_e * res_e * spp_e // 2 >= SORT_MIN, "comparison wave below SORT_MIN")
-    check(gpu_launches == {"skip_closest": 0, "skip_any_hit": 0, "ordered_closest": 0,
-                           "ordered_any_hit": 0, "bvh4_closest": cfg_e.max_depth + 1,
-                           "bvh4_any_hit": cfg_e.max_depth + 1,
-                           "bvh4_closest_roots": 0, "bvh4_any_hit_roots": 0},
+    check(gpu_launches == dict(dict.fromkeys(b4.ROOT_KERNELS, 0),
+                               **dict.fromkeys(b4.KERNELS, cfg_e.max_depth + 1)),
           f"GPU mesh render took {gpu_launches}, not the 4-wide route")
     check(np.isfinite(imgs["card"]).all() and err < RELMAE_MAX,
           f"GPU mesh render differs from the CPU render (relative MAE {err})")
@@ -1095,11 +954,9 @@ def mesh_phases(dev, gpu):
     check(np.isfinite(img).all() and img.shape == (256, 256, 3) and img.mean() > 0.0,
           "bench image is not finite and positive")
 
-    entries = [dict(timed[name], launches=launches[0][name]) for name in bs.KERNELS]
-    for name, old, wave in BVH4_REPLACES:
-        entries.append(dict(timed[(name, old)],
-                            launches=waves[0][wave] if wave else launches[0][name]))
-    return entries
+    return [dict(timed[(name, wave)], launches=waves[0][CLOSEST_ROUTE[wave]]
+                 if name == "bvh4_closest" else launches[0][name])
+            for name, wave, _ in BVH4_WAVES]
 
 
 def mesh1m_phases(dev, gpu):
@@ -1113,58 +970,19 @@ def mesh1m_phases(dev, gpu):
     bvh = scene["bvh"]
     nodes, tris4, stack = (bvh[k] for k in ("bvh4_nodes", "bvh4_tris", "bvh4_stack"))
     table4_bytes = (nodes.numel() + tris4.numel()) * 4
-    # what the record table would cost here, on request, then dropped
-    t1 = time.perf_counter()
-    attach_record_table(scene)
-    torch.cuda.synchronize()
-    record_s = time.perf_counter() - t1
-    record_bytes = bvh.pop("stream").numel() * 4
-    del bvh["depth"]
     cam = scene["camera"]
     emit({"phase": "mesh_scene", "scene": "mesh1m", "grid": 708,
           "triangles": meta.n_tris, "bvh4_nodes": nodes.shape[0],
           "bvh4_node_bytes": nodes.numel() * 4, "bvh4_tri_bytes": tris4.numel() * 4,
           "bvh4_table_bytes": table4_bytes, "bvh4_stack_bound": stack,
-          "host_build_seconds": build_s, "record_table_bytes": record_bytes,
-          "record_table_host_seconds": record_s,
+          "host_build_seconds": build_s,
           "lens_radius": float(cam["lens_radius"]),
           "focal_distance": float(cam["focal_distance"]),
           "camera_moves": bool(cam["c2w"]["animated"])})
     check(meta.n_tris == 1_001_906 and stack <= b4.STACK_MAX
           and float(cam["lens_radius"]) > 0 and bool(cam["c2w"]["animated"]),
           "mesh1m is not the 1M-triangle DOF and motion-blur scene")
-
-    # parity: each 4-wide kernel on each mesh1m wave it takes
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        cases = mesh_ray_cases(scene, meta, dev)
-    results = {}
-    for name, wave in MESH1M_WAVES:
-        _, line, results[(name, wave)] = bvh4_parity("mesh1m", name, wave, cases[wave], bvh)
-        emit(line)
-    emit({"phase": "parity", "scene": "mesh1m", "seconds": time.perf_counter() - t0})
-
-    # each 4-wide kernel's time on each wave, its plain version's, its bound
-    t0 = time.perf_counter()
-    for name, wave in MESH1M_WAVES:
-        any_hit = name == "bvh4_any_hit"
-        args = cases[wave]
-        with torch.no_grad():
-            ms = cuda_ms(lambda: b4.bvh4_traverse(nodes, tris4, *args, any_hit=any_hit,
-                                                  stack=stack), 20)
-            plain_ms = cuda_ms(lambda: b4.bvh4_traverse_plain(
-                nodes, tris4, *args, any_hit=any_hit, stack=stack), 1, warmup=0)
-        counts = results[(name, wave)]["counts"]
-        bound, by = bvh4_bound(counts, table4_bytes)
-        emit({"phase": "kernel_time", "scene": "mesh1m", "kernel": name, "case": wave,
-              "rays": N_RAYS, "live_rays": results[(name, wave)]["live"], "ms": ms,
-              "plain_ms": plain_ms, "node_fetches": counts[0], "box_tests": counts[1],
-              "tri_tests": counts[2],
-              "bytes_read": counts[0] * NODE_BYTES + counts[2] * TRI_BYTES,
-              "table_bytes": table4_bytes, "bound_ms": bound, "bound_by": by,
-              "percent_of_bound": 100.0 * bound / ms, "gpu": gpu})
-    emit({"phase": "kernel_time", "scene": "mesh1m", "seconds": time.perf_counter() - t0})
-    del cases
+    bvh4_phases("mesh1m", scene, meta, dev, gpu, BVH4_WAVES)
 
     # the main path on the card against the CPU, the full geometry at 32x32
     t0 = time.perf_counter()
@@ -1387,12 +1205,12 @@ def inst_phases(dev, gpu):
     t0 = time.perf_counter()
     rates = {}
     for name in ("instanced", "flattened"):
-        for counts in (bs.LAUNCHES, bi.LAUNCHES, CLOSEST_WAVES):
+        for counts in (bi.LAUNCHES, CLOSEST_WAVES):
             counts.update(dict.fromkeys(counts, 0))
         r = instbench.bench(lambda res, device, s=built[name]: s, 256, INST_SPP,
                             INST_DEPTH, dev)
         del r["build_seconds"]                  # built in phase 15
-        other = dict(bs.LAUNCHES, **bi.LAUNCHES)
+        other = dict(bi.LAUNCHES)
         rounds = [[s[2] for s in sw] for sw in r["sweeps_per_render"]]
         rates[name] = r["camera_rays_per_sec"]
         emit(dict({"phase": "bench", "scene": f"instbench_{name}", "res": 256,
@@ -1401,7 +1219,7 @@ def inst_phases(dev, gpu):
                    "seconds": time.perf_counter() - t0, "gpu": gpu}, **r))
         expected_base = dict.fromkeys(b4.KERNELS, INST_DEPTH + 1)
         check(all(v == 0 for v in other.values()),
-              f"{name}: a record-stream or brute-force kernel launched: {other}")
+              f"{name}: a brute-force kernel launched: {other}")
         check(all({k: n[k] for k in b4.KERNELS} == expected_base
                   for n in r["launches_per_render"]),
               f"{name}: base walk launches {r['launches_per_render']}")
@@ -2099,11 +1917,11 @@ def busy_share(scene, meta, cfg, spp, dev, wall):
 
 
 def _launch_counts():
-    return dict(b4.LAUNCHES, **bi.LAUNCHES, **bs.LAUNCHES)
+    return dict(b4.LAUNCHES, **bi.LAUNCHES)
 
 
 def _reset_counts():
-    for counts in (bs.LAUNCHES, b4.LAUNCHES, bi.LAUNCHES, CLOSEST_WAVES, WAVES):
+    for counts in (b4.LAUNCHES, bi.LAUNCHES, CLOSEST_WAVES, WAVES):
         counts.update(dict.fromkeys(counts, 0))
 
 

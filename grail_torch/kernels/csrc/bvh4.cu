@@ -5,10 +5,9 @@
 //   _make_skip_kernel(False) (skip-link closest hit: the tile-ordered camera
 //                             wave)
 //   _make_skip_kernel(True)  (skip-link any hit: every shadow wave)
-// whose first CUDA versions (csrc/bvh_stream.cu) walk the reference's
-// 64-byte record stream: one slab test per 64-B record, three float4 loads
-// each, along a depth-19 binary tree in which every step's address comes
-// from the previous load.
+// whose first CUDA versions walked the reference's 64-byte record stream:
+// one slab test per 64-B record, three float4 loads each, along a depth-19
+// binary tree in which every step's address comes from the previous load.
 //
 // The design:
 //   - Nodes of a 4-wide tree (the binary SAH tree collapsed on the host,
@@ -68,9 +67,9 @@
 // its steps costs the warp a whole step while a per-ray warp overlaps its
 // lanes' steps.
 //
-// The slab test and Moller-Trumbore are the record-stream kernel's term for
-// term; built with --fmad=false and IEEE division, the result equals the
-// plain PyTorch version (bvh4.py) bit for bit.
+// The slab test and Moller-Trumbore are the reference's record-stream
+// kernels' term for term; built with --fmad=false and IEEE division, the
+// result equals the plain PyTorch version (bvh4.py) bit for bit.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 

@@ -10,8 +10,8 @@ distribution, the world radius and the power-weighted light distribution,
 the camera (an environment camera given the film resolution that the
 reference's pack lacks, ROADMAP C.8), the 4-wide tables built from the
 reference's own binary tree (for a single record table and for clustered
-tables alike; the record
-table is the port's own, on request: buffers.attach_record_table), and the
+tables alike; the reference's "stream" and "cstream" record tables are
+dropped), and the
 instance table, whose BLAS table is collapsed from the reference's own
 per-object binary trees, the measured BRDF tables, the media regions
 with their density grids, and a scene-sharded partition ("ring": its

@@ -14,7 +14,7 @@ Distribution2D, the world radius and the power-weighted light
 Distribution1D, the camera pack, the measured BRDF tables
 ("brdf_tables"), the participating-media regions ("media", with their
 density grids) and, above 64 triangles, the BVH's 4-wide node and triangle
-tables (its record table on request). Instanced objects
+tables. Instanced objects
 (pbrt's ObjectBegin/ObjectInstance) append their object-space triangles
 once, after the base soup, and add the instance table ("inst"): one 4-wide
 table of every object's BLAS with each instance's root, its decomposed
@@ -35,7 +35,6 @@ from ..core.rng import SamplerConfig
 from ..device import resolve_device
 from ..engine.filters import FilterConfig
 from ..kernels.bvh4 import build_bvh4_blas, build_bvh4_tables
-from ..kernels.bvh_stream import build_stream_table, tree_depth
 from ..shade import bsdf as bx
 from ..shade import geometry as geom
 from ..shade import lights as lt
@@ -53,23 +52,10 @@ SENTINEL_TRI = np.asarray([[1e30, 1e30, 1e30], [1e30, 1e30 + 1, 1e30],
 def binary_bvh(verts, tri_idx):
     """The binary SAH tree that a scene's BVH tables are built from (numpy
     arrays in scene/bvh.py's layout), by the builder the reference picks for
-    its size (bvh.build_bvh_auto). force_leaf=4: a box record costs the
-    record-stream traversal as much as a triangle record."""
+    its size (bvh.build_bvh_auto). max_prims=4 and force_leaf=4 are the
+    reference's (grail/scene/buffers.py:634), so the 4-wide tables collapse
+    the reference's own tree."""
     return build_bvh_auto(verts, tri_idx, max_prims=4, force_leaf=4)
-
-
-def attach_record_table(scene):
-    """Add the 64-byte record table of the BVH ("stream") and the binary
-    tree's depth ("depth") to a BVH scene, on the scene's device: the tables
-    of the record-stream kernels (kernels/bvh_stream.py), which no main-path
-    wave runs. Built from the same binary tree as the scene's 4-wide tables.
-    Returns the scene."""
-    verts, tri_idx = (scene[k].detach().cpu().numpy() for k in ("verts", "tri_idx"))
-    tree = binary_bvh(verts, tri_idx)
-    scene["bvh"]["stream"] = torch.as_tensor(build_stream_table(tree, verts, tri_idx),
-                                             device=scene["verts"].device)
-    scene["bvh"]["depth"] = tree_depth(tree)
-    return scene
 
 
 @dataclasses.dataclass(frozen=True)
@@ -645,9 +631,9 @@ class SceneBuilder:
             scene["media"] = media_table(self.media_regions)
             scene["density_grids"] = tuple(self.density_grids)
 
-        # ---- the BVH's 4-wide tables over the base soup (the record table
-        # only on request: attach_record_table). An instanced scene always
-        # has one: the brute route would test the object-space rows too.
+        # ---- the BVH's 4-wide tables over the base soup, collapsed from the
+        # reference's binary tree. An instanced scene always has them: the
+        # brute route would test the object-space rows too.
         if n_tris > BRUTE_MAX_TRIS or self.instances:
             nodes, tris4, stack = build_bvh4_tables(binary_bvh(verts, base_idx),
                                                     verts, tri_idx)

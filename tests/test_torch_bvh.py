@@ -1,20 +1,17 @@
-"""The port's BVH builders, record-table packer, ray binning and the plain
-versions of the four stream traversals against grail's, on the terrain scene
+"""The port's BVH builders and ray binning against grail's, and the
+dispatch's BVH routes against grail's skip kernel, on the terrain scene
 (mesh_scene at grid=24: 1,058 terrain and 2,208 sphere triangles).
 
-Builders and packer: array for array and bit for bit. The scene's builder
-dispatch (scene/buffers.py binary_bvh: numpy below 2,048 triangles, C++
-from there, as the reference's build_bvh_auto) on twelve spheres of 32 to
-4,096 triangles, two of which the C++ builder alone splits otherwise. Traversals: each plain
-traversal against grail's Pallas kernel of the same kind and hit mode, run
-in interpret mode, on ~1,100 rays (the reference pads them to 2,048): random
-rays, finite shadow segments and dead lanes. Hit masks and occlusion masks
-must be equal; where both hit, t matches to rtol 1e-4, atol 1e-4 and prim
-agrees on >= 99.9% of rays. The closest hit is unique except for rays whose
-t ties exactly between two triangles, which the two packages may resolve by
-a different visit order (per-ray near child here, per-packet there). An
-ordered any hit is the first hit in that visit order, so there only the
-occlusion is compared, and each reported triangle is checked to be a hit.
+Builders: array for array and bit for bit. The scene's builder dispatch
+(scene/buffers.py binary_bvh: numpy below 2,048 triangles, C++ from there,
+as the reference's build_bvh_auto) on twelve spheres of 32 to 4,096
+triangles, two of which the C++ builder alone splits otherwise. Dispatch:
+intersect and intersect_p against grail's Pallas kernels, run in interpret
+mode, on ~1,100 rays (the reference pads them to 2,048): random rays, finite
+shadow segments and dead lanes. Hit masks and occlusion masks must be
+equal, and prim agrees on >= 99.9% of rays. The closest hit is unique
+except for rays whose t ties exactly between two triangles, which the two
+packages may resolve by a different visit order.
 """
 import numpy as np
 import pytest
@@ -24,11 +21,10 @@ import jax
 import jax.numpy as jnp
 
 from grail.kernels import binning as jbin
-from grail.kernels.bvh_stream import _run, build_stream_table as jbuild_table
+from grail.kernels.bvh_stream import _run
 from grail.scene.bvh import build_bvh as jbuild_bvh, build_bvh_auto as jbuild_auto
 from grail.scene.presets import mesh_scene
 from grail_torch.kernels import binning as tbin
-from grail_torch.kernels import bvh_stream as tbs
 from grail_torch.kernels import intersect as tisect
 from grail_torch.native import build_bvh_native
 from grail_torch.scene import bvh as tbvh
@@ -61,7 +57,7 @@ def terrain():
             "o": o, "d": d, "tmin": tmin, "tmax": tmax}
 
 
-def test_builders_and_table_match_reference(terrain):
+def test_builders_match_reference(terrain):
     s = terrain["scene_np"]
     verts, tris = s["verts"], s["tri_idx"]
     ref = jbuild_bvh(verts, tris, max_prims=4, force_leaf=4)
@@ -69,23 +65,6 @@ def test_builders_and_table_match_reference(terrain):
     assert ref.keys() == got.keys()
     for k in ref:
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
-    table = tbs.build_stream_table(ref, verts, tris)
-    assert table.dtype == np.float32 and table.shape[1] == 128
-    np.testing.assert_array_equal(table.view(np.uint32),
-                                  np.asarray(jbuild_table(ref, verts, tris)).view(np.uint32))
-    # the reference scene's own table (built by its native builder)
-    np.testing.assert_array_equal(table.view(np.uint32),
-                                  s["bvh"]["stream"].view(np.uint32))
-    # depth: the longest run of interior nodes, checked by walking the tree
-    right, leaf = ref["right"], ref["nprims"] > 0
-
-    def longest(i):
-        return 0 if leaf[i] else 1 + max(longest(i + 1), longest(right[i]))
-    assert tbs.tree_depth(ref) == longest(0) > 5
-    # the ordered kernel refuses a tree deeper than its stack
-    args = [torch.tensor(table)] + [torch.zeros(1, 3)] * 2 + [torch.zeros(1)] * 2
-    with pytest.raises(ValueError, match="stack"):
-        tbs.stream_traverse(*args, kind="ordered", depth=tbs.STACK + 1)
 
 
 # (nu, nv) of sphere meshes of 2·nu·nv triangles: (6, 4) and (10, 5) are
@@ -109,56 +88,6 @@ def test_scene_builder_dispatch_matches_reference(nu, nv):
         else build_bvh_native(verts, idx, 4, 4)["right"], ref["right"])
     if (nu, nv) in ((6, 4), (10, 5)):       # the C++ builder alone differs here
         assert len(build_bvh_native(verts, idx, 4, 4)["right"]) != len(ref["right"])
-
-
-@pytest.mark.parametrize("kind", ["skip", "ordered"])
-@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
-def test_plain_traversal_matches_pallas_interpret(terrain, kind, any_hit):
-    s = terrain
-    table = s["scene_np"]["bvh"]["stream"]
-    ref = [np.asarray(a) for a in _run(
-        jnp.asarray(table), *(jnp.asarray(s[k]) for k in ("o", "d", "tmin", "tmax")),
-        any_hit=any_hit, interpret=True, kind=kind)]
-    before = dict(tbs.LAUNCHES)
-    t, prim, b1, b2, n_box, n_tri = (a.numpy() for a in tbs.stream_traverse_plain(
-        torch.tensor(table), *(torch.tensor(s[k]) for k in ("o", "d", "tmin", "tmax")),
-        any_hit=any_hit, kind=kind))
-    hit, hit_ref = prim >= 0, ref[1] >= 0
-    np.testing.assert_array_equal(hit, hit_ref)
-    assert 0.2 < hit.mean() < 0.9
-    assert not hit[500:600].any()                    # dead lanes
-    both = hit & hit_ref
-    if any_hit:
-        assert (t[hit] == np.float32(-3.0e37)).all()
-        # any hit reports the first hit in visit order: the skip traversal's
-        # preorder is the reference's, the ordered one picks its near child
-        # per ray where the reference picks it per 128-ray packet, so there
-        # only the occlusion is comparable; every reported prim is a real
-        # hit of its ray within (tmin, tmax)
-        if kind == "skip":
-            assert (prim[both] == ref[1][both]).mean() >= 0.999
-        tri = torch.tensor(s["scene_np"]["verts"])[
-            torch.tensor(s["scene_np"]["tri_idx"]).long()[torch.tensor(prim[hit]).long()]]
-        real, _, _, _ = tisect.moller_trumbore(
-            torch.tensor(s["o"][hit]), torch.tensor(s["d"][hit]), tri[:, 0],
-            tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0],
-            torch.tensor(s["tmin"][hit]), torch.tensor(s["tmax"][hit]))
-        assert real.float().mean() >= 0.999
-    else:
-        assert (prim[both] == ref[1][both]).mean() >= 0.999
-        np.testing.assert_allclose(t[both], ref[0][both], rtol=1e-4, atol=1e-4)
-        np.testing.assert_array_equal(t[~hit], s["tmax"][~hit])
-        same = both & (prim == ref[1])
-        np.testing.assert_allclose(b1[same], ref[2][same], rtol=1e-4, atol=1e-4)
-        np.testing.assert_allclose(b2[same], ref[3][same], rtol=1e-4, atol=1e-4)
-    # every ray reads the root; a triangle is visited only behind a box
-    assert (n_box + n_tri >= 1).all() and (n_box[n_tri > 0] >= 1).all()
-    # the wrapper takes the plain version on the CPU and launches nothing
-    t_w, prim_w, _, _ = tbs.stream_traverse(
-        torch.tensor(table), *(torch.tensor(s[k]) for k in ("o", "d", "tmin", "tmax")),
-        any_hit=any_hit, kind=kind, depth=tbs.tree_depth(s["scene_np"]["bvh"]))
-    np.testing.assert_array_equal(prim_w.numpy(), prim)
-    assert tbs.LAUNCHES == before
 
 
 def test_binning_matches_reference(terrain):

@@ -6,17 +6,18 @@ Collapse: every triangle once in the leaves, every child box its binary
 node's box bit for bit, at most 4 children a node, the stack bound. Walk:
 bvh4_traverse_plain against grail's Pallas kernels in interpret mode (ordered
 closest hit, skip any hit and skip closest hit, the kernels it replaces on
-the main path) and
-against the port's record-stream plain versions. The closest hit is unique
-except where two triangles tie on t exactly, which the walks may resolve by
-another visit order: prims must agree on >= 99.9% of rays. Where they do,
-t, b1, b2 are bitwise equal to the port's record-stream walk (the same
-arithmetic) and within rtol 1e-4, atol 1e-4 of grail's, as in
-tests/test_torch_bvh.py: XLA's CPU backend contracts the Pallas kernel's
-multiply-adds into FMAs, which moves t by a few ulps. An any hit reports the first hit in its own
-visit order (near first here, preorder there), so only the occlusion is
-compared and each reported triangle is checked to be a hit. The tie rule:
-children with equal entry distance are visited in slot order.
+the main path) and against the port's all-pairs oracle
+(kernels/intersect.py intersect_brute, intersect_p_brute) on three
+geometries. The closest hit is unique except where two triangles tie on t
+exactly, which the walks may resolve by another visit order: prims must
+agree on >= 99.9% of hits. Where they do, t, b1, b2 are bitwise equal to the
+oracle's (the same Moller-Trumbore, term for term) and within rtol 1e-4,
+atol 1e-4 of grail's, as in tests/test_torch_bvh.py: XLA's CPU backend
+contracts the Pallas kernel's multiply-adds into FMAs, which moves t by a
+few ulps. An any hit reports the first hit in its own visit order (near
+first here, preorder there), so only the occlusion is compared and each
+reported triangle is checked to be a hit. The tie rule: children with equal
+entry distance are visited in slot order.
 """
 import numpy as np
 import pytest
@@ -28,11 +29,12 @@ import jax.numpy as jnp
 from grail.kernels.bvh_stream import _run
 from grail.scene.presets import mesh_scene
 from grail_torch.kernels import bvh4 as b4
-from grail_torch.kernels import bvh_stream as tbs
 from grail_torch.kernels import intersect as tisect
 from grail_torch.native import build_bvh_native
 from grail_torch.scene.bridge import scene_from_numpy
-from grail_torch.scene.presets import mesh_scene as torch_mesh_scene
+from grail_torch.scene.buffers import SceneBuilder, binary_bvh
+from grail_torch.scene.presets import cornell_box, mesh_scene as torch_mesh_scene
+from grail_torch.scene.shapes import sphere
 
 torch.set_num_threads(2)
 
@@ -58,6 +60,7 @@ def terrain():
     tmax[500:600] = 0.0                                       # dead lanes
     tmin[600:650] = 0.25
     return {"scene_np": scene_np, "meta": meta, "bvh": ts["bvh"],
+            "verts": ts["verts"], "tri_idx": ts["tri_idx"],
             "o": o, "d": d, "tmin": tmin, "tmax": tmax}
 
 
@@ -183,23 +186,81 @@ def test_plain_matches_pallas_interpret(terrain, any_hit, kind):
     assert b4.LAUNCHES == before
 
 
+def _inside_sphere():
+    """Rays from inside a closed sphere of 576 triangles (nu=24, nv=12):
+    every live ray hits and walks several leaves; 16 dead lanes."""
+    verts, idx, _, _ = sphere(nu=24, nv=12)
+    nodes, tris, stack = b4.build_bvh4_tables(binary_bvh(verts, idx), verts, idx)
+    rs = np.random.RandomState(5)
+    n = 512
+    o = ((rs.rand(n, 3) - 0.5) * 0.8).astype(np.float32)
+    d = rs.randn(n, 3).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmin = np.zeros(n, np.float32)
+    tmax = np.full(n, 1.0e7, np.float32)
+    tmax[:16] = 0.0                                   # dead lanes
+    return {"bvh": {"bvh4_nodes": torch.tensor(nodes), "bvh4_tris": torch.tensor(tris),
+                    "bvh4_stack": stack},
+            "verts": torch.tensor(verts), "tri_idx": torch.tensor(idx),
+            "o": o, "d": d, "tmin": tmin, "tmax": tmax}
+
+
+def _random65():
+    """The smallest BVH scene, 65 random triangles in the unit cube, built by
+    SceneBuilder; rays through the cube with dead lanes and tmin > 0."""
+    b = SceneBuilder()
+    b.add_mesh(np.random.RandomState(0).rand(65 * 3, 3),
+               np.arange(65 * 3).reshape(65, 3), b.matte())
+    b.camera = cornell_box(16, 16, 1, device="cpu")[2].camera
+    scene, _ = b.finalize(device="cpu")
+    rs = np.random.RandomState(3)
+    n = 1024
+    o = (rs.rand(n, 3) * 2.0 - 0.5).astype(np.float32)
+    d = (rs.rand(n, 3) - o).astype(np.float32)        # toward the cube
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmin = np.zeros(n, np.float32)
+    tmax = np.full(n, 1.0e7, np.float32)
+    tmax[:64] = 0.0                                   # dead lanes
+    tmin[64:320] = rs.rand(256).astype(np.float32)    # tmin > 0
+    return {"bvh": scene["bvh"], "verts": scene["verts"], "tri_idx": scene["tri_idx"],
+            "o": o, "d": d, "tmin": tmin, "tmax": tmax}
+
+
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any_hit"])
-def test_plain_matches_stream_plain(terrain, any_hit):
-    """Against the record-stream walk it replaces: fewer items visited, the
-    same hits (bitwise where prims agree), the same occlusion."""
-    s = terrain
-    table = torch.tensor(s["scene_np"]["bvh"]["stream"])
-    ref = [a.numpy() for a in tbs.stream_traverse_plain(
-        table, *(torch.tensor(s[k]) for k in RAYS), any_hit=any_hit,
-        kind="skip" if any_hit else "ordered")]
-    got = _plain(s, any_hit)
-    np.testing.assert_array_equal(got[1] >= 0, ref[1] >= 0)
-    same = got[1] == ref[1]
-    if not any_hit:
-        assert same.mean() >= 0.999
-    for a, r in zip(got[:4], ref[:4]):
+@pytest.mark.parametrize("geometry", ["terrain", "sphere", "random65"])
+def test_walk_matches_brute_oracle(request, geometry, any_hit):
+    """Against the all-pairs oracle: the same hits, prims agreeing on
+    >= 99.9% of them and t, b1, b2 bitwise where they do; the same
+    occlusion."""
+    s = (request.getfixturevalue("terrain") if geometry == "terrain"
+         else _inside_sphere() if geometry == "sphere" else _random65())
+    o, d, tmin, tmax = (torch.tensor(s[k]) for k in RAYS)
+    geo = {"verts": s["verts"], "tri_idx": s["tri_idx"]}
+    chunks = [slice(i, i + 256) for i in range(0, len(o), 256)]
+    t, prim, b1, b2, n_node, _, n_tri = _plain(s, any_hit)
+    hit, live = prim >= 0, s["tmax"] > s["tmin"]
+    assert not hit[~live].any() and 0 < hit.mean()
+    if geometry == "sphere":
+        # a leaf holds at most 4 triangles: a closest hit tests several
+        assert hit[live].all() and (n_node[live] > 1).all()
+        assert any_hit or n_tri[live].mean() > 4
+    else:
+        assert hit[live].mean() < 1
+    if any_hit:
+        occ = torch.cat([tisect.intersect_p_brute(geo, o[c], d[c], tmax[c], tmin[c])
+                         for c in chunks]).numpy()
+        np.testing.assert_array_equal(hit, occ)
+        assert (t[hit] == np.float32(-3.0e37)).all()
+        return
+    ref = [torch.cat(a).numpy() for a in zip(*(
+        (r["t"], r["prim"], r["b1"], r["b2"])
+        for r in (tisect.intersect_brute(geo, o[c], d[c], tmax[c], tmin[c]) for c in chunks)))]
+    np.testing.assert_array_equal(hit, ref[1] >= 0)
+    same = hit & (prim == ref[1])
+    assert same.sum() >= 0.999 * hit.sum()
+    for a, r in zip((t, b1, b2), ref[0:1] + ref[2:]):
         np.testing.assert_array_equal(a[same].view(np.uint32), r[same].view(np.uint32))
-    assert got[4].sum() + got[6].sum() < ref[4].sum() + ref[5].sum()
+    np.testing.assert_array_equal(t[~hit], s["tmax"][~hit])
 
 
 def _tie_tables(lo_z):

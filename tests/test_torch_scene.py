@@ -17,7 +17,7 @@ from grail.scene.presets import cornell_box as jax_cornell
 from grail.scene.presets import mesh_scene as jax_mesh_scene
 from grail.scene.presets import mesh_scene_1m as jax_mesh_scene_1m
 from grail_torch.scene.bridge import scene_from_numpy
-from grail_torch.scene.buffers import SceneBuilder, attach_record_table
+from grail_torch.scene.buffers import SceneBuilder
 from grail_torch.scene.presets import cornell_box, mesh_scene, mesh_scene_1m
 
 torch.set_num_threads(2)
@@ -117,12 +117,10 @@ def test_unported_scenes_raise(both):
                                   device="cpu")
     assert tm_crop.crop == (0.0, 0.5, 0.0, 1.0)
     # above 64 triangles a scene gets a BVH, as the reference: its 4-wide
-    # tables, and its record table only on request
+    # tables and nothing else
     b = SceneBuilder()
     verts = np.random.RandomState(0).rand(65 * 3, 3)
     b.add_mesh(verts, np.arange(65 * 3).reshape(65, 3), b.matte())
     b.camera = cornell_box(16, 16, 1, device="cpu")[2].camera
     scene, _ = b.finalize(device="cpu")
     assert set(scene["bvh"]) == {"bvh4_nodes", "bvh4_tris", "bvh4_stack"}
-    attach_record_table(scene)
-    assert scene["bvh"]["stream"].shape[1] == 128 and scene["bvh"]["depth"] >= 1
