@@ -99,6 +99,25 @@ failure ends the run with a non-zero exit code:
       pixel ids and sample indices, the kernel beside the plain version
       (CUDA events; the host's time a call), bitwise, with the byte bound
       and its share, and each kernel instance's registers.
+  the BSDF kernel (kernels/csrc/bsdf.cu, shade/bsdf.py::bsdf_f, bsdf_pdf
+  and bsdf_sample):
+  22b. bsdf: tests/test_torch_bsdf_card.py in this process, without the
+      tests' conftest: the kernel bitwise the plain version for every lobe
+      type, MEASURED's tables included, alone and mixed, K = 1 to 4, every
+      Fresnel kind, include_specular both ways, strided, expanded and empty
+      operands, the sampled slot, and its backward's gradients against the
+      plain version's autograd; then one render at mesh100k.path's traffic
+      (256x256, 64 spp, path depth 5) under torch.profiler: the kernel's
+      launches by route, which must equal the bsdf_eval and bsdf_sample
+      spans; a gradient step at cornell.train's shape (256x256, 1 spp, the
+      albedos), every BSDF call of it one launch forward and each of its
+      backwards one more, timed beside the same step on the plain version,
+      with the gradients' largest difference; each route at 1,048,576
+      lanes of mesh100k's stack (its material table's LAMBERT and BLINN
+      slots), the kernel beside the plain version (CUDA events; the host's
+      time a call), bitwise, with the byte bound and its share, and each
+      route's registers; and the backward of bsdf_f and bsdf_sample in the
+      slots' colours there, kernel beside plain.
   pbrt scene files (scenes/cornell.pbrt, glossy.pbrt, envlight.pbrt, through
   the port's own parser, 4-wide kernels):
   23. pbrt: each scene rendered at its authored settings by the command line
@@ -301,6 +320,7 @@ from grail_torch.engine.render import (auto_spp_chunk, camera_rays, megawave_lan
                                        occupancy_probe, photon_config, preprocess, render,
                                        render_adaptive, render_wave)
 from grail_torch.kernels import brute_intersect as bi
+from grail_torch.kernels import bsdf as kbsdf
 from grail_torch.kernels import bvh4 as b4
 from grail_torch.kernels import build
 from grail_torch.kernels import film as kfilm
@@ -314,6 +334,7 @@ from grail_torch.scene.buffers import SceneBuilder
 from grail_torch.scene.parser import parse_file, parse_string
 from grail_torch.scene.presets import cornell_box, mesh_scene, mesh_scene_1m
 from grail_torch.scene.shapes import sphere
+from grail_torch.shade import bsdf as bx
 from grail_torch.shade import media
 from grail_torch.shade import megabatch
 from grail_torch.shade.lights import AREA, INFINITE
@@ -511,6 +532,12 @@ RNG_CARD_TESTS = "tests/test_torch_rng_card.py"
 RNG_SOURCE = "grail_torch/kernels/csrc/sampler.cu"
 RNG_LANES, RNG_RENDER_CALLS = 1 << 20, 156
 RNG_LANE_BYTES = {"sample_1d": 20, "sample_2d": 24}   # pix, samp in; one or two floats out
+# the BSDF kernel (phase 22b): its card tests, one render at mesh100k.path's
+# traffic, and each route at a megawave's lanes of mesh100k's stack
+BSDF_CARD_TESTS = "tests/test_torch_bsdf_card.py"
+BSDF_SOURCE = "grail_torch/kernels/csrc/bsdf.cu"
+BSDF_LANES = 1 << 20
+BSDF_OUT_BYTES = {"f": 12, "pdf": 4, "sample": 30}   # f; pdf; wi, f, pdf, two flags
 
 
 def emit(obj):
@@ -1521,7 +1548,8 @@ def film_phases(dev, gpu):
 
 def ptxas_registers(log):
     """{entry function: registers} from ptxas's -v output (a sampler
-    instance's mangled name shortened to sampler_kernel<kind,two>)."""
+    instance's mangled name shortened to sampler_kernel<kind,two>, a BSDF
+    one's to bsdf_kernel<route> or bsdf_backward<route>)."""
     out, fn = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -1530,6 +1558,9 @@ def ptxas_registers(log):
             inst = re.search(r"sampler_kernelILi(\d+)ELb(\d)E", fn)
             if inst:
                 fn = f"sampler_kernel<{inst.group(1)},{inst.group(2)}>"
+            inst = re.search(r"bsdf_(kernel|backward)ILi(\d)E", fn)
+            if inst:
+                fn = f"bsdf_{inst.group(1)}<{inst.group(2)}>"
         m = re.search(r"Used (\d+) registers", ln)
         if m and fn:
             out[fn] = int(m.group(1))
@@ -1623,6 +1654,195 @@ def sampler_phases(dev, gpu, built):
             "bound_ms_every_pair": None, "library_ms": None})
         del got, ref
     emit({"phase": "sampler", "render_launches": render_launches, "registers": registers,
+          "seconds": time.perf_counter() - t0})
+    return entries
+
+
+def _raw_bits(x):
+    """A float32 or bool tensor's bits, to compare bit for bit."""
+    return x.view(torch.uint8 if x.dtype == torch.bool else torch.int32)
+
+
+def bsdf_bytes(route, tags, kinds):
+    """The bytes one launch of `route` must move on a stack of (N, K) tags
+    and Fresnel kinds: every slot's tag; bsdf_pdf a BLINN slot's exponent;
+    bsdf_f and bsdf_sample each LAMBERT and BLINN slot's colour, a BLINN
+    slot's exponent and Fresnel tag, and a dielectric's ior; wo, and wi or
+    the three uniforms; the outputs."""
+    lam = int((tags == bx.LAMBERT).sum())
+    blinn = tags == bx.BLINN
+    fields = 4 * int(blinn.sum())
+    if route != "pdf":
+        fields = 12 * (lam + int(blinn.sum())) + 8 * int(blinn.sum()) + 4 * int(
+            (blinn & (kinds == bx.FR_DIELECTRIC)).sum())
+    return 4 * tags.numel() + fields + tags.shape[0] * (24 + BSDF_OUT_BYTES[route])
+
+
+def bsdf_phases(dev, gpu, built):
+    """Phase 22b: the BSDF kernel's card tests in this process (their
+    conftest, which loads JAX, skipped); its launches by route in a render
+    at mesh100k.path's traffic against the bsdf spans there; each route at a
+    megawave's lanes of mesh100k's stack beside the plain version, bitwise,
+    with its byte bound and registers (`built`, build.build's result).
+    Returns the kernels line's entries."""
+    t0 = time.perf_counter()
+    outcomes, log = _Outcomes(), io.StringIO()
+    with contextlib.redirect_stdout(log):
+        code = pytest.main([os.path.join(ROOT, BSDF_CARD_TESTS), "--noconftest", "-q",
+                            "-p", "no:cacheprovider"], plugins=[outcomes])
+    emit({"phase": "bsdf_card_tests", "outcomes": outcomes.counts, "exit_code": int(code),
+          "seconds": time.perf_counter() - t0})
+    check(code == 0 and set(outcomes.counts) == {"passed"},
+          f"the BSDF kernel's card tests: {outcomes.counts}\n{log.getvalue()[-4000:]}")
+
+    # one launch a BSDF call in a render at mesh100k.path's traffic, none on
+    # the plain version
+    t1 = time.perf_counter()
+    scene, meta, _ = mesh_scene(FILM_RES, FILM_RES, 64, device=dev)
+    cfg = IntegratorConfig(kind="path", max_depth=5)
+    render(scene, meta, cfg, spp=64, device=dev)
+    _reset(kbsdf.LAUNCHES)
+    telemetry.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        render(scene, meta, cfg, spp=64, device=dev)
+        torch.cuda.synchronize()
+    spans = collections.Counter(s.name for s in telemetry.SPANS)
+    telemetry.reset()
+    render_counts = dict(kbsdf.LAUNCHES)
+    line = {"phase": "bsdf_launches", "scene": "mesh100k", "res": FILM_RES, "spp": 64,
+            "max_depth": cfg.max_depth, "launches": render_counts,
+            "bsdf_eval_spans": spans["bsdf_eval"],
+            "bsdf_sample_spans": spans["bsdf_sample"], "seconds": time.perf_counter() - t1}
+    emit(line)
+    check(render_counts["f"] + render_counts["pdf"] == spans["bsdf_eval"] > 0
+          and render_counts["sample"] == spans["bsdf_sample"] > 0,
+          f"the BSDF kernel's launches in a render: {line}, want one a call")
+
+    # a gradient step at cornell.train's shape (256x256, 1 spp, the albedos
+    # requiring a gradient): every BSDF call one launch forward and one in
+    # backward, beside the same step with the plain version on the card
+    cscene, cmeta, _ = cornell_box(FILM_RES, FILM_RES, 1, device=dev)
+    leaves = {"const": GRAD_LEAVES["cornell"]["const"]}
+    step = {}
+    for version in ("kernel", "plain", "kernel", "plain"):
+        saved = kbsdf.plan
+        if version == "plain":
+            kbsdf.plan = lambda *a, **k: "cpu"
+        _reset(kbsdf.LAUNCHES)
+        _reset(kbsdf.BACKWARD)
+        try:
+            _, grads, fwd_s, bwd_s = scene_grads(cscene, cmeta, leaves, cfg, dev)
+        finally:
+            kbsdf.plan = saved
+        step[version] = {"forward_ms": fwd_s * 1e3, "backward_ms": bwd_s * 1e3,
+                         "grad": grads["const"], "launches": dict(kbsdf.LAUNCHES),
+                         "backward_launches": dict(kbsdf.BACKWARD)}
+    scale = float(step["plain"]["grad"].abs().max())
+    line = {"phase": "bsdf_grad_step", "scene": "cornell", "res": FILM_RES, "spp": 1,
+            "max_depth": cfg.max_depth,
+            "grad_max_rel_diff": float((step["kernel"]["grad"] - step["plain"]["grad"]).abs()
+                                       .max()) / max(scale, 1e-30),
+            **{f"{version}_{key}": value for version, row in step.items()
+               for key, value in row.items() if key != "grad"}, "gpu": gpu}
+    emit(line)
+    check(step["kernel"]["launches"]["sample"] > 0
+          and step["kernel"]["backward_launches"]["sample"] > 0
+          and not any(step["plain"]["launches"].values())
+          and line["grad_max_rel_diff"] < 1e-4,
+          f"a gradient step's BSDF calls: {line}, want every one on the kernel, both ways, "
+          "and the plain version's gradient")
+    del cscene
+
+    # each route at a megawave's lanes of mesh100k's stack: the material
+    # table's rows at random, the kernel beside the plain version, whose
+    # values it must equal bit for bit
+    gen = torch.Generator(device=dev).manual_seed(22)
+    mats = scene["materials"]
+    mid = torch.randint(0, mats["lobe_type"].shape[0], (BSDF_LANES,), generator=gen, device=dev)
+    tags, kinds = mats["lobe_type"][mid], mats["fr"][mid]
+    k = tags.shape[1]
+
+    def rand(*shape):
+        return torch.rand((BSDF_LANES,) + shape, generator=gen, device=dev)
+
+    lobes = {"type": tags, "fr": kinds, "R": rand(k, 3), "S1": rand(k, 3), "S2": rand(k, 3),
+             "f0": torch.where(tags == bx.BLINN, 12.5, 1.0), "f1": torch.ones_like(rand(k)),
+             "f2": torch.full((BSDF_LANES, k), 1.5, device=dev)}
+    wo, wi = (torch.nn.functional.normalize(torch.randn((BSDF_LANES, 3), generator=gen,
+                                                        device=dev), dim=1) for _ in range(2))
+    u = [rand() for _ in range(3)]
+    present = meta.lobe_types
+    calls = {"f": (lambda f: f(lobes, wo, wi, present, False), bx.bsdf_f, bx.bsdf_f_plain),
+             "pdf": (lambda f: f(lobes, wo, wi, present, False), bx.bsdf_pdf,
+                     bx.bsdf_pdf_plain),
+             "sample": (lambda f: f(lobes, wo, *u, present, True), bx.bsdf_sample,
+                        bx.bsdf_sample_plain)}
+    registers = ptxas_registers(built.get("bsdf", (0.0, ""))[1])
+    entries = []
+    del scene
+    with torch.no_grad():
+        for route, (call, kern, plain) in calls.items():
+            got, ref = call(kern), call(plain)
+            got, ref = (got, ref) if route == "sample" else ({route: got}, {route: ref})
+            differing = {key: int((_raw_bits(got[key]) != _raw_bits(ref[key])).sum())
+                         for key in ref}
+            line = {"phase": "bsdf_time", "route": route, "lanes": BSDF_LANES,
+                    "present": list(present), "slots": k,
+                    "bound_ms": bsdf_bytes(route, tags, kinds) / PEAK_BYTES * 1e3,
+                    "differing_bits": differing,
+                    "kernel_ms": cuda_ms(lambda: call(kern), reps=50),
+                    "plain_ms": cuda_ms(lambda: call(plain), reps=5),
+                    "registers": registers.get(f"bsdf_kernel<{kbsdf.ROUTES.index(route)}>"),
+                    "gpu": gpu}
+            host = {}
+            for label, fn in (("kernel", kern), ("plain", plain)):
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                for _ in range(10):
+                    call(fn)
+                torch.cuda.synchronize()
+                host[label] = (time.perf_counter() - t2) / 10 * 1e3
+            line["host_ms_per_call"] = host
+            line["pct_of_bound"] = 100.0 * line["bound_ms"] / line["kernel_ms"]
+            emit(line)
+            check(not any(differing.values()),
+                  f"the BSDF kernel's values differ from the plain version's: {line}")
+            entries.append({
+                "name": "bsdf_" + route, "case": "megawave", "route": "cuda",
+                "source": BSDF_SOURCE, "replaces": None, "launches": render_counts[route],
+                "max_abs_err": max(float((got[key].float() - ref[key].float()).abs().max())
+                                   for key in ref),
+                "ms": line["kernel_ms"], "plain_ms": line["plain_ms"],
+                "bound_ms": line["bound_ms"], "bound_by": "bytes",
+                "bound_ms_every_pair": None, "library_ms": None})
+            del got, ref
+
+    # the backward in the slots' colours (where cornell.train's albedos
+    # enter): bsdf_f's and bsdf_sample's forward and vector-Jacobian
+    # product, kernel beside plain, the cotangent of f all ones
+    colours = lobes["R"]
+    for route in ("f", "sample"):
+        call, kern, plain = calls[route]
+
+        def vjp(fn):
+            lobes["R"] = colours.detach().requires_grad_()
+            out = call(fn)
+            out = out["f"] if route == "sample" else out
+            return torch.autograd.grad(out, lobes["R"], torch.ones_like(out))[0]
+        got, ref = vjp(kern), vjp(plain)
+        line = {"phase": "bsdf_backward_time", "route": route, "lanes": BSDF_LANES,
+                "wrt": "R", "max_rel_diff": float((got - ref).abs().max())
+                / max(float(ref.abs().max()), 1e-30),
+                "kernel_fwd_bwd_ms": cuda_ms(lambda: vjp(kern), reps=20),
+                "plain_fwd_bwd_ms": cuda_ms(lambda: vjp(plain), reps=3),
+                "registers": registers.get(f"bsdf_backward<{kbsdf.ROUTES.index(route)}>"),
+                "gpu": gpu}
+        emit(line)
+        check(line["max_rel_diff"] < 1e-5,
+              f"the BSDF kernel's gradient differs from the plain version's: {line}")
+        del got, ref
+    lobes["R"] = colours
+    emit({"phase": "bsdf", "render_launches": render_counts, "registers": registers,
           "seconds": time.perf_counter() - t0})
     return entries
 
@@ -3415,7 +3635,8 @@ def main():
     mesh1m_phases(dev, gpu)
     kernels += inst_phases(dev, gpu)
     grad_phases(dev, gpu)
-    film = film_phases(dev, gpu) + sampler_phases(dev, gpu, built)
+    film = (film_phases(dev, gpu) + sampler_phases(dev, gpu, built)
+            + bsdf_phases(dev, gpu, built))
     pbrt_phases(dev, gpu)
     direct = direct_phases(dev, gpu)
     maps = maps_phases(dev, gpu)
@@ -3430,7 +3651,7 @@ def main():
     for entry in kernels:
         for group, counts in groups.items():
             entry["launches_" + group] = counts.get(entry["name"], 0)
-    for entry in film:    # the groups do not count the film's or the sampler's launches
+    for entry in film:    # the groups do not count the film's, sampler's or BSDF's launches
         entry.update({"launches_" + group: None for group in groups})
     kernels += film
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -14,6 +14,12 @@ lobes have no f or pdf: they enter only through bsdf_sample, whose pick of
 one carries its delta value and pdf 1/n_match. A slot's f1 (the second
 exponent of ANISO and FRESNEL_BLEND, the table row of MEASURED) is read only
 where one of those types is present, and may be None elsewhere.
+
+bsdf_f, bsdf_pdf and bsdf_sample are one launch of the card's kernel
+(kernels/bsdf.py, csrc/bsdf.cu) a call on CUDA tensors, and one more in
+backward where the call records a gradient, with the bits of bsdf_f_plain,
+bsdf_pdf_plain and bsdf_sample_plain: the PyTorch version, which CPU
+tensors take.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import torch
 from .. import telemetry
 from ..core.vecmath import INV_PI, INV_TWOPI, PI, dot, normalize, safe_sqrt
 from ..core import montecarlo as mc
+from ..kernels import bsdf as kbsdf
 from . import measured
 
 # lobe type tags (same values as grail)
@@ -393,10 +400,71 @@ def diffuse_albedo(lobes):
     return rho
 
 
+def _reads_f1(present):
+    return bool({ANISO, FRESNEL_BLEND, MEASURED} & set(present))
+
+
+# The slot fields each lobe type reads besides its tag: in bsdf_f (and in
+# bsdf_sample, which also reads a delta lobe's), and in bsdf_pdf. The card's
+# kernel is handed the present types' fields alone, so a field no present
+# type reads gets no gradient, as in the plain version.
+_FRESNEL = ("fr", "S1", "S2", "f2")
+_F_READS = {LAMBERT: ("R",), LAMBERT_T: ("R",), OREN_NAYAR: ("R", "f0"),
+            BLINN: ("R", "f0") + _FRESNEL, BLINN_T: ("R", "f0") + _FRESNEL,
+            ANISO: ("R", "f0", "f1") + _FRESNEL, FRESNEL_BLEND: ("R", "S1", "f0", "f1"),
+            MEASURED: ("R", "S1", "f1")}
+_SAMPLE_READS = {**_F_READS, SPEC_REFL: ("R",) + _FRESNEL, SPEC_TRANS: ("R", "f2")}
+_PDF_READS = {BLINN: ("f0",), BLINN_T: ("f0",), ANISO: ("f0", "f1"),
+              FRESNEL_BLEND: ("f0", "f1")}
+
+
+def _kernel_fields(lobes, present, reads, directions, uniforms=(), tables=()):
+    """The slot fields the present lobe types read (`reads`: a type's
+    fields) where the card's kernel takes the call (kernels/bsdf.py::plan:
+    CUDA tensors), None where the plain version does."""
+    keys = {"type"}.union(*(reads.get(t, ()) for t in present))
+    fields = {key: lobes[key] for key in sorted(keys)}
+    return fields if kbsdf.plan(fields, directions, uniforms, tables) == "kernel" else None
+
+
 @telemetry.spanned("bsdf_eval")
 def bsdf_f(lobes, wo, wi, present, include_specular=True, tables=()):
     """Sum over lobe slots of lobe_f (pbrt BSDF::f); tables: the scene's
-    measured BRDF tables."""
+    measured BRDF tables. On CUDA tensors one launch of the card's kernel
+    (kernels/bsdf.py), which gives bsdf_f_plain's bits."""
+    fields = _kernel_fields(lobes, present, _F_READS, (wo, wi), tables=tables)
+    if fields is not None:
+        return kbsdf.launch("f", fields, present, wo, wi=wi, tables=tables)
+    return bsdf_f_plain(lobes, wo, wi, present, include_specular, tables)
+
+
+@telemetry.spanned("bsdf_eval")
+def bsdf_pdf(lobes, wo, wi, present, include_specular=False):
+    """Average pdf over matching lobes (pbrt BSDF::Pdf). On CUDA tensors one
+    launch of the card's kernel, which gives bsdf_pdf_plain's bits."""
+    fields = _kernel_fields(lobes, present, _PDF_READS, (wo, wi))
+    if fields is not None:
+        return kbsdf.launch("pdf", fields, present, wo, wi=wi,
+                            include_specular=include_specular)
+    return bsdf_pdf_plain(lobes, wo, wi, present, include_specular)
+
+
+@telemetry.spanned("bsdf_sample")
+def bsdf_sample(lobes, wo, u1, u2, u_comp, present, include_specular=True, tables=()):
+    """pbrt BSDF::Sample_f over the lobe stack. Returns dict: wi (N,3),
+    f (N,3), pdf (N,), specular (N,) bool, valid (N,) bool. On CUDA tensors
+    one launch of the card's kernel, which gives bsdf_sample_plain's bits."""
+    uniforms = (u1, u2, u_comp)
+    fields = _kernel_fields(lobes, present, _SAMPLE_READS, (wo,), uniforms, tables)
+    if fields is not None:
+        return kbsdf.launch("sample", fields, present, wo, uniforms=uniforms,
+                            include_specular=include_specular, tables=tables)
+    return bsdf_sample_plain(lobes, wo, u1, u2, u_comp, present, include_specular, tables)
+
+
+def bsdf_f_plain(lobes, wo, wi, present, include_specular=True, tables=()):
+    """bsdf_f in PyTorch operations: the CPU's version, and the card
+    kernel's reference."""
     total = wo.new_zeros(wo.shape)
     f1 = _reads_f1(present)
     for k in range(lobes["type"].shape[1]):
@@ -408,13 +476,8 @@ def bsdf_f(lobes, wo, wi, present, include_specular=True, tables=()):
     return total
 
 
-def _reads_f1(present):
-    return bool({ANISO, FRESNEL_BLEND, MEASURED} & set(present))
-
-
-@telemetry.spanned("bsdf_eval")
-def bsdf_pdf(lobes, wo, wi, present, include_specular=False):
-    """Average pdf over matching lobes (pbrt BSDF::Pdf)."""
+def bsdf_pdf_plain(lobes, wo, wi, present, include_specular=False):
+    """bsdf_pdf in PyTorch operations."""
     match = _matching_mask(lobes, include_specular)
     total = wo.new_zeros(wo.shape[:-1])
     f1 = _reads_f1(present)
@@ -426,10 +489,9 @@ def bsdf_pdf(lobes, wo, wi, present, include_specular=False):
     return torch.where(n > 0, total / torch.clamp_min(n, 1.0), 0.0)
 
 
-@telemetry.spanned("bsdf_sample")
-def bsdf_sample(lobes, wo, u1, u2, u_comp, present, include_specular=True, tables=()):
-    """pbrt BSDF::Sample_f over the lobe stack. Returns dict: wi (N,3),
-    f (N,3), pdf (N,), specular (N,) bool, valid (N,) bool."""
+def bsdf_sample_plain(lobes, wo, u1, u2, u_comp, present, include_specular=True,
+                      tables=()):
+    """bsdf_sample in PyTorch operations."""
     match = _matching_mask(lobes, include_specular)
     n_match = torch.sum(match.to(torch.int32), dim=-1)
     # pick the `which`-th matching slot
@@ -449,8 +511,10 @@ def bsdf_sample(lobes, wo, u1, u2, u_comp, present, include_specular=True, table
     wi, valid = lobe_sample_wi(ch["type"], wo, u1, u2, ch["f0"], ch.get("f2"), present,
                                ch.get("f1"))
     valid = valid & (n_match > 0)
-    f = bsdf_f(lobes, wo, wi, present, include_specular, tables)
-    pdf = bsdf_pdf(lobes, wo, wi, present, include_specular)
+    with telemetry.span("bsdf_eval"):
+        f = bsdf_f_plain(lobes, wo, wi, present, include_specular, tables)
+    with telemetry.span("bsdf_eval"):
+        pdf = bsdf_pdf_plain(lobes, wo, wi, present, include_specular)
     chosen_specular = (ch["type"] == SPEC_REFL) | (ch["type"] == SPEC_TRANS)
     if specular:
         # a specular pick carries the chosen lobe's delta value and pdf

@@ -36,6 +36,9 @@ up, once timed, then once under torch.profiler, and prints JSON lines:
 - the sampler (core/rng.py): its kernel's launches by function, the calls
   on the card that took the plain version, and the `rng` spans' calls and
   lanes (one launch a call where every call takes the kernel);
+- the BSDF stack (shade/bsdf.py): its kernel's launches by route, and the
+  `bsdf_eval` and `bsdf_sample` spans' calls (one launch a call: every CUDA
+  call takes the kernel);
 - the kernels and the operators that take the most device time.
 
 Every device number comes from the profiler's Chrome trace, whose kernel
@@ -60,6 +63,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from .. import telemetry
 from ..engine import integrator, render as rnd
+from ..kernels import bsdf as kbsdf
 from ..kernels import instanced
 from ..kernels import sampler as ksampler
 from ..scene.parser import parse_string
@@ -247,6 +251,7 @@ def main(argv=None):
     telemetry.reset()
     instanced.LAST_SWEEPS.clear()
     ksampler.LAUNCHES.update(dict.fromkeys(ksampler.LAUNCHES, 0))
+    kbsdf.LAUNCHES.update(dict.fromkeys(kbsdf.LAUNCHES, 0))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         rnd.render(scene, meta, cfg, spp=args.spp, device=dev)
@@ -285,6 +290,9 @@ def main(argv=None):
     print(json.dumps({"sampler": {"launches": dict(ksampler.LAUNCHES),
                                   "rng_calls": len(rng_spans),
                                   "rng_lanes": sum(s.lanes for s in rng_spans)}}))
+    print(json.dumps({"bsdf": {"launches": dict(kbsdf.LAUNCHES),
+                               "calls": sum(s.name in ("bsdf_eval", "bsdf_sample")
+                                            for s in spans)}}))
     if args.scene == "inst":
         # (kind, rays, rounds) of each instanced sweep of the profiled
         # render: one BLAS launch and one host sync a round
