@@ -15,8 +15,11 @@ BLAS (scene["inst"]["bvh4_nodes"], bvh4.build_bvh4_blas). That per-ray root
 replaces the reference's object-grouped 128-ray streams with a start record
 each (counting sort by object, lane masking). Rays without a candidate this
 round get tmax = -BIG_T and find nothing. The loop ends when no ray has a
-candidate left: one host sync a round. LAST_SWEEPS records each call's
-rounds.
+candidate left: one host sync a round, which reads the count of rays with a
+candidate. LAST_SWEEPS records each call's rounds. Under a profiler the
+call is a span `instanced` with the rays handed in as its lanes, and each
+round a span `sweep/closest` or `sweep/any`, opened after the round's sync,
+with the rays that have a candidate as its lanes.
 
 t parameterization: the object-space ray keeps the unnormalized transformed
 direction, so t, tmin and tmax carry over between spaces unchanged.
@@ -165,13 +168,17 @@ def object_rays(inst, sel, act, o, d, time, t):
             inst["root"][sel].contiguous())
 
 
-@telemetry.spanned("instanced")
 def instances_intersect(scene, o, d, tmax, tmin=None, time=None, any_hit=False):
     """Closest hit (or occlusion) against all instanced geometry.
 
     Returns {t, prim (global triangle id), b1, b2, inst}, prim = inst = -1 on
     a miss; any_hit=True returns {occluded}. time (N,) in [0,1] picks the
     animated transforms (None: shutter open)."""
+    with telemetry.span("instanced", o.shape[0]):
+        return _sweep(scene, o, d, tmax, tmin, time, any_hit)
+
+
+def _sweep(scene, o, d, tmax, tmin, time, any_hit):
     inst = scene["inst"]
     n = o.shape[0]
     dev = o.device
@@ -197,27 +204,30 @@ def instances_intersect(scene, o, d, tmax, tmin=None, time=None, any_hit=False):
     last_id = torch.full_like(prim, -1)
     occ = torch.zeros(n, dtype=torch.bool, device=dev) if any_hit else None
     rounds = 0
+    round_span = "sweep/any" if any_hit else "sweep/closest"
     while True:
         sel, selnear, act = next_candidates(inst, o, d, tmin, t, last_near, last_id,
                                             occ)
-        if not telemetry.sync("sweep_round", bool, act.any()):
+        lanes = telemetry.sync("sweep_round", int, act.sum())
+        if not lanes:
             break
         rounds += 1
-        o_obj, d_obj, sub_tmax, roots = object_rays(inst, sel, act, o, d, time, t)
-        t_r, prim_r, b1_r, b2_r = bvh4_traverse(
-            inst["bvh4_nodes"], inst["bvh4_tris"], o_obj, d_obj, tmin, sub_tmax,
-            any_hit, stack=inst["bvh4_stack"], roots=roots)
-        closer = prim_r >= 0
-        if any_hit:
-            occ = occ | closer
-        else:
-            t = torch.where(closer, t_r, t)
-            prim = torch.where(closer, prim_r, prim)
-            b1 = torch.where(closer, b1_r, b1)
-            b2 = torch.where(closer, b2_r, b2)
-            hit_inst = torch.where(closer, sel, hit_inst)
-        last_near = torch.where(act, selnear, last_near)
-        last_id = torch.where(act, sel, last_id)
+        with telemetry.span(round_span, lanes):
+            o_obj, d_obj, sub_tmax, roots = object_rays(inst, sel, act, o, d, time, t)
+            t_r, prim_r, b1_r, b2_r = bvh4_traverse(
+                inst["bvh4_nodes"], inst["bvh4_tris"], o_obj, d_obj, tmin, sub_tmax,
+                any_hit, stack=inst["bvh4_stack"], roots=roots)
+            closer = prim_r >= 0
+            if any_hit:
+                occ = occ | closer
+            else:
+                t = torch.where(closer, t_r, t)
+                prim = torch.where(closer, prim_r, prim)
+                b1 = torch.where(closer, b1_r, b1)
+                b2 = torch.where(closer, b2_r, b2)
+                hit_inst = torch.where(closer, sel, hit_inst)
+            last_near = torch.where(act, selnear, last_near)
+            last_id = torch.where(act, sel, last_id)
     LAST_SWEEPS.append(("any_hit" if any_hit else "closest", n, rounds))
     if any_hit:
         return {"occluded": occ}

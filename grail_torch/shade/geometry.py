@@ -44,12 +44,15 @@ def shading_geometry(scene, hit, ray_o, ray_d, time=None):
         n1 = scene["vnorm"][idx[..., 1]]
         n2 = scene["vnorm"][idx[..., 2]]
         if inst is not None and "inst" in hit:
-            on_inst = hit["inst"] >= 0
-            pk = gather_pack(inst, torch.clamp_min(hit["inst"], 0))
-            t_lane = time if time is not None else torch.zeros_like(hit["t"])
-            m = on_inst[..., None]
-            v0, v1, v2 = (torch.where(m, o2w_point(pk, t_lane, v), v) for v in (v0, v1, v2))
-            n0, n1, n2 = (torch.where(m, o2w_normal(pk, t_lane, v), v) for v in (n0, n1, n2))
+            with telemetry.span("instance_to_world", prim.shape[0]):
+                on_inst = hit["inst"] >= 0
+                pk = gather_pack(inst, torch.clamp_min(hit["inst"], 0))
+                t_lane = time if time is not None else torch.zeros_like(hit["t"])
+                m = on_inst[..., None]
+                v0, v1, v2 = (torch.where(m, o2w_point(pk, t_lane, v), v)
+                              for v in (v0, v1, v2))
+                n0, n1, n2 = (torch.where(m, o2w_normal(pk, t_lane, v), v)
+                              for v in (n0, n1, n2))
         e1 = v1 - v0
         e2 = v2 - v0
         uv0 = scene["vuv"][idx[..., 0]]
